@@ -1,0 +1,248 @@
+"""Wire codecs ported so far: ``IdentityCodec`` (the uncompressed
+baseline) and ``TacoCodec`` (the paper's compressor on the TP path).
+
+Codecs operate on 2-D ``(slots, n)`` tensors with ``n`` a multiple of
+``granule``.  ``encode`` returns the tuple of wire components,
+``decode`` inverts it and ``decode_sum`` reduces a stacked peer axis.
+
+Every compressing codec publishes a :class:`WireLayout` — the byte
+offsets and dtypes of its encoded components in one slot — and the
+transport moves all components as ONE contiguous uint8 buffer per hop.
+The layout is the JAX package's, byte for byte, so a wire row written by
+one package decodes in the other.  The transport produces and consumes
+that buffer through ``encode_wire`` / ``decode_wire`` /
+``decode_sum_wire``: the generic :class:`WireFastPath` is
+pack/unpack composed with encode/decode and defines the format, while
+``TacoCodec`` sends them to the fused wire kernels (plain versions on the
+CPU, CUDA kernels on the card).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import taco as taco_mod
+from repro_torch.core.taco import TacoConfig
+from repro_torch.kernels import ops as kops
+
+__all__ = [
+    "IdentityCodec", "TacoCodec", "WireComponent", "WireLayout",
+    "make_wire_layout", "pack_wire", "unpack_wire", "WireFastPath",
+    "PIPELINED", "SCHEDULES",
+]
+
+#: ring stage orders of chunked codecs (``schedule=`` spec token); the
+#: ring itself (``core/overlap.py``) is not ported yet
+PIPELINED, SERIAL = "pipelined", "serial"
+SCHEDULES = (PIPELINED, SERIAL)
+
+_TORCH_DTYPES = {"uint8": torch.uint8, "int8": torch.int8,
+                 "float32": torch.float32}
+
+
+@dataclasses.dataclass(frozen=True)
+class WireComponent:
+    """One encoded component inside the packed wire buffer: ``size``
+    elements of ``dtype`` (a numpy dtype name) starting at byte
+    ``offset`` of the slot's contiguous uint8 wire row."""
+
+    name: str
+    dtype: str
+    size: int
+    offset: int
+
+    @property
+    def itemsize(self) -> int:
+        return np.dtype(self.dtype).itemsize
+
+    @property
+    def nbytes(self) -> int:
+        return self.size * self.itemsize
+
+
+@dataclasses.dataclass(frozen=True)
+class WireLayout:
+    """Per-slot wire format: components in ``encode`` output order,
+    densely packed (offset_i+1 == offset_i + nbytes_i)."""
+
+    components: tuple
+
+    @property
+    def total_bytes(self) -> int:
+        if not self.components:
+            return 0
+        last = self.components[-1]
+        return last.offset + last.nbytes
+
+
+def make_wire_layout(*comps) -> WireLayout:
+    """Dense :class:`WireLayout` from ``(name, dtype, size)`` triples."""
+    out, off = [], 0
+    for name, dtype, size in comps:
+        c = WireComponent(name, np.dtype(dtype).name, int(size), off)
+        out.append(c)
+        off += c.nbytes
+    return WireLayout(tuple(out))
+
+
+def _to_bytes(a: torch.Tensor) -> torch.Tensor:
+    """Reinterpret a component's trailing dim as uint8 bytes
+    (little-endian, as the JAX bitcast)."""
+    return a.contiguous().view(torch.uint8)
+
+
+def pack_wire(enc, layout: WireLayout) -> torch.Tensor:
+    """Encoded component tuple -> ONE contiguous uint8 buffer per slot,
+    laid out per ``layout``.  The width checks catch an encode/layout
+    disagreement before bytes are shipped."""
+    if len(enc) != len(layout.components):
+        raise ValueError(f"encode produced {len(enc)} components, layout "
+                         f"declares {len(layout.components)}")
+    parts = []
+    for a, comp in zip(enc, layout.components):
+        b = _to_bytes(a)
+        if b.shape[-1] != comp.nbytes:
+            raise ValueError(
+                f"component {comp.name!r}: encode emitted {b.shape[-1]} "
+                f"bytes/slot, layout declares {comp.nbytes}")
+        parts.append(b)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def unpack_wire(wire: torch.Tensor, layout: WireLayout) -> tuple:
+    """Inverse of :func:`pack_wire`: slice the uint8 buffer at the static
+    byte offsets and reinterpret each component (any leading axes)."""
+    return tuple(
+        wire[..., c.offset:c.offset + c.nbytes].contiguous().view(
+            _TORCH_DTYPES[c.dtype])
+        for c in layout.components)
+
+
+class WireFastPath:
+    """Generic wire-native paths: pack/unpack composed with encode/decode.
+    These define the wire byte format; ``TacoCodec`` overrides them with
+    the fused kernels, which must write and read the same bytes."""
+
+    def encode_wire(self, x):
+        """(slots, n) -> (slots, total_bytes) uint8 wire buffer."""
+        return pack_wire(self.encode(x), self.wire_layout(x.shape[-1]))
+
+    def decode_wire(self, wire, n, dtype):
+        """(..., total_bytes) uint8 -> (..., n) decoded in ``dtype``."""
+        return self.decode(unpack_wire(wire, self.wire_layout(n)), n, dtype)
+
+    def decode_sum_wire(self, wire, n, dtype):
+        """(P, ..., total_bytes) uint8 -> peer-summed decode."""
+        return self.decode_sum(unpack_wire(wire, self.wire_layout(n)),
+                               n, dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class IdentityCodec:
+    """No compression: collectives move the raw tensor."""
+
+    granule: int = 1
+    chunks: int = 1
+
+    def wire_layout(self, n):
+        return None
+
+    def encode(self, x):
+        return (x,)
+
+    def decode(self, enc, n, dtype):
+        return enc[0].to(dtype)
+
+    def decode_sum(self, enc, n, dtype):
+        # accumulate the peer axis in f32, not in the bf16 wire dtype
+        x = enc[0]
+        if x.is_floating_point() and torch.finfo(x.dtype).bits < 32:
+            x = x.float()
+        return x.sum(dim=0).to(dtype)
+
+    def bytes_per_element(self, in_dtype=torch.bfloat16) -> float:
+        return float(torch.empty((), dtype=in_dtype).element_size())
+
+
+@dataclasses.dataclass(frozen=True)
+class TacoCodec(WireFastPath):
+    """The paper's compressor: payload uint8 (fp8 bits) / int8 + scales."""
+
+    cfg: TacoConfig = TacoConfig()
+    chunks: int = 1
+    schedule: str = PIPELINED
+
+    @property
+    def granule(self) -> int:
+        return self.cfg.block_size
+
+    def wire_layout(self, n):
+        return make_wire_layout(*taco_mod.wire_components(self.cfg, n))
+
+    def _groups(self):
+        b = self.cfg.block_size
+        return b // (self.cfg.quant_group_size or b)
+
+    def encode(self, x):
+        slots, n = x.shape
+        b = self.cfg.block_size
+        mb = n // b
+        q, alpha, s = kops.compress_blocks(x.reshape(slots * mb, b), self.cfg)
+        payload = taco_mod._storage_to_wire(q, self.cfg.format_spec)
+        payload = payload.reshape(slots, n)
+        groups = s.shape[-1]
+        if self.cfg.metadata == "folded":
+            return payload, (s / alpha[:, None]).reshape(slots, mb * groups)
+        return payload, s.reshape(slots, mb * groups), alpha.reshape(slots, mb)
+
+    def _fields(self, enc):
+        if self.cfg.metadata == "folded":
+            payload, s = enc
+            return payload, s, None
+        return enc
+
+    def decode(self, enc, n, dtype):
+        payload, s, alpha = self._fields(enc)
+        slots = payload.shape[0]
+        b = self.cfg.block_size
+        m = slots * (n // b)
+        q = taco_mod._wire_to_storage(payload.reshape(m, b),
+                                      self.cfg.format_spec)
+        s = s.reshape(m, self._groups())
+        alpha = None if alpha is None else alpha.reshape(m)
+        out = kops.decompress_blocks(q, s, alpha, self.cfg)
+        return out.reshape(slots, n).to(dtype)
+
+    def decode_sum(self, enc, n, dtype):
+        payload, s, alpha = self._fields(enc)
+        p = payload.shape[0]
+        b = self.cfg.block_size
+        m = (payload.numel() // p) // b
+        q = taco_mod._wire_to_storage(payload.reshape(p, m, b),
+                                      self.cfg.format_spec)
+        s = s.reshape(p, m, self._groups())
+        alpha = None if alpha is None else alpha.reshape(p, m)
+        out = kops.decompress_reduce(q, s, alpha, self.cfg)
+        return out.reshape(-1)[:n].to(dtype)
+
+    def bytes_per_element(self, in_dtype=torch.bfloat16) -> float:
+        groups = self._groups()
+        scalars = groups + (0 if self.cfg.metadata == "folded" else 1)
+        return 1.0 + 4.0 * scalars / self.cfg.block_size
+
+    # ---- fused wire-native paths: the kernels' wrappers --------------------
+    def encode_wire(self, x):
+        return kops.compress_wire(x, self.cfg)
+
+    def decode_wire(self, wire, n, dtype):
+        lead = wire.shape[:-1]
+        out = kops.decompress_wire(wire.reshape(-1, wire.shape[-1]), n,
+                                   self.cfg)
+        return out.reshape(*lead, n).to(dtype)
+
+    def decode_sum_wire(self, wire, n, dtype):
+        """(P, total_bytes) peer stack -> (n,) peer sum in ``dtype``."""
+        out = kops.decompress_reduce_wire(wire, n, self.cfg)
+        return out.reshape(-1)[:n].to(dtype)

@@ -1,0 +1,130 @@
+"""Parallelism context: group sizes + the declarative per-path codec plan.
+
+Models never move tensors between devices themselves; they go through a
+``ParallelCtx`` so that every communication site is a named, compressible
+path of a :class:`CommPlan` (paper Fig. 7 integration points):
+
+  tp_fwd / tp_bwd : TP intermediate tensors          -> TACO (the paper)
+  grad_rs         : DP/fsdp gradient reduce-scatter
+  weight_ag       : fsdp weight all-gather
+  pp              : pipeline stage boundaries
+  sp              : sequence-parallel attention hops
+
+Plans are built from spec strings by ``repro_torch.core.registry``.  This
+slice ports the decode path's AllReduce pair (``tp_g`` / ``tp_f``) on a
+tensor-parallel group of size 1; larger groups (NCCL) are the next slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.core import collectives as cc
+from repro_torch.core.codecs import IdentityCodec
+
+Identity = IdentityCodec()
+
+PATHS = ("tp_fwd", "tp_bwd", "grad_rs", "weight_ag", "pp", "sp")
+
+
+@dataclasses.dataclass(frozen=True)
+class CommPlan:
+    """Frozen per-path compression plan (same fields as the JAX plan)."""
+
+    tp_fwd: object = Identity
+    tp_bwd: object = Identity
+    grad_rs: object = Identity
+    weight_ag: object = Identity
+    pp: object = Identity
+    sp: object = Identity
+    skip_first: int = 0      # first N layers: TP identity
+    skip_last: int = 0       # last N layers: TP identity
+    warmup_steps: int = 0    # identity plan for the first K steps
+
+    @property
+    def tp_identity(self) -> bool:
+        return self.tp_fwd == Identity and self.tp_bwd == Identity
+
+    def layer_spans(self, start: int, count: int,
+                    total: int) -> tuple[tuple[int, "CommPlan"], ...]:
+        """Per-layer overrides resolved to contiguous ``(span_count, plan)``
+        spans for ``count`` layers from absolute index ``start`` of a
+        ``total``-layer stack: layers in [0, skip_first) and
+        [total - skip_last, total) get the TP-identity variant."""
+        if count <= 0:
+            return ()
+        lo = min(self.skip_first, total)
+        hi = max(total - self.skip_last, lo)
+        if (self.skip_first == 0 and self.skip_last == 0) or \
+                self.tp_identity:
+            return ((count, self),)
+        skipped = dataclasses.replace(self, tp_fwd=Identity, tp_bwd=Identity)
+        spans: list[tuple[int, CommPlan]] = []
+        for a, b, plan in ((start, min(start + count, lo), skipped),
+                           (max(start, lo), min(start + count, hi), self),
+                           (max(start, hi), start + count, skipped)):
+            n = b - a
+            if n > 0:
+                if spans and spans[-1][1] == plan:
+                    spans[-1] = (spans[-1][0] + n, plan)
+                else:
+                    spans.append((n, plan))
+        return tuple(spans)
+
+    def wire_bytes_per_element(self) -> dict:
+        """Per-path asymptotic wire bytes per element (2.0 = bf16)."""
+        return {path: float(getattr(self, path).bytes_per_element())
+                for path in PATHS}
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelCtx:
+    """Group sizes + codec plan, passed through the model stack.
+
+    ``tp_size`` / ``tp_rank`` describe the tensor-parallel group of this
+    process (size 1 on one card).  The port runs the AllReduce TP mode
+    (the decode path's f/g pair); Megatron-SP comes with training."""
+
+    tp_size: int = 1
+    tp_rank: int = 0
+    plan: CommPlan = CommPlan()
+
+    def layer_views(self, start: int, count: int,
+                    total: int) -> tuple[tuple[int, "ParallelCtx"], ...]:
+        """Static per-layer ``ParallelCtx`` spans (see
+        :meth:`CommPlan.layer_spans`)."""
+        return tuple(
+            (n, self if plan is self.plan
+             else dataclasses.replace(self, plan=plan))
+            for n, plan in self.plan.layer_spans(start, count, total))
+
+    def tp_g(self, x):
+        """Megatron "g": compressed two-shot AllReduce over the TP group."""
+        return cc.allreduce_g(x, self.tp_size, self.plan.tp_fwd,
+                              self.plan.tp_bwd)
+
+    def tp_f(self, x):
+        """Megatron "f": identity forward (its backward is the AllReduce)."""
+        return cc.copy_f(x, self.tp_size, self.plan.tp_fwd, self.plan.tp_bwd)
+
+    def weight_gather(self, w, dim: int = 0):
+        """fsdp weight gather: identity, since this slice runs unsharded
+        weights."""
+        return w
+
+
+def iter_layer_spans(ctx: ParallelCtx, start: int, count: int, total: int,
+                     *stacks):
+    """Yield ``(span_count, span_ctx, *sliced_stacks)`` for each contiguous
+    span of ``ctx.layer_views``; each stack is a nested dict of
+    layer-stacked tensors (layer-major dim 0) sliced to the span's layers
+    (views, no copies)."""
+    def cut(tree, a, b):
+        if isinstance(tree, dict):
+            return {k: cut(v, a, b) for k, v in tree.items()}
+        return tree[a:b]
+
+    off = 0
+    for span_n, span_ctx in ctx.layer_views(start, count, total):
+        yield (span_n, span_ctx) + tuple(cut(s, off, off + span_n)
+                                         for s in stacks)
+        off += span_n

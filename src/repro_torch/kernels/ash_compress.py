@@ -1,0 +1,108 @@
+"""Fused ASH compress + wire serialization — CUDA port of the TPU kernel
+``repro/kernels/ash_compress.py`` ``compress_wire_pallas``.
+
+One kernel (``csrc/ash_compress.cu``) reads a (slots, n) activation once
+and writes each slot's packed uint8 wire row once: the block RMS energy,
+the adaptive rescale, the Hadamard rotation (a shared-memory butterfly),
+the per-group max-abs scale and the saturating low-bit cast all happen in
+registers and shared memory.
+
+The wrapper dispatches by the tensor's device: a CPU tensor takes the
+plain PyTorch version (``ref.compress_wire_ref``), a CUDA tensor launches
+the kernel or raises.  The TPU's tiling limits (``ROW_TILE``, the VMEM
+slot budget) do not carry over: the kernel takes any n that is a multiple
+of the block size.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build, ref
+
+#: payload format codes of the C interface (csrc/ash_common.cuh)
+FMT_CODE = {"e4m3": 0, "e5m2": 1, "int8": 2}
+#: grid.y limit: one block row per slot on the y axis
+MAX_SLOTS = 65535
+
+
+def supported(cfg) -> bool:
+    """Coverage of the CUDA wire kernels: the production TACO configuration
+    (ash transform, block-or-finer scales, as the TPU kernels) at the
+    kernels' block size B=256 with an f32 compute dtype."""
+    return (cfg.transform == "ash" and cfg.scale_granularity == "block"
+            and cfg.block_size == 256 and cfg.compute_dtype == "float32")
+
+
+def check_supported(cfg) -> None:
+    if not supported(cfg):
+        raise NotImplementedError(
+            f"the CUDA wire kernels cover transform='ash', block scales, "
+            f"block_size=256 and compute_dtype='float32'; got {cfg}")
+
+
+def wire_geometry(cfg, n: int):
+    """Static byte geometry of one ``n``-element wire slot: ``(mb, groups,
+    scale_nbytes, alpha_nbytes, total_bytes)``, derived from
+    ``taco.wire_components`` — the layout the transport packs."""
+    from repro_torch.core import taco as taco_mod
+
+    comps = {name: (dtype, size)
+             for name, dtype, size in taco_mod.wire_components(cfg, n)}
+    mb = n // cfg.block_size
+    scale_nbytes = comps["scale"][1] * np.dtype(comps["scale"][0]).itemsize
+    groups = cfg.block_size // (cfg.quant_group_size or cfg.block_size)
+    alpha_nbytes = 0
+    if "alpha" in comps:
+        alpha_nbytes = comps["alpha"][1] * np.dtype(comps["alpha"][0]).itemsize
+    return mb, groups, scale_nbytes, alpha_nbytes, \
+        n + scale_nbytes + alpha_nbytes
+
+
+@functools.cache
+def _lib():
+    lib = build.library("ash_compress")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.taco_compress_wire.argtypes = [p, p, i, i, i, ctypes.c_longlong, i,
+                                       i, i, f, f, f, f, p]
+    lib.taco_compress_wire.restype = i
+    return lib
+
+
+def compress_wire(x: torch.Tensor, cfg) -> torch.Tensor:
+    """(slots, n) bf16/f32 -> (slots, total_bytes) packed uint8 wire rows,
+    byte-compatible with ``pack_wire(TacoCodec.encode(x))``."""
+    if x.device.type == "cpu":
+        return ref.compress_wire_ref(x, cfg)
+    if x.device.type != "cuda":
+        raise ValueError(f"compress_wire: no kernel for device {x.device}")
+    check_supported(cfg)
+    if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"compress_wire takes (slots, n) bf16/f32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("compress_wire needs a contiguous input")
+    slots, n = x.shape
+    if slots > MAX_SLOTS:
+        raise ValueError(f"compress_wire: {slots} slots > {MAX_SLOTS}")
+    mb, groups, _, _, total = wire_geometry(cfg, n)
+    wire = torch.empty((slots, total), dtype=torch.uint8, device=x.device)
+    if mb == 0 or slots == 0:
+        return wire
+    with torch.cuda.device(x.device):
+        err = _lib().taco_compress_wire(
+            x.data_ptr(), wire.data_ptr(), int(x.dtype == torch.bfloat16),
+            slots, n, total, FMT_CODE[cfg.fmt], groups,
+            int(cfg.metadata == "folded"), cfg.tau, cfg.eps, cfg.scale_eps,
+            cfg.format_spec.qmax, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"compress_wire kernel launch failed: CUDA error "
+                           f"{err}")
+    compress_wire.launches += 1
+    return wire
+
+
+compress_wire.launches = 0

@@ -1,0 +1,197 @@
+"""Plain PyTorch versions of the TACO operators (the oracle).
+
+The CUDA kernels in ``ash_compress.py`` / ``ash_decompress.py`` are held
+against these functions on the card, and the CPU path runs them.  Block
+layout everywhere: blocks (M, B), alpha (M,), s (M, G) with
+G = B / quant_group_size.
+
+The three wire forms are the block forms composed with the wire packing
+(``repro_torch.core.codecs.pack_wire`` / ``unpack_wire``), which defines
+the byte layout both packages share.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import ash as ash_mod
+from repro_torch.core import quant as quant_mod
+
+
+def _transform_fwd(blocks, cfg):
+    """-> (z, alpha) applying cfg.transform."""
+    cd = cfg.torch_compute_dtype
+    g = blocks.to(cd)
+    ones = torch.ones((blocks.shape[0],), dtype=cd, device=blocks.device)
+    if cfg.transform == "ash":
+        return ash_mod.ash_forward(g, tau=cfg.tau, eps=cfg.eps,
+                                   compute_dtype=cd)
+    if cfg.transform == "hadamard":
+        h = ash_mod.hadamard_matrix(blocks.shape[-1], cd, blocks.device)
+        return ash_mod._rotate(g, h), ones
+    if cfg.transform == "none":
+        return g, ones
+    raise ValueError(cfg.transform)
+
+
+def compress_blocks_ref(blocks: torch.Tensor, cfg):
+    """(M, B) -> (q storage-dtype (M,B), alpha (M,), s (M,G))."""
+    fmt = cfg.format_spec
+    z, alpha = _transform_fwd(blocks, cfg)
+    if cfg.scale_granularity == "tensor":
+        s_val = torch.clamp_min(z.abs().amax() / fmt.qmax, cfg.scale_eps)
+        s = s_val.expand(blocks.shape[0], 1)
+        scaled = torch.clamp(z / s_val, -fmt.qmax, fmt.qmax)
+        if fmt.is_float:
+            q = scaled.to(fmt.dtype)
+        else:
+            q = torch.round(scaled).to(torch.int8)
+        return q, alpha, s
+    q, s = quant_mod.quantize_ds(z, fmt, group_size=cfg.quant_group_size,
+                                 eps=cfg.scale_eps)
+    return q, alpha, s
+
+
+def decompress_blocks_ref(q, s, alpha, cfg) -> torch.Tensor:
+    """(q, s, alpha|None) -> reconstructed blocks (M, B) in compute dtype.
+    alpha=None means folded metadata: s already carries s/alpha."""
+    cd = cfg.torch_compute_dtype
+    z = quant_mod.dequantize_ds(q, s, cfg.format_spec, compute_dtype=cd)
+    if cfg.transform in ("ash", "hadamard"):
+        g = ash_mod._rotate(z, ash_mod.hadamard_matrix(q.shape[-1], cd,
+                                                       q.device))
+    else:
+        g = z
+    if alpha is not None and cfg.transform == "ash":
+        g = g / alpha[:, None]
+    return g
+
+
+def decompress_reduce_ref(q, s, alpha, cfg) -> torch.Tensor:
+    """Sum-of-peers decompression: q (P, M, B), s (P, M, G), alpha (P, M)
+    or None -> sum_p decompress(q_p, s_p, alpha_p), peers in index order."""
+    out = None
+    for p in range(q.shape[0]):
+        a = None if alpha is None else alpha[p]
+        g = decompress_blocks_ref(q[p], s[p], a, cfg)
+        out = g if out is None else out + g
+    return out
+
+
+# --------------------------------------------------------------------------
+# wire forms: pack/unpack composed with the block forms
+# --------------------------------------------------------------------------
+
+def _layout(cfg, n):
+    from repro_torch.core import codecs, taco
+    return codecs.make_wire_layout(*taco.wire_components(cfg, n))
+
+
+def _block_fields(wire, n, cfg):
+    """Wire rows (R, total) -> q (R, mb, B) storage dtype, scale
+    (R, mb, G), alpha (R, mb) | None."""
+    from repro_torch.core import codecs, taco
+    b = cfg.block_size
+    rows, mb = wire.shape[0], n // b
+    fields = codecs.unpack_wire(wire, _layout(cfg, n))
+    q = taco._wire_to_storage(fields[0], cfg.format_spec).reshape(rows, mb, b)
+    s = fields[1].reshape(rows, mb, -1)
+    alpha = fields[2].reshape(rows, mb) if len(fields) == 3 else None
+    return q, s, alpha
+
+
+def compress_wire_ref(x: torch.Tensor, cfg) -> torch.Tensor:
+    """(slots, n) -> (slots, total_bytes) uint8 wire rows."""
+    from repro_torch.core import codecs, taco
+    slots, n = x.shape
+    b = cfg.block_size
+    mb = n // b
+    q, alpha, s = compress_blocks_ref(x.reshape(slots * mb, b), cfg)
+    payload = taco._storage_to_wire(q, cfg.format_spec).reshape(slots, n)
+    if cfg.metadata == "folded":
+        enc = (payload, (s / alpha[:, None]).reshape(slots, -1))
+    else:
+        enc = (payload, s.reshape(slots, -1), alpha.reshape(slots, mb))
+    return codecs.pack_wire(enc, _layout(cfg, n))
+
+
+def decompress_wire_ref(wire: torch.Tensor, n: int, cfg) -> torch.Tensor:
+    """(slots, total_bytes) uint8 -> (slots, n) in the compute dtype."""
+    slots = wire.shape[0]
+    q, s, alpha = _block_fields(wire, n, cfg)
+    b = cfg.block_size
+    out = decompress_blocks_ref(
+        q.reshape(-1, b), s.reshape(q.shape[0] * q.shape[1], -1),
+        None if alpha is None else alpha.reshape(-1), cfg)
+    return out.reshape(slots, n)
+
+
+def decompress_reduce_wire_ref(wire: torch.Tensor, n: int,
+                               cfg) -> torch.Tensor:
+    """Peer-stacked wire rows (P, total_bytes) -> peer sum (mb, B)."""
+    q, s, alpha = _block_fields(wire, n, cfg)
+    return decompress_reduce_ref(q, s, alpha, cfg)
+
+
+# --------------------------------------------------------------------------
+# the parity rule between two implementations of these operators
+# --------------------------------------------------------------------------
+# The kernels' butterfly and reduction orders differ from the plain f32
+# matmul (and the two packages' orders differ from each other), so an
+# element whose scaled value sits on a rounding boundary can land one code
+# apart.  Parity is therefore a tolerance, not bitwise: at most
+# PAYLOAD_FLIP_FRACTION of the payload bytes may differ, each by at most
+# one code (so a comparison of fewer than 1/PAYLOAD_FLIP_FRACTION bytes
+# must match exactly); scales and alpha within META_RTOL; decoded values
+# within DECODE_RTOL / DECODE_ATOL.
+PAYLOAD_FLIP_FRACTION = 1e-4
+META_RTOL = 1e-5
+DECODE_RTOL, DECODE_ATOL = 1e-4, 1e-5
+
+
+def payload_codes(payload: torch.Tensor, cfg) -> torch.Tensor:
+    """Payload bytes -> signed code indices, so that neighbouring
+    representable values differ by one (fp8 bytes are sign-magnitude;
+    +0 and -0 both map to 0)."""
+    b = payload.to(torch.int64)
+    if not cfg.format_spec.is_float:
+        return torch.where(b > 127, b - 256, b)
+    mag = b & 0x7F
+    return torch.where(b >= 0x80, -mag, mag)
+
+
+def check_wire_parity(got: torch.Tensor, want: torch.Tensor, n: int,
+                      cfg) -> dict:
+    """Hold wire rows ``got`` against ``want`` (same layout for ``n``) to
+    the parity rule; raises AssertionError, else returns the counts."""
+    if got.shape != want.shape:
+        raise AssertionError(f"wire shapes {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    got, want = got.cpu(), want.cpu()
+    dq = (payload_codes(got[..., :n], cfg)
+          - payload_codes(want[..., :n], cfg)).abs()
+    flipped = int((dq != 0).sum())
+    allowed = PAYLOAD_FLIP_FRACTION * dq.numel()
+    if flipped > allowed or (flipped and int(dq.max()) > 1):
+        raise AssertionError(
+            f"payload: {flipped} of {dq.numel()} bytes differ (allowed "
+            f"{allowed:g}), max code distance {int(dq.max())}")
+    from repro_torch.core import codecs
+    layout = _layout(cfg, n)
+    meta_err = 0.0
+    for g, w in zip(codecs.unpack_wire(got, layout)[1:],
+                    codecs.unpack_wire(want, layout)[1:]):
+        rel = ((g - w).abs() / w.abs().clamp_min(1e-38)).max()
+        meta_err = max(meta_err, float(rel))
+    if meta_err > META_RTOL:
+        raise AssertionError(f"wire metadata rel err {meta_err} > "
+                             f"{META_RTOL}")
+    return {"flipped": flipped, "meta_rel_err": meta_err}
+
+
+def check_decoded_close(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Decoded values within DECODE_RTOL / DECODE_ATOL; returns max abs
+    error."""
+    got, want = got.cpu().float(), want.cpu().float()
+    torch.testing.assert_close(got, want, rtol=DECODE_RTOL,
+                               atol=DECODE_ATOL)
+    return float((got - want).abs().max()) if got.numel() else 0.0

@@ -1,0 +1,144 @@
+"""Serving launcher: build a model (random weights from ``--seed``) and
+drive the continuous-batching engine (``repro_torch.serve.engine``) over a
+synthetic Poisson arrival stream.
+
+Requests arrive at ``--qps``, are admitted into a fixed ``--max-batch``
+slot table, prompts prefill in chunks interleaved with decode ticks, and
+every TP hop of the decode path runs through the compressed collectives
+selected by ``--comm-spec``.  Runs on the card unless ``--device cpu``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+        --no-smoke --qps 16 --requests 8 --max-batch 4 --gen 16 \
+        --comm-spec taco
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import time
+import warnings
+
+import numpy as np
+
+from repro_torch.configs import get_config, make_plan, smoke_config
+from repro_torch.core.parallel import ParallelCtx
+from repro_torch.core.registry import from_spec, to_spec
+from repro_torch.models.model import Model
+from repro_torch.serve.engine import ServeEngine
+
+DEFAULT_SPEC = "taco"
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="reduced config (CPU-sized); --no-smoke for full")
+    ap.add_argument("--mesh", default="1,1,1",
+                    help="pod,data,model; one card serves 1,1,1")
+    ap.add_argument("--comm-spec", default=None, dest="comm_spec",
+                    help="compression plan spec or alias (default: taco)")
+    ap.add_argument("--policy", default=None,
+                    help="deprecated alias for --comm-spec")
+    ap.add_argument("--qps", type=float, default=16.0,
+                    help="synthetic Poisson arrival rate (requests/s)")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="total synthetic requests to serve")
+    ap.add_argument("--max-batch", type=int, default=4, dest="max_batch",
+                    help="slot-table rows (in-flight decode batch)")
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--gen", type=int, default=16,
+                    help="new tokens per request")
+    ap.add_argument("--max-len", type=int, default=64, dest="max_len")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seeds the weights and the request stream")
+    ap.add_argument("--ckpt", default=None,
+                    help="restore params from a checkpoint dir")
+    ap.add_argument("--kv", default="auto", choices=["auto", "pad_shard"])
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    return ap.parse_args(argv)
+
+
+def resolve_comm_spec(args) -> str:
+    """Explicit ``--comm-spec`` > explicit ``--policy`` (deprecated) >
+    the default."""
+    if args.policy is not None:
+        warnings.warn("--policy is deprecated; use --comm-spec",
+                      DeprecationWarning, stacklevel=2)
+        if args.comm_spec is None:
+            return args.policy
+    return args.comm_spec if args.comm_spec is not None else DEFAULT_SPEC
+
+
+def build_engine(args):
+    """(engine, cfg) for parsed launcher args."""
+    shape = tuple(int(x) for x in args.mesh.split(","))
+    if shape != (1, 1, 1):
+        raise NotImplementedError(
+            f"mesh {args.mesh}: serving across cards (NCCL) is the next "
+            "slice of the port; one card serves --mesh 1,1,1")
+    if args.ckpt:
+        raise NotImplementedError("checkpoint restore (ckpt/checkpoint.py) "
+                                  "is ported in a later slice")
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_config(cfg)
+    plan = make_plan(cfg, 1, 1, remat=False, kv_strategy=args.kv)
+    model = Model(cfg, plan, device=args.device)
+    comm_plan = from_spec(resolve_comm_spec(args))
+    print(f"serving with comm spec: {to_spec(comm_plan)}")
+    ctx = ParallelCtx(plan=comm_plan)
+    params = model.init(args.seed)
+    max_len = max(args.max_len, args.prompt_len + args.gen + 1)
+    buckets = tuple(sorted({min(8, args.prompt_len),
+                            min(32, max(args.prompt_len, 1))}))
+    return ServeEngine(model, ctx, params, max_batch=args.max_batch,
+                       max_len=max_len, prefill_buckets=buckets,
+                       device=args.device), cfg
+
+
+def drive(eng, args, cfg) -> tuple[dict, float]:
+    """Serve ``args.requests`` Poisson arrivals to completion; returns
+    (summary, wall seconds)."""
+    rng = np.random.default_rng(args.seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / args.qps, args.requests))
+    pending = collections.deque(
+        (float(t),
+         rng.integers(0, cfg.vocab_size, args.prompt_len).astype(np.int32))
+        for t in arrivals)
+    t0 = time.monotonic()
+    while pending or not eng.sched.idle():
+        now = time.monotonic() - t0
+        while pending and pending[0][0] <= now:
+            t_arr, prompt = pending.popleft()
+            eng.submit(prompt, max_new=args.gen, now=t_arr)
+        # the engine runs on its own real clock (no explicit now=), so
+        # first-token stamps land after the prefill device work
+        if not eng.tick() and pending:
+            time.sleep(max(0.0, pending[0][0] - now))
+    return eng.summary(), time.monotonic() - t0
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    eng, cfg = build_engine(args)
+    s, wall = drive(eng, args, cfg)
+    for row in eng.reporter.of_kind("serve/request"):
+        print("request rid={rid} prompt={prompt_len} new={new_tokens} "
+              "queue={queue_s:.4f}s ttft={ttft_s:.4f}s "
+              "decode={ms:.2f}ms/tok wire={wire_bytes_per_tok:.0f}B/tok"
+              .format(ms=row["decode_s_per_tok"] * 1e3
+                      if row["decode_s_per_tok"] else float("nan"), **row))
+    toks = s.get("total_new_tokens", 0)
+    print(f"served {s['requests']} requests / {toks} tokens in {wall:.2f}s "
+          f"({toks / wall:.1f} tok/s), "
+          f"p50 {s.get('decode_ms_per_tok_p50', float('nan')):.2f} "
+          f"p99 {s.get('decode_ms_per_tok_p99', float('nan')):.2f} ms/tok")
+    print("serving done")
+    return s
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,209 @@
+"""Shared model layers.  Every function works on this process's local
+tensors; all cross-device movement goes through the ``ParallelCtx``
+collectives.  Weights keep the JAX package's layouts (``x @ w`` with w
+(in, out)), so parameters carry across unchanged.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+# --------------------------------------------------------------------------
+# parameter specs
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple          # global shape
+    fsdp_dim: int | None  # dim sharded over fsdp axes (storage only)
+    tp_dim: int | None    # dim sharded over the model axis
+    init: str = "normal"  # normal | zeros | ones
+    scale: float = 0.02
+
+
+class ParamBuilder:
+    """Collects a nested dict of ParamSpecs."""
+
+    def __init__(self):
+        self.specs: dict = {}
+
+    def add(self, name: str, shape, fsdp_dim=None, tp_dim=None,
+            init="normal", scale=0.02):
+        node = self.specs
+        parts = name.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = ParamSpec(tuple(shape), fsdp_dim, tp_dim, init,
+                                    scale)
+
+    @staticmethod
+    def stack(specs: dict, n: int) -> dict:
+        """Add a leading layer dim of size n to every spec."""
+        def f(s: ParamSpec) -> ParamSpec:
+            return ParamSpec(
+                (n,) + s.shape,
+                None if s.fsdp_dim is None else s.fsdp_dim + 1,
+                None if s.tp_dim is None else s.tp_dim + 1,
+                s.init, s.scale)
+        return tree_map(f, specs)
+
+
+def tree_map(fn, tree, *rest):
+    """Map ``fn`` over the leaves of nested dicts/lists (sorted dict keys,
+    the JAX package's pytree order)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def init_param(spec: ParamSpec, generator: torch.Generator, device,
+               dtype=COMPUTE_DTYPE) -> torch.Tensor:
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (x * spec.scale).to(dtype)
+
+
+def init_params(specs, seed: int, device, dtype=COMPUTE_DTYPE):
+    """Random parameters from ``torch.Generator`` seeded with ``seed``,
+    drawn leaf by leaf in pytree order."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return tree_map(lambda s: init_param(s, gen, device, dtype), specs)
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+def rmsnorm(x, scale, eps):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.float())).to(x.dtype)
+
+
+def layernorm(x, scale, bias, eps):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.float()) + bias.float()).to(x.dtype)
+
+
+def norm_specs(pb: ParamBuilder, name: str, d: int, kind: str):
+    pb.add(f"{name}.scale", (d,), init="zeros")
+    if kind == "layernorm":
+        pb.add(f"{name}.bias", (d,), init="zeros")
+
+
+def apply_norm(x, p, kind: str, eps: float):
+    if kind == "layernorm":
+        return layernorm(x, p["scale"], p["bias"], eps)
+    return rmsnorm(x, p["scale"], eps)
+
+
+# --------------------------------------------------------------------------
+# positional encodings
+# --------------------------------------------------------------------------
+
+def rope_freqs(hd: int, theta: float):
+    return 1.0 / (theta ** (np.arange(0, hd, 2) / hd))
+
+
+def apply_rope(x, positions, theta: float):
+    """x (B, S, H, hd), positions (S,) or (B, S) integer tensor."""
+    hd = x.shape[-1]
+    freqs = torch.as_tensor(rope_freqs(hd, theta), dtype=torch.float32,
+                            device=x.device)
+    pos = positions.float()
+    if pos.dim() == 1:
+        ang = (pos[None, :, None] * freqs[None, None, :])[:, :, None, :]
+    else:
+        ang = (pos[:, :, None] * freqs[None, None, :])[:, :, None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+
+def mlp_specs(pb: ParamBuilder, name: str, d: int, f: int, kind: str):
+    if kind in ("swiglu", "geglu"):
+        pb.add(f"{name}.w1", (d, f), fsdp_dim=0, tp_dim=1)
+        pb.add(f"{name}.w3", (d, f), fsdp_dim=0, tp_dim=1)
+    else:
+        pb.add(f"{name}.w1", (d, f), fsdp_dim=0, tp_dim=1)
+        pb.add(f"{name}.b1", (f,), tp_dim=0, init="zeros")
+        pb.add(f"{name}.b2", (d,), init="zeros")
+    pb.add(f"{name}.w2", (f, d), fsdp_dim=1, tp_dim=0)
+
+
+def mlp_apply(x_full, p, kind: str, ctx):
+    """x_full (B, S, D) -> tp-partial (B, S, D); the caller reduces (and
+    adds the replicated gelu bias b2 after the reduction)."""
+    w1 = ctx.weight_gather(p["w1"], 0)
+    w2 = ctx.weight_gather(p["w2"], 1)
+    if kind in ("swiglu", "geglu"):
+        w3 = ctx.weight_gather(p["w3"], 0)
+        h = x_full @ w1
+        g = x_full @ w3
+        # jax.nn.gelu defaults to the tanh approximation
+        act = F.silu(h) if kind == "swiglu" else F.gelu(h, approximate="tanh")
+        return (act * g) @ w2
+    h = x_full @ w1 + p["b1"].to(x_full.dtype)
+    return F.gelu(h, approximate="tanh") @ w2
+
+
+# --------------------------------------------------------------------------
+# vocab-parallel embedding + LM head
+# --------------------------------------------------------------------------
+
+def embed_specs(pb: ParamBuilder, vocab_pad: int, d: int, tie: bool):
+    pb.add("embed.table", (vocab_pad, d), fsdp_dim=1, tp_dim=0, scale=0.02)
+    if not tie:
+        pb.add("head.table", (vocab_pad, d), fsdp_dim=1, tp_dim=0, scale=0.02)
+
+
+def embed_partial(tokens, table_local, ctx):
+    """Vocab-parallel lookup -> tp-partial (B, S, D) (pre-reduction)."""
+    table = ctx.weight_gather(table_local, 1)
+    v_loc = table.shape[0]
+    shifted = tokens.long() - ctx.tp_rank * v_loc
+    valid = (shifted >= 0) & (shifted < v_loc)
+    part = table[shifted.clamp(0, v_loc - 1)]
+    return torch.where(valid[..., None], part,
+                       torch.zeros((), dtype=part.dtype,
+                                   device=part.device)).to(COMPUTE_DTYPE)
+
+
+def lm_head_logits(x, table_local, ctx):
+    """Decode-path local logits (B, 1, V/tp) in f32."""
+    table = ctx.weight_gather(table_local, 1)
+    return (x @ table.T).float()
+
+
+def distributed_argmax(logits, ctx):
+    """logits (B, 1, V/tp) -> global argmax token ids (B, 1).  First
+    maximum wins, as ``jnp.argmax``.  The cross-group gather of the
+    per-shard maxima is the next slice (groups of size 1 here)."""
+    if ctx.tp_size != 1:
+        raise NotImplementedError("distributed_argmax over a TP group > 1 "
+                                  "is the next slice of the port")
+    return torch.argmax(logits, dim=-1) + ctx.tp_rank * logits.shape[-1]

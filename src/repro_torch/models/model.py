@@ -1,0 +1,69 @@
+"""Public model API: param specs -> init (or JAX weights) on a device.
+
+``Model`` binds (ArchConfig, RunPlan) to a device.  It runs on CUDA unless
+the caller passes ``device="cpu"``; without a card and without that
+request it raises — nothing falls back to the CPU.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig, RunPlan
+from repro_torch.models import transformer
+from repro_torch.models.layers import (COMPUTE_DTYPE, ParamSpec,
+                                       init_params, tree_map)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means CUDA.  A CUDA device without a card raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card; pass device='cpu' "
+            "(CLI --device cpu) to run the plain versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # ml_dtypes bf16: same 16 bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+class Model:
+    """(ArchConfig, RunPlan) on a device; parameters are a nested dict in
+    the JAX package's tree layout."""
+
+    def __init__(self, cfg: ArchConfig, plan: RunPlan, *, device=None):
+        transformer.check_family(cfg)
+        if plan.tp != 1 or plan.fsdp != 1:
+            raise NotImplementedError(
+                f"tp={plan.tp}, fsdp={plan.fsdp}: sharded serving needs the "
+                "NCCL transport, the next slice of the port")
+        self.cfg, self.plan = cfg, plan
+        self.device = resolve_device(device)
+
+    def specs(self):
+        return transformer.model_specs(self.cfg, self.plan)
+
+    def init(self, seed: int = 0, dtype=COMPUTE_DTYPE):
+        """Random parameters from a ``torch.Generator`` seeded with
+        ``seed``, made on the model's device."""
+        return init_params(self.specs(), seed, self.device, dtype)
+
+    def from_jax_params(self, tree):
+        """Carry JAX parameters across: ``tree`` is the JAX param pytree
+        with numpy leaves (``jax.device_get``); bf16 leaves keep their
+        bits.  Shapes are checked against this model's specs."""
+        def conv(spec: ParamSpec, a):
+            t = _to_tensor(a, self.device)
+            if tuple(t.shape) != spec.shape:
+                raise ValueError(f"param shape {tuple(t.shape)} != spec "
+                                 f"{spec.shape}")
+            return t
+        return tree_map(conv, self.specs(), tree)

@@ -1,0 +1,128 @@
+"""Serving: single-token decode step with a KV cache.
+
+One new token per sequence against a cache of ``max_len`` positions.  TP
+communication cannot use sequence parallelism here (seq == 1), so the
+residual stream is replicated and every block output goes through the
+compressed two-shot AllReduce ``ctx.tp_g`` — the paper's primary
+configuration: a token crosses ``n_layers * 2 + 1`` hops.
+
+Cache layout (one dict per layer segment, layer-major):
+  k, v : (L, B, S_cache, kv_local, hd) in bf16
+SWA segments keep a ring buffer of width ``window`` instead of S_cache.
+The decode step writes the new k/v into this cache IN PLACE.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.parallel import iter_layer_spans
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import (COMPUTE_DTYPE, apply_norm,
+                                       distributed_argmax, lm_head_logits,
+                                       tree_map)
+from repro_torch.models.transformer import (check_family, embed_partial,
+                                            head_table, layer_segments,
+                                            mlp_apply)
+
+
+def _seg_cache_len(cfg, kind: str, max_len: int) -> int:
+    if kind == "swa" and cfg.window is not None:
+        return min(cfg.window, max_len)
+    return max_len
+
+
+def cache_shapes(model, global_batch: int, max_len: int) -> list:
+    """Per-segment ``{name: (shape, dtype)}`` of the decode cache."""
+    cfg, plan = model.cfg, model.plan
+    check_family(cfg)
+    kv = plan.kv_pad if plan.kv_mode == "sharded" else cfg.n_kv_heads
+    kv_local = kv // plan.tp if plan.kv_mode == "sharded" else kv
+    segs = []
+    for seg in layer_segments(cfg):
+        sc = _seg_cache_len(cfg, seg.kind, max_len)
+        shape = (seg.count, global_batch, sc, kv_local, cfg.hd)
+        segs.append({"k": (shape, COMPUTE_DTYPE), "v": (shape, COMPUTE_DTYPE)})
+    return segs
+
+
+def init_cache(model, global_batch: int, max_len: int) -> list:
+    return [{k: torch.zeros(shape, dtype=dt, device=model.device)
+             for k, (shape, dt) in seg.items()}
+            for seg in cache_shapes(model, global_batch, max_len)]
+
+
+def _no_window(cfg):
+    return dataclasses.replace(cfg, window=None)
+
+
+def _decode_block(x, lp, cache_l, cfg, plan, ctx, *, kind, pos):
+    """x (B,1,D) replicated over tp; writes the layer's cache in place."""
+    h = ctx.tp_f(apply_norm(x, lp["norm1"], cfg.norm, cfg.norm_eps))
+    # attention_decode switches ring-buffer vs full-cache semantics on
+    # cfg.window
+    cfg_dec = cfg if kind == "swa" and cfg.window is not None \
+        else _no_window(cfg)
+    partial = attn_mod.attention_decode(h, lp["attn"], cfg_dec, plan, ctx,
+                                        cache_l, pos)
+    x = x + ctx.tp_g(partial)
+    h = ctx.tp_f(apply_norm(x, lp["norm2"], cfg.norm, cfg.norm_eps))
+    out = ctx.tp_g(mlp_apply(h, lp["mlp"], cfg.mlp, ctx))
+    if cfg.mlp == "gelu":
+        out = out + lp["mlp"]["b2"].to(out.dtype)
+    return x + out
+
+
+def _decode_positional(x, params, cfg, ctx, pos):
+    """Positional term at decode position(s) ``pos`` (int or (B,))."""
+    per_slot = torch.is_tensor(pos) and pos.dim() == 1
+    if cfg.pos == "learned":
+        table = ctx.weight_gather(params["pos_embed"], 0)
+        pe = table[pos][:, None] if per_slot else table[int(pos)][None, None]
+    else:
+        d = cfg.d_model
+        div = torch.exp(torch.arange(0, d, 2, device=x.device) / d
+                        * -np.log(10000.0)).float()
+        p = pos.float() if per_slot else torch.tensor(float(pos),
+                                                      device=x.device)
+        ang = p[..., None] * div
+        pe = torch.zeros(ang.shape[:-1] + (d,), device=x.device)
+        pe[..., 0::2] = torch.sin(ang)
+        pe[..., 1::2] = torch.cos(ang)
+        pe = pe[:, None] if per_slot else pe[None, None]
+    return x + pe.to(x.dtype)
+
+
+@torch.no_grad()
+def decode_forward(params, token, cache, pos, model, ctx,
+                   return_logits=False):
+    """token (B,1) -> next_token (B,1) int32[, logits (B,1,V/tp) f32].
+
+    ``pos`` is an int shared by the batch or a (B,) tensor of per-slot
+    positions (continuous batching — serve/engine.py).  ``cache`` (from
+    :func:`init_cache`) is updated in place."""
+    cfg, plan = model.cfg, model.plan
+    check_family(cfg)
+    x = ctx.tp_g(embed_partial(token, params["embed"]["table"], ctx))
+    if cfg.pos in ("learned", "sinusoid"):
+        x = _decode_positional(x, params, cfg, ctx, pos)
+
+    segments = layer_segments(cfg)
+    n_total = max(s.start + s.count for s in segments)
+    for seg, sp_, cache_seg in zip(segments, params["segments"], cache):
+        off = 0
+        for span_n, span_ctx, sp_span in iter_layer_spans(
+                ctx, seg.start, seg.count, n_total, sp_):
+            for i in range(span_n):
+                lp = tree_map(lambda a, i=i: a[i], sp_span)
+                cl = {k: v[off + i] for k, v in cache_seg.items()}
+                x = _decode_block(x, lp, cl, cfg, plan, span_ctx,
+                                  kind=seg.kind, pos=pos)
+            off += span_n
+
+    x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    logits = lm_head_logits(x, head_table(params, cfg), ctx)
+    nxt = distributed_argmax(logits, ctx).to(torch.int32)
+    return (nxt, logits) if return_logits else nxt

@@ -1,0 +1,73 @@
+"""The port's spec grammar: the supported subset round-trips to the same
+normalized strings as the JAX registry; what is not ported yet (other
+codecs, lossless stages, the escalation policy) and the TPU
+implementation tokens are rejected with a clear error."""
+import pytest
+
+from repro.core import registry as jreg
+from repro_torch.core import registry as reg
+from repro_torch.core.parallel import CommPlan, ParallelCtx
+
+SUPPORTED = [
+    "baseline", "identity", "taco", "taco_folded", "", "tp=none",
+    "tp=taco", "tp=taco:e4m3:b256:folded", "tp=taco:e5m2:g64",
+    "tp=taco:int8:dual:ash:blockscale", "tp=taco:hadamard:tensorscale",
+    "tp=taco:notransform", "tp=taco:auto", "tp=taco:cdbfloat16",
+    "tp=taco:tau2.0:eps1e-10:seps1e-20", "tp=taco:disabled",
+    "tp=taco:chunks=4", "tp=taco:folded:chunks=2:schedule=serial",
+    "tp_fwd=taco,tp_bwd=taco:folded", "tp_fwd=taco:int8",
+    "tp=taco,skip_first=2,skip_last=1,warmup=100",
+    "tp=taco,sp=taco:folded", "pp=taco,weight_ag=none",
+    " tp = taco:folded , warmup=3 ",
+]
+
+
+@pytest.mark.parametrize("spec", SUPPORTED)
+def test_round_trip_matches_jax(spec):
+    plan = reg.from_spec(spec)
+    out = reg.to_spec(plan)
+    assert out == jreg.to_spec(jreg.from_spec(spec))
+    assert reg.from_spec(out) == plan
+    assert reg.to_spec(reg.from_spec(out)) == out
+
+
+@pytest.mark.parametrize("spec", [
+    "tp=sdp4bit", "grad_rs=sdp4bit", "pp=tahquant", "weight_ag=int8",
+    "taco3d", "tp=taco+zle", "tp=taco+zle:slot=auto",
+    "tp=taco:escalate=bf16@0.08", "tp=taco:escalate=int8@0.1:hold=5"])
+def test_not_ported_yet_is_rejected(spec):
+    jreg.from_spec(spec)                     # valid in the JAX grammar
+    with pytest.raises(reg.CommSpecError, match="not ported yet"):
+        reg.from_spec(spec)
+
+
+@pytest.mark.parametrize("tok", ["jnp", "pallas", "pallas_interpret"])
+def test_tpu_impl_tokens_rejected(tok):
+    with pytest.raises(reg.CommSpecError, match="TPU implementation"):
+        reg.from_spec(f"tp=taco:{tok}")
+
+
+@pytest.mark.parametrize("spec", [
+    "tp=foo", "tp=taco:b0", "tp=taco:bogus", "tp=taco:e4m3:e5m2",
+    "tp=taco,tp_fwd=none", "nonsense", "tp=none:chunks=2",
+    "warmup=-1", "skip_first=x", "tp=taco:tensorscale:g64",
+    "tp=taco:schedule=fast", "tp=taco:chunks=0", "tp=taco:cdint7",
+])
+def test_malformed_specs_rejected(spec):
+    with pytest.raises(reg.CommSpecError):
+        reg.from_spec(spec)
+
+
+def test_plan_spans_and_views():
+    plan = reg.from_spec("tp=taco,skip_first=1,skip_last=1")
+    spans = plan.layer_spans(0, 4, 4)
+    assert [(n, p.tp_identity) for n, p in spans] == \
+        [(1, True), (2, False), (1, True)]
+    ctx = ParallelCtx(plan=plan)
+    views = ctx.layer_views(0, 4, 4)
+    assert [n for n, _ in views] == [1, 2, 1]
+    assert views[1][1].plan is plan
+    assert reg.from_spec("tp=taco,warmup=2").warmup_steps == 2
+    assert CommPlan().tp_identity
+    assert reg.from_spec("taco").wire_bytes_per_element()["tp_fwd"] == \
+        jreg.from_spec("taco").wire_bytes_per_element()["tp_fwd"]

@@ -1,0 +1,181 @@
+"""The port's wire path — codecs, the three wire operators' plain
+versions and the size-1 collectives — held against the JAX package.
+
+The JAX side is taken where it is green: ``pack_wire(TacoCodec(impl=
+"jnp").encode(x))`` and the interpret-mode Pallas kernels (K2
+compress_wire_pallas, K5 decompress_wire_pallas, K6
+decompress_reduce_wire_pallas).  Wire rows are held to the parity rule of
+``repro_torch.kernels.ref``; decoded values to rtol 1e-4 / atol 1e-5.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import tp_like
+from repro.core import collectives as jcc
+from repro.core.codecs import pack_wire as jpack
+from repro.core.registry import codec_from_spec as jspec
+from repro.kernels import ash_compress as jk2
+from repro.kernels import ash_decompress as jk56
+from repro_torch.core import collectives as cc
+from repro_torch.core.codecs import pack_wire, unpack_wire
+from repro_torch.core.registry import codec_from_spec
+from repro_torch.kernels import ash_compress, ash_decompress, ops, ref
+
+SPECS = ["taco", "taco:folded", "taco:g64", "taco:int8", "taco:e5m2",
+         "taco:folded:g32"]
+
+
+def jax_codec(spec, impl="jnp"):
+    return jspec(spec.replace("taco", f"taco:{impl}", 1))
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("spec", SPECS)
+@pytest.mark.parametrize("in_dtype", ["float32", "bfloat16"])
+def test_compress_wire_plain_matches_jax_pack_encode(spec, in_dtype, rng):
+    n = 4096              # 12288 payload bytes: the rule allows one flip
+    x = tp_like(rng, (3, n))
+    codec, jc = codec_from_spec(spec), jax_codec(spec)
+    xt = t(x).to(getattr(torch, in_dtype))
+    got = codec.encode_wire(xt)
+    want = jpack(jc.encode(jnp.asarray(x).astype(getattr(jnp, in_dtype))),
+                 jc.wire_layout(n))
+    ref.check_wire_parity(got, t(want), n, codec.cfg)
+    # the wrapper's CPU path is the plain version: same bytes, no launch
+    before = ash_compress.compress_wire.launches
+    assert torch.equal(ash_compress.compress_wire(xt, codec.cfg), got)
+    assert ash_compress.compress_wire.launches == before
+
+
+@pytest.mark.parametrize("spec", ["taco", "taco:folded", "taco:g64",
+                                  "taco:int8"])
+def test_wire_plain_versions_match_interpret_kernels(spec, rng):
+    """K2, K5 and K6 in Pallas interpret mode vs the port's plain
+    versions of the same three operators."""
+    n = 512
+    codec = codec_from_spec(spec)
+    jc = jax_codec(spec, "pallas_interpret")
+    x = tp_like(rng, (3, n))
+    wj = jk2.compress_wire_pallas(jnp.asarray(x), jc.cfg, interpret=True)
+    wt = ref.compress_wire_ref(t(x), codec.cfg)
+    ref.check_wire_parity(wt, t(wj), n, codec.cfg)
+    dj = jk56.decompress_wire_pallas(wj, n, jc.cfg, interpret=True)
+    ref.check_decoded_close(ref.decompress_wire_ref(t(wj), n, codec.cfg),
+                            t(dj))
+    rj = jk56.decompress_reduce_wire_pallas(wj, n, jc.cfg, interpret=True)
+    ref.check_decoded_close(
+        ref.decompress_reduce_wire_ref(t(wj), n, codec.cfg), t(rj))
+
+
+@pytest.mark.parametrize("spec", SPECS)
+def test_cross_package_decode_both_directions(spec, rng):
+    n = 768
+    codec, jc = codec_from_spec(spec), jax_codec(spec)
+    x = tp_like(rng, (2, n))
+    wt = codec.encode_wire(t(x))
+    wj = jc.encode_wire(jnp.asarray(x))
+    # a row written by either package decodes in the other
+    for wire in (wt, t(wj)):
+        got = codec.decode_wire(wire, n, torch.float32)
+        want = jc.decode_wire(jnp.asarray(wire.numpy()), n, jnp.float32)
+        ref.check_decoded_close(got, t(want))
+        gs = codec.decode_sum_wire(wire, n, torch.float32)
+        ws = jc.decode_sum_wire(jnp.asarray(wire.numpy()), n, jnp.float32)
+        ref.check_decoded_close(gs, t(ws))
+
+
+@pytest.mark.parametrize("spec", SPECS)
+def test_fused_paths_equal_generic_composition(spec, rng):
+    """Within the port the wire paths are bit-identical to pack/unpack
+    composed with encode/decode (the wire format's definition)."""
+    n = 512
+    codec = codec_from_spec(spec)
+    x = t(tp_like(rng, (3, n)))
+    layout = codec.wire_layout(n)
+    wire = codec.encode_wire(x)
+    assert wire.dtype == torch.uint8
+    assert wire.shape == (3, layout.total_bytes)
+    assert torch.equal(wire, pack_wire(codec.encode(x), layout))
+    torch.testing.assert_close(
+        codec.decode_wire(wire, n, torch.float32),
+        codec.decode(unpack_wire(wire, layout), n, torch.float32),
+        rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(
+        codec.decode_sum_wire(wire, n, torch.float32),
+        codec.decode_sum(unpack_wire(wire, layout), n, torch.float32),
+        rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("spec", ["none", "taco", "taco:folded"])
+@pytest.mark.parametrize("shape", [(4, 1, 896), (1, 1, 128), (2, 3, 100)])
+def test_allreduce_size1_matches_jax(spec, shape, rng):
+    """The two-shot AllReduce on a group of one: encode and decode still
+    run (JAX's size-1 all_to_all / all_gather carry the wire unchanged)."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    from repro.compat import shard_map
+    x = tp_like(rng, shape)
+    xt = t(x).to(torch.bfloat16)
+    got = cc.allreduce_g(xt, 1, codec_from_spec(spec), None)
+    assert got.shape == xt.shape and got.dtype == torch.bfloat16
+    jc = jax_codec(spec) if spec != "none" else jspec("none")
+    mesh = jax.make_mesh((1,), ("model",))
+    f = shard_map(lambda a: jcc._ar_impl(a, "model", jc), mesh=mesh,
+                  in_specs=P(), out_specs=P(), check_vma=False)
+    want = np.asarray(jax.jit(f)(jnp.asarray(x).astype(jnp.bfloat16))
+                      .astype(jnp.float32))
+    if spec == "none":
+        assert torch.equal(got, xt)
+    # bf16 output: one bf16 ulp (2^-8 relative) of the largest value
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=1e-2,
+                               atol=float(np.abs(want).max()) * 2 ** -8)
+
+
+def test_group_and_ring_not_ported_yet():
+    x = torch.zeros(4, 256, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="NCCL"):
+        cc.allreduce_g(x, 2, codec_from_spec("taco"), None)
+    with pytest.raises(NotImplementedError, match="NCCL"):
+        cc.allreduce_g(x, 2, codec_from_spec("none"), None)
+    with pytest.raises(NotImplementedError, match="ring"):
+        cc.allreduce_g(x, 1, codec_from_spec("taco:chunks=4"), None)
+    assert cc.copy_f(x, 1, None, None) is x
+
+
+def test_wrappers_raise_off_cpu_without_plain_fallback(monkeypatch):
+    """Off the CPU a wrapper launches its kernel or raises: a tensor on
+    another device never reaches the plain version."""
+    def boom(*a, **k):
+        raise AssertionError("plain version called off the CPU")
+    for name in ("compress_wire_ref", "decompress_wire_ref",
+                 "decompress_reduce_wire_ref"):
+        monkeypatch.setattr(ref, name, boom)
+    cfg = codec_from_spec("taco").cfg
+    x = torch.zeros(1, 256, device="meta")
+    w = torch.zeros(1, 264, dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ash_compress.compress_wire(x, cfg)
+    with pytest.raises(ValueError, match="no kernel"):
+        ash_decompress.decompress_wire(w, 256, cfg)
+    with pytest.raises(ValueError, match="no kernel"):
+        ash_decompress.decompress_reduce_wire(w, 256, cfg)
+    # the block operators have no CUDA kernel yet: off the CPU they raise
+    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+        ops.compress_blocks(x, cfg)
+
+
+def test_kernel_coverage_rule():
+    assert ash_compress.supported(codec_from_spec("taco:folded:g32").cfg)
+    for spec in ("taco:hadamard", "taco:tensorscale", "taco:b128",
+                 "taco:cdbfloat16"):
+        assert not ash_compress.supported(codec_from_spec(spec).cfg)
+    with pytest.raises(NotImplementedError, match="CUDA wire kernels"):
+        ash_compress.check_supported(codec_from_spec("taco:b128").cfg)
+    assert ash_compress.wire_geometry(codec_from_spec("taco").cfg, 3584) \
+        == jk2.wire_geometry(jax_codec("taco").cfg, 3584)

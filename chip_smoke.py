@@ -5,22 +5,37 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, started together), then:
 
-  1. kernels: holds the three TACO wire kernels against their plain
-     PyTorch versions on the card (the parity rule of
-     ``repro_torch.kernels.ref``) at the serve shape (slots=1, n=3584 =
-     4 x 896), dual and folded, P in {1, 4}, the other payload formats,
-     and one larger shape (n = 4096 x 896); times each (device time from
-     the profiler, and per-call time with CUDA events) beside its bound
-     and the plain version's time;
-  2. serving: drives the port's serve launcher (``repro_torch.launch.
-     serve``) on full-width qwen2-0.5b (24 layers, d 896, vocab 151936,
-     bf16, weights from --seed) under ``baseline`` and then ``taco``;
-     every decode tick under ``taco`` must launch exactly 98 compress, 49
-     decompress-reduce and 49 decompress kernels (two per hop, 49 hops),
-     and none under ``baseline``; one full-table decode tick is profiled
-     (wall, device busy time, idle share);
-  3. reference: the smoke-size taco decode on the card must agree with the
-     plain versions on the CPU.
+  1. kernels: holds the six TACO kernels against their plain PyTorch
+     versions on the card (the parity rule of ``repro_torch.kernels.ref``):
+     the wire kernels K2, K5, K6 (``compress_wire``, ``decompress_wire``,
+     ``decompress_reduce_wire``) at the serve shape (slots=1, n=3584 = 4 x
+     896) and n = 4096 x 896; the block kernels K1, K3, K4
+     (``compress_blocks``, ``decompress_blocks``, ``decompress_reduce``) at
+     the serve shape and at the training hop's (n = 4 x 2048 x 896); dual
+     and folded, P in {1, 4}, the other payload formats, group scales, a
+     scale floor and all-zero blocks.  Each block form must equal its wire
+     form bit for bit (pack(K1) == K2, K3(unpack) == K5, K4(unpack) ==
+     K6).  Each kernel is timed (device time from the profiler, per-call
+     time with CUDA events) beside its bound and its plain version, and
+     both routes of one training hop (wire kernels vs block kernels +
+     pack/unpack) are timed;
+  2. serving: drives the serve launcher (``repro_torch.launch.serve``) on
+     full-width qwen2-0.5b (24 layers, d 896, vocab 151936, bf16, weights
+     from --seed) under ``baseline`` and then ``taco``; every decode tick
+     under ``taco`` must launch exactly 98 compress, 49 decompress-reduce
+     and 49 decompress wire kernels and no block kernel, and none under
+     ``baseline``; one decode tick is profiled;
+  3. training: drives the train launcher (``repro_torch.launch.train``) on
+     full-width qwen2-0.5b, batch 4 x seq 2048, seed 0, lr 3e-4, under
+     ``baseline`` and ``taco``, 2 warm + 6 timed steps each; every taco
+     step must launch exactly the block-kernel counts that
+     ``models.transformer.tp_hops_per_step`` derives (268 K1, 146 K3, 122
+     K4) and no wire kernel, ``baseline`` none; every loss finite, taco's
+     within 5e-2 relative of baseline's at every step; one more step each
+     is profiled (wall, device busy, idle share, TACO kernel time);
+  4. reference: the smoke-size taco decode and one smoke-size taco train
+     step (wire and block routes) on the card must agree with the plain
+     versions on the CPU.
 
 Nothing is caught: any failure exits non-zero.  The line before the last
 is the kernel table as JSON; the last is
@@ -28,9 +43,11 @@ is the kernel table as JSON; the last is
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -42,6 +59,18 @@ B_PER_S = 3.35e12          # H100 SXM HBM3 bytes/s (data sheet)
 F32_OP_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 SERVE_N = 4 * 896          # one decode hop of qwen2-0.5b at max-batch 4
 LARGE_N = 4096 * 896
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+TRAIN_N = TRAIN_BATCH * TRAIN_SEQ * 896   # one training hop of qwen2-0.5b
+TRAIN_WARM, TRAIN_STEPS = 2, 8            # 2 warm steps, then 6 timed
+#: the __global__ function each kernel wrapper launches
+KERNEL_FN = {"compress_wire": "compress_wire_kernel",
+             "decompress_wire": "decompress_wire_kernel",
+             "decompress_reduce_wire": "decompress_reduce_wire_kernel",
+             "compress_blocks": "compress_blocks_kernel",
+             "decompress_blocks": "decompress_blocks_kernel",
+             "decompress_reduce": "decompress_reduce_kernel"}
+TRAIN_SIZE = "--no-smoke"                 # full width and depth
+DEVICE = "cuda"                           # where phase 1b's tensors live
 
 
 def fail(msg: str) -> None:
@@ -74,32 +103,65 @@ def call_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, iters: int = 20) -> dict:
-    """Mean device time per call of ``fn`` by activity name (kernels,
-    copies, fills), in ms, from the profiler's trace.  Raises if the trace
-    holds no device activity."""
+def _traced(fn, iters: int) -> list:
+    """The device activities (kernels, copies, fills) of ``iters`` calls
+    of ``fn``, from one profiler session."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def device_profile(fn, iters: int = 20, sessions: int = 3) -> dict:
+    """Mean device time per call of ``fn`` by activity name, in ms.  The
+    profiler's trace now and then drops a launch, which can only
+    lower a name's total, so each name keeps its largest total over
+    ``sessions`` profiler sessions.  Raises if no device time is traced."""
+    fn()
+    torch.cuda.synchronize()
+    best: dict = {}
+    for _ in range(sessions):
+        by_name: dict = {}
+        for e in _traced(fn, iters):
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / iters / 1e3
-    if sum(by_name.values()) <= 0:
+        for k, v in by_name.items():
+            best[k] = max(best.get(k, 0.0), v)
+    if sum(best.values()) <= 0:
         raise RuntimeError("the profiler recorded no device time")
-    return by_name
+    return best
 
 
 def device_ms(fn, iters: int = 20) -> float:
     """Mean device time per call of ``fn`` (all its device activity)."""
     return sum(device_profile(fn, iters).values())
+
+
+def kernel_ms(fn, kernel: str, iters: int = 20,
+              sessions: int = 10) -> tuple[float, int]:
+    """Device time of one launch of the TACO kernel ``kernel`` (its
+    ``__global__`` name) that ``fn`` launches once per call: the mean over
+    its traced launches, from profiler sessions of ``iters`` calls until
+    ``iters`` launches are traced (at most ``sessions``); returns it with
+    the number of launches traced."""
+    # the demangled ("taco::name<...>(...)") or mangled ("4taco22name...")
+    # name, and not a longer kernel name that ends with this one
+    pat = re.compile(r"(taco::|\d)" + re.escape(kernel) + r"(?![a-z_])")
+    fn()
+    torch.cuda.synchronize()
+    times: list = []
+    for _ in range(sessions):
+        times += [e.time_range.elapsed_us() / 1e3
+                  for e in _traced(fn, iters) if pat.search(e.name)]
+        if len(times) >= iters:
+            break
+    if not times:
+        raise RuntimeError(f"the profiler recorded no {kernel} launch")
+    return sum(times) / len(times), len(times)
 
 
 def profile_tick(eng, calls: int = 5) -> dict:
@@ -199,10 +261,12 @@ def phase_kernels() -> dict:
                 peers * total + 4 * n, (2.0 * peers + 9) * n, err_r),
         }
         for name, (kern, plain, nbytes, ops, err) in work.items():
-            ms, plain_ms = device_ms(kern), device_ms(plain)
+            (ms, events), plain_ms = kernel_ms(kern, KERNEL_FN[name]), \
+                device_ms(plain)
             per_call, plain_call = call_ms(kern), call_ms(plain)
             b_ms, b_by = bound(nbytes, ops)
-            print(f"    {name:24s} {label:6s} device: kernel {ms:.6f} ms  "
+            print(f"    {name:24s} {label:6s} device: kernel {ms:.6f} ms "
+                  f"({events} launches traced)  "
                   f"plain {plain_ms:.6f} ms  bound {b_ms:.6f} ms ({b_by}); "
                   f"per call: kernel {per_call:.6f} ms  plain "
                   f"{plain_call:.6f} ms")
@@ -232,6 +296,314 @@ def phase_kernels() -> dict:
     return rows
 
 
+@contextlib.contextmanager
+def wire_budget(elems: int):
+    """Set the codecs' wire-form slot budget (``ops.
+    WIRE_FUSED_MAX_SLOT_ELEMS``) for the block: 0 sends every hop to the
+    block kernels, a huge value every hop to the wire kernels."""
+    from repro_torch.kernels import ops
+    old = ops.WIRE_FUSED_MAX_SLOT_ELEMS
+    ops.WIRE_FUSED_MAX_SLOT_ELEMS = elems
+    try:
+        yield
+    finally:
+        ops.WIRE_FUSED_MAX_SLOT_ELEMS = old
+
+
+def phase_blocks() -> dict:
+    """K1, K3, K4 against their plain versions, each block form against
+    its wire form bit for bit, and both routes of a whole hop timed."""
+    from repro_torch.core.codecs import pack_wire, unpack_wire
+    from repro_torch.core.registry import codec_from_spec
+    from repro_torch.kernels import ops, ref
+    gen = np.random.default_rng(1)
+    dev = torch.device(DEVICE)
+    rows, hops = {}, {}
+
+    def packed(q, a, s, cfg, peers, n):
+        from repro_torch.core import taco
+        pay = taco._storage_to_wire(q, cfg.format_spec).reshape(peers, n)
+        if cfg.metadata == "folded":
+            enc = (pay, (s / a[:, None]).reshape(peers, -1))
+        else:
+            enc = (pay, s.reshape(peers, -1), a.reshape(peers, -1))
+        return pack_wire(enc, ref._layout(cfg, n))
+
+    def case(spec, n, in_dtype, peers, timed=False, label="", x=None):
+        codec = codec_from_spec(spec)
+        cfg = codec.cfg
+        if x is None:
+            x = tp_like(gen, (peers, n)).to(dev, in_dtype)
+        blocks = x.reshape(-1, 256)
+        mb = n // 256
+        # K1 against its plain version, under the wire parity rule
+        q, a, s = ops.compress_blocks(blocks, cfg)
+        qp, ap, sp = ref.compress_blocks_ref(blocks, cfg)
+        torch.cuda.synchronize()
+        w_k, w_p = packed(q, a, s, cfg, peers, n), packed(qp, ap, sp, cfg,
+                                                          peers, n)
+        stats = ref.check_wire_parity(w_k, w_p, n, cfg)
+        dec_k = ref.decompress_wire_ref(w_k, n, cfg)
+        dec_p = ref.decompress_wire_ref(w_p, n, cfg)
+        if stats["flipped"] == 0:
+            ref.check_decoded_close(dec_k, dec_p)
+        err_c = float((dec_k - dec_p).abs().max())
+        del dec_k, dec_p
+        # K3 and K4 on the plain version's blocks
+        alpha = None if cfg.metadata == "folded" else ap
+        scale = sp / ap[:, None] if alpha is None else sp
+        err_d = ref.check_decoded_close(
+            ops.decompress_blocks(qp, scale, alpha, cfg),
+            ref.decompress_blocks_ref(qp, scale, alpha, cfg))
+        q3 = qp.reshape(peers, mb, 256)
+        s3 = scale.reshape(peers, mb, -1)
+        a3 = None if alpha is None else alpha.reshape(peers, mb)
+        err_r = ref.check_decoded_close(ops.decompress_reduce(q3, s3, a3, cfg),
+                                        ref.decompress_reduce_ref(q3, s3, a3,
+                                                                  cfg))
+        # route identity, bit for bit: pack(K1) == K2, K3(unpack) == K5,
+        # K4(unpack) == K6
+        wire = ops.compress_wire(x, cfg)
+        layout = codec.wire_layout(n)
+        if not torch.equal(pack_wire(codec.encode(x), layout), wire):
+            raise AssertionError(f"{spec} n={n}: pack_wire(K1) != K2")
+        enc = unpack_wire(wire, layout)
+        if not torch.equal(codec.decode(enc, n, torch.float32),
+                           ops.decompress_wire(wire, n, cfg)):
+            raise AssertionError(f"{spec} n={n}: K3(unpack) != K5")
+        if not torch.equal(codec.decode_sum(enc, n, torch.float32),
+                           ops.decompress_reduce_wire(wire, n, cfg)
+                           .reshape(-1)):
+            raise AssertionError(f"{spec} n={n}: K4(unpack) != K6")
+        print(f"  {label:6s} {spec:16s} n={n:8d} P={peers} "
+              f"in={str(in_dtype)[6:]:8s} flipped={stats['flipped']} "
+              f"meta_rel={stats['meta_rel_err']:.2e} err compress_blocks="
+              f"{err_c:.2e} decompress_blocks={err_d:.2e} "
+              f"decompress_reduce={err_r:.2e}; block == wire bitwise")
+        if not timed:
+            return
+        m = blocks.shape[0]
+        groups = s.shape[-1]
+        isz = x.element_size()
+        meta = 4 * m * groups + 4 * m                 # scales + alpha
+        work = {
+            "compress_blocks": (
+                lambda: ops.compress_blocks(blocks, cfg),
+                lambda: ref.compress_blocks_ref(blocks, cfg),
+                n * isz + n + meta, 16.0 * n, err_c),
+            "decompress_blocks": (
+                lambda: ops.decompress_blocks(qp, scale, alpha, cfg),
+                lambda: ref.decompress_blocks_ref(qp, scale, alpha, cfg),
+                n + meta + 4 * n, 11.0 * n, err_d),
+            "decompress_reduce": (
+                lambda: ops.decompress_reduce(q3, s3, a3, cfg),
+                lambda: ref.decompress_reduce_ref(q3, s3, a3, cfg),
+                peers * n + meta + 4 * n, (2.0 * peers + 9) * n, err_r),
+        }
+        for name, (kern, plain, nbytes, nops, err) in work.items():
+            (ms, events), plain_ms = kernel_ms(kern, KERNEL_FN[name]), \
+                device_ms(plain)
+            per_call, plain_call = call_ms(kern), call_ms(plain)
+            b_ms, b_by = bound(nbytes, nops)
+            print(f"    {name:24s} {label:6s} device: kernel {ms:.6f} ms "
+                  f"({events} launches traced)  "
+                  f"plain {plain_ms:.6f} ms  bound {b_ms:.6f} ms ({b_by}); "
+                  f"per call: kernel {per_call:.6f} ms  plain "
+                  f"{plain_call:.6f} ms")
+            rows.setdefault(name, {})[label] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "max_abs_err": err, "call_ms": per_call,
+                "plain_call_ms": plain_call}
+        if label != "train":
+            return
+        # both routes of one whole hop (the codec's wire methods)
+        total = layout.total_bytes
+        legs = {
+            "encode": lambda: codec.encode_wire(x),
+            "decode": lambda: codec.decode_wire(wire, n, x.dtype),
+            "decode_sum": lambda: codec.decode_sum_wire(wire, n, x.dtype)}
+        for leg, fn in legs.items():
+            for route, budget in (("wire", 1 << 62), ("blocks", 0)):
+                with wire_budget(budget):
+                    prof = device_profile(fn)
+                    per_call = call_ms(fn)
+                busy = sum(prof.values())
+                kern = sum(v for k, v in prof.items() if "compress" in k)
+                print(f"    hop {leg:10s} route {route:6s} device "
+                      f"{busy:.6f} ms (TACO kernels {kern:.6f} ms, other "
+                      f"{busy - kern:.6f} ms) per call {per_call:.6f} ms")
+                hops.setdefault(leg, {})[route] = {
+                    "device_ms": busy, "kernel_ms": kern, "call_ms": per_call,
+                    "wire_bytes": total}
+
+    print("phase 1b: block kernels K1/K3/K4 vs plain versions (same rule), "
+          "and block form == wire form bit for bit")
+    case("taco", SERVE_N, torch.bfloat16, 1, timed=True, label="serve")
+    case("taco:folded", SERVE_N, torch.bfloat16, 1)
+    case("taco", SERVE_N, torch.bfloat16, 4)
+    case("taco:folded", SERVE_N, torch.float32, 4)
+    case("taco:e5m2", SERVE_N, torch.bfloat16, 1)
+    case("taco:int8", SERVE_N, torch.float32, 1)
+    case("taco:g64", SERVE_N, torch.bfloat16, 4)
+    case("taco:folded:g32", SERVE_N, torch.bfloat16, 1)
+    case("taco:seps1e-20", 1024, torch.float32, 1)
+    case("taco", 1024, torch.float32, 1, x=torch.zeros((1, 1024), device=dev))
+    case("taco", TRAIN_N, torch.bfloat16, 1, timed=True, label="train")
+    case("taco:folded", TRAIN_N, torch.bfloat16, 1)
+    case("taco", TRAIN_N, torch.bfloat16, 4)
+    torch.cuda.empty_cache()
+    return {"rows": rows, "hops": hops}
+
+
+def phase_train(counters) -> dict:
+    """Full-width qwen2-0.5b training through the train launcher's entry
+    points, under baseline and taco: per-step launches, losses, wall and
+    peak memory, and one profiled step each."""
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    names = list(counters)
+    out = {}
+    for spec in ("baseline", "taco"):
+        args = train.parse_args([
+            "--arch", "qwen2-0.5b", TRAIN_SIZE, "--comm-spec", spec,
+            "--steps", str(TRAIN_STEPS), "--seq", str(TRAIN_SEQ), "--batch",
+            str(TRAIN_BATCH), "--lr", "3e-4", "--seed", "0"])
+        trainer, cfg = train.build_trainer(args)
+        per_step = []
+        inner = trainer.step_fn_for
+
+        def counted(step, inner=inner, per_step=per_step):
+            fn = inner(step)
+
+            def run(*a):
+                before = [counters[k].launches for k in names]
+                res = fn(*a)
+                per_step.append([counters[k].launches - b
+                                 for k, b in zip(names, before)])
+                return res
+            return run
+        trainer.step_fn_for = counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        params, opt, hist = trainer.run()
+        launches = dict(zip(names, (counters[k].launches for k in names)))
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        hops = transformer.tp_hops_per_step(cfg, trainer.model.plan,
+                                            trainer.ctx.plan)
+        ag, rs = hops["all_gather"], hops["reduce_scatter"]
+        want = {"compress_blocks": ag + rs, "decompress_blocks": ag,
+                "decompress_reduce": rs, "compress_wire": 0,
+                "decompress_wire": 0, "decompress_reduce_wire": 0}
+        if spec == "baseline":
+            want = dict.fromkeys(want, 0)
+        want_row = [want[k] for k in names]
+        if any(row != want_row for row in per_step):
+            raise AssertionError(f"{spec}: per-step launches {per_step}, "
+                                 f"want {want_row} ({names})")
+        if [launches[k] for k in names] != \
+                [TRAIN_STEPS * w for w in want_row]:
+            raise AssertionError(f"{spec}: launches {launches}")
+        for h in hist:
+            if not np.isfinite(h["loss"]) or not np.isfinite(h["grad_norm"]):
+                raise AssertionError(f"{spec}: non-finite step {h}")
+            print(f"  {spec:8s} step {h['step']} loss {h['loss']:.6f} "
+                  f"grad_norm {h['grad_norm']:.6f} lr {h['lr']:.3e} "
+                  f"wall {h['ms']:.3f} ms tok/s {h['tok_per_s']:.1f}")
+        timed = hist[TRAIN_WARM:]
+        mean_ms = sum(h["ms"] for h in timed) / len(timed)
+        print(f"  {spec:8s} {len(timed)} timed steps: mean wall {mean_ms:.3f}"
+              f" ms/step, {TRAIN_BATCH * TRAIN_SEQ / mean_ms * 1e3:.1f} tok/s"
+              f", peak memory {peak:.1f} MiB, launches/step "
+              f"{dict(zip(names, want_row))}")
+        # one more step, timed alone and then profiled
+        batch = trainer.data.place(trainer.data.batch(TRAIN_STEPS),
+                                   trainer.model.device)
+        fn = inner(TRAIN_STEPS)
+
+        def one():
+            fn(params, opt, batch)
+        one()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        prof = device_profile(one, iters=1)      # three profiled steps
+        busy = sum(prof.values())
+        taco_ms = sum(v for k, v in prof.items() if "compress" in k)
+        top = [(k[:50], round(v, 3))
+               for k, v in sorted(prof.items(), key=lambda kv: -kv[1])[:6]]
+        print(f"    one step: wall {wall:.3f} ms, device busy {busy:.3f} ms,"
+              f" idle share {1 - busy / wall:.3f}, TACO kernels "
+              f"{taco_ms:.3f} ms; top {top}")
+        out[spec] = {"hist": hist, "launches": launches, "per_step": want_row,
+                     "peak_mib": peak, "mean_ms": mean_ms,
+                     "step_profile": {"wall_ms": wall, "device_ms": busy,
+                                      "idle_share": 1 - busy / wall,
+                                      "taco_kernels_ms": taco_ms}}
+        trainer.step_fn_for = inner = counted = fn = None
+        del trainer, params, opt, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    for a, b in zip(out["baseline"]["hist"], out["taco"]["hist"]):
+        r = abs(b["loss"] - a["loss"]) / abs(a["loss"])
+        if r > 5e-2:
+            raise AssertionError(f"step {a['step']}: taco loss {b['loss']} vs "
+                                 f"baseline {a['loss']} ({r:.3e} relative)")
+    worst = max(abs(b["loss"] - a["loss"]) / abs(a["loss"])
+                for a, b in zip(out["baseline"]["hist"], out["taco"]["hist"]))
+    print(f"  taco vs baseline loss: worst relative difference {worst:.3e} "
+          f"(bound 5e-2)")
+    return out
+
+
+def phase_reference_train() -> float:
+    """Smoke-size qwen2-0.5b, one taco train step on the card (kernels,
+    both routes) against the CPU (plain versions), same weights and batch:
+    loss within 1e-3 and grad norm within 5e-2 relative, the bounds of
+    tests/test_torch_train.py."""
+    from repro_torch.configs import get_config, make_plan, smoke_config
+    from repro_torch.core.parallel import ParallelCtx
+    from repro_torch.core.registry import from_spec
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import build_train_step
+    cfg = smoke_config(get_config("qwen2-0.5b"))
+    plan = make_plan(cfg, 1, 1)
+    ctx = ParallelCtx(plan=from_spec("taco"))
+    oc = adamw.OptConfig(lr_max=1e-3, lr_min=1e-4, warmup_steps=2,
+                         total_steps=10)
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, 64, 2)).batch(0)
+    cpu, gpu = Model(cfg, plan, device="cpu"), Model(cfg, plan)
+    init = cpu.init(0)
+    worst = 0.0
+    for route, budget in (("wire", 1 << 62), ("blocks", 0)):
+        with wire_budget(budget):
+            res = {}
+            for model in (cpu, gpu):
+                params = tree_map(lambda a: a.to(model.device).clone(), init)
+                step = build_train_step(model, ctx, oc)
+                _, _, m = step(params, adamw.init_opt_state(params),
+                               SyntheticLM.place(batch, model.device))
+                res[model.device.type] = (float(m["loss"]),
+                                          float(m["grad_norm"]))
+        (lc, gc_), (lg, gg) = res["cpu"], res["cuda"]
+        if not (np.isfinite(lg) and np.isfinite(gg)):
+            raise AssertionError("non-finite train step on the card")
+        rl, rg = abs(lg - lc) / lc, abs(gg - gc_) / gc_
+        if rl > 1e-3 or rg > 5e-2:
+            raise AssertionError(f"{route}: card vs CPU loss {rl:.3e}, grad "
+                                 f"norm {rg:.3e} relative")
+        print(f"  smoke qwen2-0.5b taco train step, {route} route: card vs "
+              f"CPU loss {rl:.3e}, grad norm {rg:.3e} relative")
+        worst = max(worst, rl)
+    return worst
+
+
 def phase_serve(kernels) -> dict:
     from repro_torch.launch import serve
     counters = [kernels["compress_wire"], kernels["decompress_reduce_wire"],
@@ -254,10 +626,15 @@ def phase_serve(kernels) -> dict:
         eng._decode_tick = counted_tick
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for c in counters:
+        for c in kernels.values():
             c.launches = 0
         s, wall = serve.drive(eng, args, cfg)
         launches = [c.launches for c in counters]
+        blocks = {k: kernels[k].launches for k in (
+            "compress_blocks", "decompress_blocks", "decompress_reduce")}
+        if any(blocks.values()):
+            raise AssertionError(f"{spec}: decode hops reached the block "
+                                 f"kernels {blocks}")
         done = eng.sched.done
         if len(done) != 6 or any(len(r.tokens) != 16 for r in done):
             raise AssertionError(f"{spec}: not every request finished")
@@ -343,33 +720,55 @@ def main() -> None:
     print(smi)
     print(sys.version.split()[0], torch.__version__, torch.version.cuda)
     from repro_torch.kernels import ash_compress, ash_decompress, build
-    t0 = time.monotonic()
+    t_start = t0 = time.monotonic()
     logs = build.build_all()
     print(f"kernels built in {time.monotonic() - t0:.1f}s")
     for name, log in logs.items():
         print(f"--- nvcc {name}\n{log.strip()}")
-    kernels = {"compress_wire": ash_compress.compress_wire,
+    kernels = {"compress_blocks": ash_compress.compress_blocks,
+               "decompress_blocks": ash_decompress.decompress_blocks,
+               "decompress_reduce": ash_decompress.decompress_reduce,
+               "compress_wire": ash_compress.compress_wire,
                "decompress_wire": ash_decompress.decompress_wire,
                "decompress_reduce_wire": ash_decompress.decompress_reduce_wire}
     rows = phase_kernels()
+    blocks = phase_blocks()
+    rows.update(blocks["rows"])
     print("phase 2: serving full-width qwen2-0.5b")
     served = phase_serve(kernels)
-    print("phase 3: reference check at smoke size")
+    print(f"phase 3: training full-width qwen2-0.5b, batch {TRAIN_BATCH} x "
+          f"seq {TRAIN_SEQ}, {TRAIN_WARM} warm + "
+          f"{TRAIN_STEPS - TRAIN_WARM} timed steps")
+    trained = phase_train(kernels)
+    print("phase 4: reference checks at smoke size")
     phase_reference()
+    phase_reference_train()
     meta = {
+        "compress_blocks": ("src/repro_torch/kernels/csrc/ash_compress.cu",
+                            "src/repro/kernels/ash_compress.py:76", "train"),
+        "decompress_blocks": ("src/repro_torch/kernels/csrc/ash_decompress.cu",
+                              "src/repro/kernels/ash_decompress.py:48",
+                              "train"),
+        "decompress_reduce": ("src/repro_torch/kernels/csrc/ash_decompress.cu",
+                              "src/repro/kernels/ash_decompress.py:96",
+                              "train"),
         "compress_wire": ("src/repro_torch/kernels/csrc/ash_compress.cu",
-                          "src/repro/kernels/ash_compress.py:199"),
+                          "src/repro/kernels/ash_compress.py:199", "serve"),
         "decompress_wire": ("src/repro_torch/kernels/csrc/ash_decompress.cu",
-                            "src/repro/kernels/ash_decompress.py:171"),
+                            "src/repro/kernels/ash_decompress.py:171",
+                            "serve"),
         "decompress_reduce_wire": (
             "src/repro_torch/kernels/csrc/ash_decompress.cu",
-            "src/repro/kernels/ash_decompress.py:231"),
+            "src/repro/kernels/ash_decompress.py:231", "serve"),
     }
     launches = dict(zip(("compress_wire", "decompress_reduce_wire",
                          "decompress_wire"), served["taco"]["launches"]))
+    launches.update({k: trained["taco"]["launches"][k]
+                     for k in ("compress_blocks", "decompress_blocks",
+                               "decompress_reduce")})
     table = []
-    for name, (source, replaces) in meta.items():
-        r = rows[name]["serve"]
+    for name, (source, replaces, path) in meta.items():
+        r = rows[name][path]
         table.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -377,7 +776,17 @@ def main() -> None:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "call_ms": r["call_ms"], "plain_call_ms": r["plain_call_ms"],
-            "large": rows[name]["large"]})
+            "path": path,
+            "shapes": {k: v for k, v in rows[name].items() if k != path}})
+    print(f"train hop routes: {json.dumps(blocks['hops'])}")
+    # K7 (compress_blocks_butterfly, not ported): its bound from its shapes
+    # — bf16 (M, 256) in, q (M, 256) one byte, alpha (M,) and s (M, 1) f32
+    for label, n in (("serve", SERVE_N), ("train", TRAIN_N)):
+        m = n // 256
+        b_ms, b_by = bound(2 * n + n + 8 * m, 16.0 * n)
+        print(f"K7 bound at the {label} shape (n={n}): {b_ms:.7f} ms "
+              f"({b_by})")
+    print(f"chip_smoke: {time.monotonic() - t_start:.1f}s in all")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,8 +13,11 @@ one package decodes in the other.  The transport produces and consumes
 that buffer through ``encode_wire`` / ``decode_wire`` /
 ``decode_sum_wire``: the generic :class:`WireFastPath` is
 pack/unpack composed with encode/decode and defines the format, while
-``TacoCodec`` sends them to the fused wire kernels (plain versions on the
-CPU, CUDA kernels on the card).
+``TacoCodec`` sends a slot that ``kops.wire_kernel_impl`` admits to the
+fused wire kernels and a larger one (a training hop) to the block kernels
+composed with pack/unpack — the JAX package's route.  Either way each
+operator runs its plain version on the CPU and its CUDA kernel on the
+card.
 """
 from __future__ import annotations
 
@@ -232,17 +235,27 @@ class TacoCodec(WireFastPath):
         scalars = groups + (0 if self.cfg.metadata == "folded" else 1)
         return 1.0 + 4.0 * scalars / self.cfg.block_size
 
-    # ---- fused wire-native paths: the kernels' wrappers --------------------
+    # ---- fused wire-native paths: the wire kernels up to the slot budget,
+    # pack/unpack over the block kernels above it ----------------------------
     def encode_wire(self, x):
-        return kops.compress_wire(x, self.cfg)
+        if kops.wire_kernel_impl(self.cfg, x.shape[-1]) is not None:
+            return kops.compress_wire(x, self.cfg)
+        return super().encode_wire(x)
 
     def decode_wire(self, wire, n, dtype):
-        lead = wire.shape[:-1]
-        out = kops.decompress_wire(wire.reshape(-1, wire.shape[-1]), n,
-                                   self.cfg)
-        return out.reshape(*lead, n).to(dtype)
+        if kops.wire_kernel_impl(self.cfg, n) is not None:
+            lead = wire.shape[:-1]
+            out = kops.decompress_wire(wire.reshape(-1, wire.shape[-1]), n,
+                                       self.cfg)
+            return out.reshape(*lead, n).to(dtype)
+        return super().decode_wire(wire, n, dtype)
 
     def decode_sum_wire(self, wire, n, dtype):
-        """(P, total_bytes) peer stack -> (n,) peer sum in ``dtype``."""
-        out = kops.decompress_reduce_wire(wire, n, self.cfg)
-        return out.reshape(-1)[:n].to(dtype)
+        """(P, total_bytes) peer stack -> (n,) peer sum in ``dtype``.  The
+        budget applies to the whole stack (P·n), as in the JAX package;
+        other stackings take the generic unpack path."""
+        if wire.dim() == 2 and \
+                kops.wire_kernel_impl(self.cfg, wire.shape[0] * n) is not None:
+            out = kops.decompress_reduce_wire(wire, n, self.cfg)
+            return out.reshape(-1)[:n].to(dtype)
+        return super().decode_sum_wire(wire, n, dtype)

@@ -9,22 +9,34 @@ Compression follows COCCL's two-shot decomposition, as the JAX package:
 ``_transport`` pads to the codec granule, encodes straight into ONE
 packed uint8 wire buffer (``encode_wire``), moves it, and decodes straight
 from the moved buffer (``decode_wire``, or ``decode_sum_wire`` when the
-hop reduces).  On a TACO plan each AllReduce therefore launches the fused
-compress kernel twice, the decompress-reduce kernel once and the
-decompress kernel once.
+hop reduces).  Each hop therefore runs one compress operator on the sender
+and one decompress (all-gather) or decompress-reduce (reduce-scatter)
+operator on the receiver: the fused wire kernels for a slot inside the
+codec's wire budget (decode hops), the block kernels for a larger one
+(training hops).
+
+Every collective takes a forward and a backward codec and is a
+``torch.autograd.Function`` whose backward routes the cotangent through
+the conjugate collective with the codec pair swapped, as the JAX
+package's ``custom_vjp`` (quantization is straight-through: the quantizer
+is not differentiated):
+
+  Megatron-SP : ``all_gather_c`` fwd / ``psum_scatter_c`` bwd, and back
+  AllReduce   : ``allreduce_g`` (fwd AR, bwd id) / ``copy_f`` (fwd id,
+                bwd AR)
 
 The move takes the group size.  At size 1 it is the identity on the wire
 — as JAX's size-1 ``all_to_all`` / ``all_gather`` is — and encode and
 decode still run.  Larger groups (the NCCL transport) and the chunked
 ring (``chunks > 1``, ``core/overlap.py``) are the next slice and raise.
-This slice runs the serving forward only: ``allreduce_g`` / ``copy_f``
-have no backward here.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.codecs import IdentityCodec
+
+Identity = IdentityCodec()
 
 
 def _pad_to(x: torch.Tensor, mult: int):
@@ -97,6 +109,18 @@ def _ag_one(x, group_size, dim, codec):
     return out.reshape(shape)
 
 
+def _ag_impl(x, group_size, dim, codec):
+    """All-gather over the TP group (one axis in the port; the JAX
+    package's tuple axes gather innermost first)."""
+    return _ag_one(x, group_size, dim, codec)
+
+
+def _rs_impl(x, group_size, dim, codec):
+    """Reduce-scatter over the TP group (the conjugate of
+    :func:`_ag_impl`)."""
+    return _rs_one(x, group_size, dim, codec)
+
+
 def _ar_impl(x, group_size, codec):
     """Compressed two-shot AllReduce = ReduceScatter ∘ AllGather over the
     flattened tensor; identity codecs take the plain (uncompressed) sum."""
@@ -104,18 +128,74 @@ def _ar_impl(x, group_size, codec):
         _check_group(group_size)
         return x
     flat, n = _pad_to(x.reshape(1, -1), group_size * codec.granule)
-    rs = _rs_one(flat[0], group_size, 0, codec)
-    ag = _ag_one(rs, group_size, 0, codec)
+    rs = _rs_impl(flat[0], group_size, 0, codec)
+    ag = _ag_impl(rs, group_size, 0, codec)
     return ag[:n].reshape(x.shape)
+
+
+class _Collective(torch.autograd.Function):
+    """One compressed collective with a straight-through backward:
+    ``impl(x, *static)`` is the forward communication, ``bwd(ct, *static)``
+    the conjugate collective on the cotangent (the JAX package's
+    ``_compressed_collective``)."""
+
+    @staticmethod
+    def forward(ctx, x, impl, bwd, static):
+        ctx.bwd, ctx.static = bwd, static
+        return impl(x, *static)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ctx.bwd(ct, *ctx.static), None, None, None
+
+
+def _apply(x, impl, bwd, static):
+    """``impl(x, *static)``, recorded for autograd when a gradient flows
+    through ``x`` (the decode path runs without an autograd node)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Collective.apply(x, impl, bwd, static)
+    return impl(x, *static)
+
+
+def all_gather_c(x, group_size, dim, fwd_codec, bwd_codec):
+    """Compressed all-gather concatenating along ``dim`` (tiled layout);
+    backward is the compressed reduce-scatter with the codec pair
+    swapped."""
+    return _apply(
+        x, lambda a, g, d, fc, bc: _ag_impl(a, g, d, fc),
+        lambda ct, g, d, fc, bc: psum_scatter_c(ct, g, d, bc, fc),
+        (group_size, dim, fwd_codec, bwd_codec))
+
+
+def psum_scatter_c(x, group_size, dim, fwd_codec, bwd_codec):
+    """Compressed reduce-scatter along ``dim`` (two-shot: every
+    contribution compressed once, peers summed in index order); backward is
+    the compressed all-gather with the codec pair swapped."""
+    return _apply(
+        x, lambda a, g, d, fc, bc: _rs_impl(a, g, d, fc),
+        lambda ct, g, d, fc, bc: all_gather_c(ct, g, d, bc, fc),
+        (group_size, dim, fwd_codec, bwd_codec))
 
 
 def allreduce_g(x, group_size, fwd_codec, bwd_codec):
     """Megatron "g": forward compressed two-shot AllReduce (row-parallel
     outputs and the decode path); backward identity."""
-    return _ar_impl(x, group_size, fwd_codec)
+    return _apply(
+        x, lambda a, g, fc, bc: _ar_impl(a, g, fc),
+        lambda ct, g, fc, bc: ct, (group_size, fwd_codec, bwd_codec))
 
 
 def copy_f(x, group_size, fwd_codec, bwd_codec):
-    """Megatron "f": forward identity (column-parallel inputs); its
-    backward AllReduce with ``bwd_codec`` comes with the training slice."""
-    return x
+    """Megatron "f": forward identity (column-parallel inputs); backward
+    compressed AllReduce with the BACKWARD codec."""
+    return _apply(
+        x, lambda a, g, fc, bc: a,
+        lambda ct, g, fc, bc: _ar_impl(ct, g, bc),
+        (group_size, fwd_codec, bwd_codec))
+
+
+def psum_exact(x, group_size):
+    """Sum over the group whose backward passes the (replicated) cotangent
+    through unchanged — for scalars every consumer of which is replicated
+    (losses, softmax statistics)."""
+    return allreduce_g(x, group_size, Identity, Identity)

@@ -10,9 +10,12 @@ path of a :class:`CommPlan` (paper Fig. 7 integration points):
   pp              : pipeline stage boundaries
   sp              : sequence-parallel attention hops
 
-Plans are built from spec strings by ``repro_torch.core.registry``.  This
-slice ports the decode path's AllReduce pair (``tp_g`` / ``tp_f``) on a
-tensor-parallel group of size 1; larger groups (NCCL) are the next slice.
+Plans are built from spec strings by ``repro_torch.core.registry``.  The
+port runs both TP modes on a tensor-parallel group of size 1: Megatron-SP
+(``sp_gather`` / ``sp_scatter``, the training path) and AllReduce
+(``tp_g`` / ``tp_f``, the decode path).  Larger groups (NCCL) are the next
+slice.  ``CommPlan.at_step`` resolves the warmup schedule per optimizer
+step, outside the step function, as the JAX trainer does.
 """
 from __future__ import annotations
 
@@ -43,6 +46,20 @@ class CommPlan:
     @property
     def tp_identity(self) -> bool:
         return self.tp_fwd == Identity and self.tp_bwd == Identity
+
+    def steady(self) -> "CommPlan":
+        """The plan with the step schedule stripped (what runs after
+        warmup)."""
+        if self.warmup_steps == 0:
+            return self
+        return dataclasses.replace(self, warmup_steps=0)
+
+    def at_step(self, step: int) -> "CommPlan":
+        """The identity plan before ``warmup_steps``, the steady plan from
+        then on."""
+        if step < self.warmup_steps:
+            return CommPlan()
+        return self.steady()
 
     def layer_spans(self, start: int, count: int,
                     total: int) -> tuple[tuple[int, "CommPlan"], ...]:
@@ -81,12 +98,16 @@ class ParallelCtx:
     """Group sizes + codec plan, passed through the model stack.
 
     ``tp_size`` / ``tp_rank`` describe the tensor-parallel group of this
-    process (size 1 on one card).  The port runs the AllReduce TP mode
-    (the decode path's f/g pair); Megatron-SP comes with training."""
+    process (size 1 on one card).  ``tp_mode`` is the training forward's
+    TP mode: ``"sp"`` (Megatron-SP: the residual stream is
+    sequence-sharded, every block enters through an all-gather and exits
+    through a reduce-scatter) or ``"allreduce"`` (f/g).  The decode path
+    always takes the f/g pair."""
 
     tp_size: int = 1
     tp_rank: int = 0
     plan: CommPlan = CommPlan()
+    tp_mode: str = "sp"
 
     def layer_views(self, start: int, count: int,
                     total: int) -> tuple[tuple[int, "ParallelCtx"], ...]:
@@ -97,13 +118,26 @@ class ParallelCtx:
              else dataclasses.replace(self, plan=plan))
             for n, plan in self.plan.layer_spans(start, count, total))
 
+    def sp_gather(self, x, dim: int):
+        """Megatron-SP entry: compressed all-gather along ``dim`` (backward:
+        the compressed reduce-scatter with the tp_bwd codec)."""
+        return cc.all_gather_c(x, self.tp_size, dim, self.plan.tp_fwd,
+                               self.plan.tp_bwd)
+
+    def sp_scatter(self, x, dim: int):
+        """Megatron-SP exit: compressed reduce-scatter along ``dim``
+        (backward: the compressed all-gather with the tp_bwd codec)."""
+        return cc.psum_scatter_c(x, self.tp_size, dim, self.plan.tp_fwd,
+                                 self.plan.tp_bwd)
+
     def tp_g(self, x):
         """Megatron "g": compressed two-shot AllReduce over the TP group."""
         return cc.allreduce_g(x, self.tp_size, self.plan.tp_fwd,
                               self.plan.tp_bwd)
 
     def tp_f(self, x):
-        """Megatron "f": identity forward (its backward is the AllReduce)."""
+        """Megatron "f": identity forward; backward the compressed
+        AllReduce with the tp_bwd codec."""
         return cc.copy_f(x, self.tp_size, self.plan.tp_fwd, self.plan.tp_bwd)
 
     def weight_gather(self, w, dim: int = 0):

@@ -1,17 +1,19 @@
-"""Fused ASH compress + wire serialization — CUDA port of the TPU kernel
-``repro/kernels/ash_compress.py`` ``compress_wire_pallas``.
+"""Fused ASH compress — CUDA ports of the TPU kernels
+``repro/kernels/ash_compress.py`` ``compress_blocks_pallas`` (block form)
+and ``compress_wire_pallas`` (wire form).
 
-One kernel (``csrc/ash_compress.cu``) reads a (slots, n) activation once
-and writes each slot's packed uint8 wire row once: the block RMS energy,
-the adaptive rescale, the Hadamard rotation (a shared-memory butterfly),
-the per-group max-abs scale and the saturating low-bit cast all happen in
-registers and shared memory.
+Two kernels (``csrc/ash_compress.cu``) read the input once: the block RMS
+energy, the adaptive rescale, the Hadamard rotation (a shared-memory
+butterfly), the per-group max-abs scale and the saturating low-bit cast
+all happen in registers and shared memory.  ``compress_blocks`` writes the
+payload, alpha and scales as three arrays; ``compress_wire`` writes each
+slot's packed uint8 wire row.  Both share one per-row body, so
+``pack_wire`` of the block form is the wire form byte for byte.
 
-The wrapper dispatches by the tensor's device: a CPU tensor takes the
-plain PyTorch version (``ref.compress_wire_ref``), a CUDA tensor launches
-the kernel or raises.  The TPU's tiling limits (``ROW_TILE``, the VMEM
-slot budget) do not carry over: the kernel takes any n that is a multiple
-of the block size.
+Each wrapper dispatches by the tensor's device: a CPU tensor takes the
+plain PyTorch version (``ref``), a CUDA tensor launches the kernel or
+raises.  The TPU's tiling limits (``ROW_TILE``, the VMEM slot budget) do
+not carry over: the kernels take any row count.
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ from repro_torch.kernels import build, ref
 FMT_CODE = {"e4m3": 0, "e5m2": 1, "int8": 2}
 #: grid.y limit: one block row per slot on the y axis
 MAX_SLOTS = 65535
+#: grid.x limit: the block forms put one block row per block on the x axis
+MAX_ROWS = 2**31 - 1
 
 
 def supported(cfg) -> bool:
@@ -69,7 +73,50 @@ def _lib():
     lib.taco_compress_wire.argtypes = [p, p, i, i, i, ctypes.c_longlong, i,
                                        i, i, f, f, f, f, p]
     lib.taco_compress_wire.restype = i
+    lib.taco_compress_blocks.argtypes = [p, p, p, p, i, ctypes.c_longlong,
+                                         i, i, f, f, f, f, p]
+    lib.taco_compress_blocks.restype = i
     return lib
+
+
+def compress_blocks(blocks: torch.Tensor, cfg):
+    """(M, B) bf16/f32 block rows -> (q (M, B) storage dtype, alpha (M,)
+    f32, s (M, G) f32), the arrays of ``ref.compress_blocks_ref``."""
+    if blocks.device.type == "cpu":
+        return ref.compress_blocks_ref(blocks, cfg)
+    if blocks.device.type != "cuda":
+        raise ValueError(f"compress_blocks: no kernel for device "
+                         f"{blocks.device}")
+    check_supported(cfg)
+    if blocks.dim() != 2 or blocks.shape[1] != cfg.block_size or \
+            blocks.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"compress_blocks takes (M, {cfg.block_size}) "
+                         f"bf16/f32, got {tuple(blocks.shape)} "
+                         f"{blocks.dtype}")
+    if not blocks.is_contiguous():
+        raise ValueError("compress_blocks needs a contiguous input")
+    rows = blocks.shape[0]
+    if rows > MAX_ROWS:
+        raise ValueError(f"compress_blocks: {rows} rows > {MAX_ROWS}")
+    groups = cfg.block_size // (cfg.quant_group_size or cfg.block_size)
+    dev = blocks.device
+    q = torch.empty((rows, cfg.block_size), dtype=cfg.format_spec.dtype,
+                    device=dev)
+    alpha = torch.empty((rows,), dtype=torch.float32, device=dev)
+    s = torch.empty((rows, groups), dtype=torch.float32, device=dev)
+    if rows == 0:
+        return q, alpha, s
+    with torch.cuda.device(dev):
+        err = _lib().taco_compress_blocks(
+            blocks.data_ptr(), q.data_ptr(), alpha.data_ptr(), s.data_ptr(),
+            int(blocks.dtype == torch.bfloat16), rows, FMT_CODE[cfg.fmt],
+            groups, cfg.tau, cfg.eps, cfg.scale_eps, cfg.format_spec.qmax,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"compress_blocks kernel launch failed: CUDA "
+                           f"error {err}")
+    compress_blocks.launches += 1
+    return q, alpha, s
 
 
 def compress_wire(x: torch.Tensor, cfg) -> torch.Tensor:
@@ -105,4 +152,5 @@ def compress_wire(x: torch.Tensor, cfg) -> torch.Tensor:
     return wire
 
 
+compress_blocks.launches = 0
 compress_wire.launches = 0

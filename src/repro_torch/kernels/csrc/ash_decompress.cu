@@ -1,26 +1,61 @@
-// Fused ASH decompress read straight out of packed TACO wire rows (paper
-// §4.1 "fused_ash_decompress").
-//
-// Replaces two TPU kernels of src/repro/kernels/ash_decompress.py:
-//   * decompress_wire_pallas (pallas_call at line 193, body
-//     _decompress_wire_kernel at line 151): the all-gather receiver,
+// Fused ASH decompress (paper §4.1 "fused_ash_decompress"), in block form
+// and in wire form.  Replaces four TPU kernels of
+// src/repro/kernels/ash_decompress.py:
+//   * decompress_blocks_pallas (K3; pallas_call at line 68, body
+//     _decompress_kernel): the all-gather receiver on block arrays,
 //     g = (q s) H / 16, then g / alpha when the metadata is dual;
-//   * decompress_reduce_wire_pallas (pallas_call at line 255, body
-//     _decompress_reduce_wire_kernel at line 206): the reduce-scatter
-//     receiver, sum_p q_p (s_p / alpha_p) over the P peer rows in peer-index
-//     order in the rotated domain, then ONE rotation (H is linear).
-// Both read the wire fields at the static wire_layout(n) offsets that
-// ash_compress.cu writes (the JAX package's _wire_fields bitcasts).
+//   * decompress_reduce_pallas (K4; pallas_call at line 111, body
+//     _decompress_reduce_kernel at line 84): the reduce-scatter receiver on a
+//     peer stack, sum_p q_p (s_p / alpha_p) over the P peers in peer-index
+//     order in the rotated domain, then ONE rotation (H is linear);
+//   * decompress_wire_pallas (K5; pallas_call at line 193) and
+//     decompress_reduce_wire_pallas (K6; pallas_call at line 255): the same
+//     two operators reading the wire fields at the static wire_layout(n)
+//     offsets that ash_compress.cu writes (the JAX package's _wire_fields
+//     bitcasts).
+// Each block form and its wire form call one shared body (decompress_elem,
+// reduce_elem in ash_common.cuh), so K3 on unpack_wire(w) equals K5 on w, and
+// K4 equals K6, bit for bit.
 //
-// Bound on the H100: bytes.  Each output element costs ~1 wire byte per peer
-// read and 4 bytes written, against ~11 f32 operations (+2 per extra peer).
-// The design reads every wire byte once, keeps the block row in registers
-// and one 1 KB shared buffer for the butterfly, and writes each f32 output
-// once, coalesced; the peer loop accumulates in a register so P peers cost
-// one rotation.  One 256-thread block per row, as the compress kernel.
+// Bound on the H100: bytes.  Each output element costs ~1 payload byte per
+// peer read and 4 bytes written, against ~11 f32 operations (+2 per extra
+// peer).  The design reads every input byte once, keeps the block row in
+// registers and one 1 KB shared buffer for the butterfly, and writes each f32
+// output once, coalesced; the peer loop accumulates in a register so P peers
+// cost one rotation.  One 256-thread block per row, as the compress kernels.
 #include "ash_common.cuh"
 
 namespace taco {
+
+__global__ void __launch_bounds__(kBlock)
+decompress_blocks_kernel(const uint8_t* __restrict__ q,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ alpha,
+                         float* __restrict__ out, int fmt, int groups) {
+  __shared__ float sh[kBlock];
+  const int t = threadIdx.x;
+  const size_t row = blockIdx.x;
+  const float s = scale[row * groups + t / (kBlock / groups)];
+  out[row * kBlock + t] = decompress_elem(
+      q[row * kBlock + t], s, alpha == nullptr ? nullptr : alpha + row, fmt,
+      sh);
+}
+
+__global__ void __launch_bounds__(kBlock)
+decompress_reduce_kernel(const uint8_t* __restrict__ q,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ alpha,
+                         float* __restrict__ out, int peers, long long rows,
+                         int fmt, int groups) {
+  __shared__ float sh[kBlock];
+  const int t = threadIdx.x;
+  const size_t row = blockIdx.x;
+  const size_t m = static_cast<size_t>(rows);
+  out[row * kBlock + t] = reduce_elem(
+      peers, q + row * kBlock + t, m * kBlock,
+      scale + row * groups + t / (kBlock / groups), m * groups,
+      alpha == nullptr ? nullptr : alpha + row, m, fmt, sh);
+}
 
 __global__ void __launch_bounds__(kBlock)
 decompress_wire_kernel(const uint8_t* __restrict__ wire,
@@ -32,15 +67,13 @@ decompress_wire_kernel(const uint8_t* __restrict__ wire,
   const int mb = n / kBlock;
   const uint8_t* wr = wire + static_cast<size_t>(blockIdx.y) * total;
   const float* scale = reinterpret_cast<const float*>(wr + n);
-  const float q = decode_code(wr[static_cast<size_t>(blk) * kBlock + t], fmt);
-  const float s = scale[blk * groups + t / (kBlock / groups)];
-  float g = wht256(q * s, sh) * 0.0625f;
-  if (!folded) {
-    const float* al = reinterpret_cast<const float*>(wr + n + 4LL * mb * groups);
-    g = g / al[blk];
-  }
+  const float* al =
+      folded ? nullptr
+             : reinterpret_cast<const float*>(wr + n + 4LL * mb * groups) + blk;
   out[static_cast<size_t>(blockIdx.y) * n + static_cast<size_t>(blk) * kBlock
-      + t] = g;
+      + t] = decompress_elem(wr[static_cast<size_t>(blk) * kBlock + t],
+                             scale[blk * groups + t / (kBlock / groups)], al,
+                             fmt, sh);
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -52,21 +85,48 @@ decompress_reduce_wire_kernel(const uint8_t* __restrict__ wire,
   const int t = threadIdx.x;
   const int blk = blockIdx.x;
   const int mb = n / kBlock;
-  const int sidx = blk * groups + t / (kBlock / groups);
-  float acc = 0.f;
-  for (int p = 0; p < peers; ++p) {
-    const uint8_t* wr = wire + static_cast<size_t>(p) * total;
-    const float* scale = reinterpret_cast<const float*>(wr + n);
-    float f = scale[sidx];
-    if (!folded) {
-      f = f / reinterpret_cast<const float*>(wr + n + 4LL * mb * groups)[blk];
-    }
-    acc += decode_code(wr[static_cast<size_t>(blk) * kBlock + t], fmt) * f;
-  }
-  out[static_cast<size_t>(blk) * kBlock + t] = wht256(acc, sh) * 0.0625f;
+  // wire rows are 4-byte multiples (n is a multiple of 256), so each peer's
+  // f32 fields sit total / 4 floats after the previous peer's
+  const size_t fstride = static_cast<size_t>(total) / 4;
+  const float* scale = reinterpret_cast<const float*>(wire + n)
+                       + blk * groups + t / (kBlock / groups);
+  const float* al =
+      folded ? nullptr
+             : reinterpret_cast<const float*>(wire + n + 4LL * mb * groups)
+                   + blk;
+  out[static_cast<size_t>(blk) * kBlock + t] = reduce_elem(
+      peers, wire + static_cast<size_t>(blk) * kBlock + t,
+      static_cast<size_t>(total), scale, fstride, al, fstride, fmt, sh);
 }
 
 }  // namespace taco
+
+// q: (rows, 256) payload bytes; scale: (rows, groups) f32; alpha: (rows,)
+// f32 or null (folded); out: (rows, 256) f32.  One block per row on grid.x.
+extern "C" int taco_decompress_blocks(const void* q, const void* scale,
+                                      const void* alpha, void* out,
+                                      long long rows, int fmt, int groups,
+                                      void* stream) {
+  taco::decompress_blocks_kernel<<<static_cast<unsigned>(rows), taco::kBlock,
+                                   0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(q), static_cast<const float*>(scale),
+      static_cast<const float*>(alpha), static_cast<float*>(out), fmt, groups);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q: (peers, rows, 256) payload bytes; scale: (peers, rows, groups) f32;
+// alpha: (peers, rows) f32 or null (folded); out: (rows, 256) f32.
+extern "C" int taco_decompress_reduce(const void* q, const void* scale,
+                                      const void* alpha, void* out, int peers,
+                                      long long rows, int fmt, int groups,
+                                      void* stream) {
+  taco::decompress_reduce_kernel<<<static_cast<unsigned>(rows), taco::kBlock,
+                                   0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(q), static_cast<const float*>(scale),
+      static_cast<const float*>(alpha), static_cast<float*>(out), peers, rows,
+      fmt, groups);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // wire: (slots, total) uint8; out: (slots, n) f32.
 extern "C" int taco_decompress_wire(const void* wire, void* out, int slots,

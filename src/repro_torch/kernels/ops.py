@@ -1,58 +1,41 @@
-"""Dispatch of the TACO operators by the device of the tensor.
+"""The TACO operators and the route between their two forms.
 
-A CPU tensor takes the plain PyTorch version (``ref``); a CUDA tensor
-takes the hand-written kernel or raises.  The fused wire forms are the
-kernel wrappers themselves (each dispatches on its input).  The block
-forms — the TPU kernels ``compress_blocks_pallas``,
-``decompress_blocks_pallas`` and ``decompress_reduce_pallas`` — have no
-CUDA kernel yet (the training-hop slice ports them), so on the card they
-raise rather than run the plain version in a kernel's place.
+Every operator is a kernel wrapper that dispatches by the device of its
+tensor: a CPU tensor takes the plain PyTorch version (``ref``), a CUDA
+tensor launches the hand-written kernel or raises.  The block forms
+(``compress_blocks``, ``decompress_blocks``, ``decompress_reduce``) work on
+(M, B) blocks and separate metadata; the fused wire forms
+(``compress_wire``, ``decompress_wire``, ``decompress_reduce_wire``) read
+and write the packed uint8 wire row.
+
+:func:`wire_kernel_impl` picks the form a codec takes for a slot, with the
+JAX package's rule (``repro/kernels/ops.py``): the wire forms up to
+``WIRE_FUSED_MAX_SLOT_ELEMS`` elements per slot, the block forms composed
+with ``pack_wire`` / ``unpack_wire`` above it.
 """
 from __future__ import annotations
 
-import torch
-
-from repro_torch.kernels import ref
-from repro_torch.kernels.ash_compress import compress_wire  # noqa: F401
+from repro_torch.kernels.ash_compress import (  # noqa: F401
+    compress_blocks, compress_wire, supported)
 from repro_torch.kernels.ash_decompress import (  # noqa: F401
-    decompress_reduce_wire, decompress_wire)
+    decompress_blocks, decompress_reduce, decompress_reduce_wire,
+    decompress_wire)
+
+# The JAX package's slot budget for its fused wire kernels (a TPU VMEM
+# limit there), kept at the same value so that both packages take the same
+# route at the same shape and the tests can hold route against route.  It
+# is no limit of the card: the CUDA wire kernels take any slot.  Decode
+# hops (n = batch x d_model) stay below it; a training hop, which flattens
+# a whole (B, S, d) activation into one slot, lies above it.
+WIRE_FUSED_MAX_SLOT_ELEMS = 512 * 1024
 
 
-def _cpu_only(t: torch.Tensor, name: str) -> None:
-    if t.device.type != "cpu":
-        raise NotImplementedError(
-            f"{name} has no CUDA kernel yet (ported with the training hop); "
-            f"got a tensor on {t.device}")
-
-
-def compress_blocks(blocks: torch.Tensor, cfg):
-    """(M, B) -> (q storage dtype, alpha (M,), s (M,G))."""
-    _cpu_only(blocks, "compress_blocks")
-    return ref.compress_blocks_ref(blocks, cfg)
-
-
-def decompress_blocks(q: torch.Tensor, s: torch.Tensor, alpha, cfg):
-    """(q, s, alpha|None) -> blocks (M, B) in cfg.compute_dtype."""
-    _cpu_only(q, "decompress_blocks")
-    return ref.decompress_blocks_ref(q, s, alpha, cfg).to(
-        cfg.torch_compute_dtype)
-
-
-def decompress_reduce(q: torch.Tensor, s: torch.Tensor, alpha, cfg):
-    """Stacked peers q (P,M,B) -> summed blocks (M,B): the rotated-domain
-    sum with ONE inverse rotation, the same arithmetic as the JAX
-    package's jnp path."""
-    _cpu_only(q, "decompress_reduce")
-    from repro_torch.core import ash as ash_mod
-    peers, m, b = q.shape
-    groups = s.shape[-1]
-    cd = cfg.torch_compute_dtype
-    f = s if alpha is None else s / alpha[..., None]            # (P, M, G)
-    zsum = torch.einsum(
-        "pmgk,pmg->mgk",
-        q.reshape(peers, m, groups, b // groups).to(cd), f.to(cd),
-    ).reshape(m, b)
-    if cfg.transform in ("ash", "hadamard"):
-        zsum = ash_mod._rotate(zsum, ash_mod.hadamard_matrix(b, cd,
-                                                             zsum.device))
-    return zsum
+def wire_kernel_impl(cfg, n: int | None = None):
+    """``"wire"`` when the fused wire kernels cover ``cfg`` at slot size
+    ``n`` (the kernels' config coverage and the slot budget), else None:
+    the codec then composes the block forms with the wire packing."""
+    if not supported(cfg):
+        return None
+    if n is not None and n > WIRE_FUSED_MAX_SLOT_ELEMS:
+        return None
+    return "wire"

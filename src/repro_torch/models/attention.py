@@ -1,5 +1,6 @@
-"""TP-sharded GQA attention with head padding / KV replication — the decode
-path (single new token against a KV cache).
+"""TP-sharded GQA attention with head padding / KV replication: the
+training path (full sequence, chunked causal softmax) and the decode path
+(single new token against a KV cache).
 
 Head layout as in the JAX package: q heads padded to a multiple of tp; kv
 heads group-padded and sharded alongside q when n_kv >= tp, else stored
@@ -84,6 +85,103 @@ def qkv_project(x_full, p, cfg, plan, ctx, positions):
     k, v = kv_project(x_full, p, cfg, plan, ctx, positions)
     return q, k, v
 
+
+# --------------------------------------------------------------------------
+# chunked attention core (training path)
+# --------------------------------------------------------------------------
+
+def _softmax_scan(q, k, v, mask_fn, kv_chunk: int):
+    """q (B,H,Cq,hd) vs k, v (B,H,Sk,hd) -> (B,H,Cq,hd) f32: online
+    softmax over kv chunks in order; ``mask_fn(kv_start, ck)`` gives the
+    (Cq, ck) additive mask."""
+    b, h, cq, hd = q.shape
+    sk = k.shape[2]
+    kv_chunk = min(kv_chunk, sk)
+    scale = 1.0 / np.sqrt(hd)
+    qf = q.float() * scale
+    acc = torch.zeros((b, h, cq, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, cq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, cq), dtype=torch.float32, device=q.device)
+    for j in range(sk // kv_chunk):
+        lo = j * kv_chunk
+        kc = k[:, :, lo:lo + kv_chunk].float()
+        vc = v[:, :, lo:lo + kv_chunk].float()
+        s_ = torch.einsum("bhqd,bhkd->bhqk", qf, kc)
+        s_ = s_ + mask_fn(lo, kv_chunk)[None, None]
+        m_new = torch.maximum(m, s_.amax(dim=-1))
+        p_ = torch.exp(s_ - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p_.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p_, vc)
+        m = m_new
+    return acc / l.clamp_min(1e-30)[..., None]
+
+
+def attention_core(q, k, v, *, causal: bool, window: int | None,
+                   q_chunk: int = 512, kv_chunk: int = 512):
+    """q (B,Sq,H,hd), k/v (B,Sk,H,hd) head-aligned -> (B,Sq,H,hd) bf16.
+
+    The JAX package's monolithic form: q in chunks of ``q_chunk``, each
+    against every kv chunk (masked ones included) with an f32 online
+    softmax; a sliding window slices a static (W + Cq)-wide kv span per q
+    chunk."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    q_chunk = min(q_chunk, sq)
+    if sq % q_chunk:
+        q_chunk = sq
+    dev = q.device
+
+    def one_q_chunk(qi):
+        qc = qt[:, :, qi * q_chunk:(qi + 1) * q_chunk]
+        q_pos = qi * q_chunk + torch.arange(q_chunk, device=dev)
+        if window is not None:
+            w = min(window, sk)
+            width = min(w + q_chunk, sk)
+            lo = min(max(qi * q_chunk - w + 1, 0), sk - width)
+            kc, vc = kt[:, :, lo:lo + width], vt[:, :, lo:lo + width]
+
+            def mask_fn(kv_start, ck):
+                kpos = lo + kv_start + torch.arange(ck, device=dev)
+                bad = (kpos[None, :] > q_pos[:, None]) | \
+                    (kpos[None, :] <= q_pos[:, None] - w)
+                return torch.where(bad, NEG_INF, 0.0)
+
+            return _softmax_scan(qc, kc, vc, mask_fn, kv_chunk)
+
+        def mask_fn(kv_start, ck):
+            if not causal:
+                return torch.zeros((q_chunk, ck), device=dev)
+            kpos = kv_start + torch.arange(ck, device=dev)
+            return torch.where(kpos[None, :] > q_pos[:, None], NEG_INF, 0.0)
+
+        return _softmax_scan(qc, kt, vt, mask_fn, kv_chunk)
+
+    out = torch.cat([one_q_chunk(i) for i in range(sq // q_chunk)], dim=2)
+    return out.transpose(1, 2).to(COMPUTE_DTYPE)
+
+
+def attention_apply(x_full, p, cfg, plan, ctx, *, causal=True, window=None,
+                    positions=None):
+    """x_full (B, S, D) -> tp-partial output (B, S, D) (the caller
+    reduces).  ``positions`` defaults to 0..S-1."""
+    b, s, _ = x_full.shape
+    if positions is None:
+        positions = torch.arange(s, device=x_full.device)
+    q, k, v = qkv_project(x_full, p, cfg, plan, ctx, positions)
+    k = _expand_kv(k, plan, ctx, cfg)
+    v = _expand_kv(v, plan, ctx, cfg)
+    out = attention_core(q, k, v, causal=causal, window=window)
+    out = out * head_mask(plan, ctx, cfg.n_heads, x_full.device)[None, None,
+                                                                 :, None]
+    wo = ctx.weight_gather(p["wo"], 1)
+    return out.reshape(b, s, plan.q_local * cfg.hd) @ wo
+
+
+# --------------------------------------------------------------------------
+# decode path
+# --------------------------------------------------------------------------
 
 def attention_decode(x, p, cfg, plan, ctx, cache, pos):
     """x (B, 1, D) full-D; cache dict {k, v}: (B, S_cache, kv_local, hd).

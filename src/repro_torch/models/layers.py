@@ -140,6 +140,16 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoid_pos(seq: int, d: int, offset: int = 0) -> np.ndarray:
+    """(seq, d) f32 sinusoid position table (numpy; the caller casts)."""
+    pos = np.arange(offset, offset + seq)[:, None]
+    div = np.exp(np.arange(0, d, 2) / d * -np.log(10000.0))[None, :]
+    table = np.zeros((seq, d), np.float32)
+    table[:, 0::2] = np.sin(pos * div)
+    table[:, 1::2] = np.cos(pos * div)
+    return table
+
+
 # --------------------------------------------------------------------------
 # MLP
 # --------------------------------------------------------------------------
@@ -191,6 +201,56 @@ def embed_partial(tokens, table_local, ctx):
     return torch.where(valid[..., None], part,
                        torch.zeros((), dtype=part.dtype,
                                    device=part.device)).to(COMPUTE_DTYPE)
+
+
+def vocab_parallel_xent(x_full, table_local, labels, mask, ctx, plan,
+                        chunk: int = 512):
+    """x_full (B, S, D), labels (B, S), mask (B, S) -> (sum_loss, count),
+    local f32 scalars.
+
+    Logits are computed per vocab shard in sequence chunks of ``chunk``
+    tokens, each under ``torch.utils.checkpoint``, so one chunk's (B,
+    chunk, V/tp) f32 logits are live at a time, in the forward and in the
+    backward.  The softmax statistics are combined over the group with
+    ``psum_exact`` (O(B*S) scalars, left uncompressed as in the paper)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.core.collectives import psum_exact
+    if ctx.tp_size != 1:
+        raise NotImplementedError("vocab_parallel_xent over a TP group > 1 "
+                                  "(the group max of the logits) is the "
+                                  "next slice of the port")
+    table = ctx.weight_gather(table_local, 1)                # (V/tp, D)
+    v_loc = table.shape[0]
+    s = x_full.shape[1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        chunk = s
+
+    def chunk_loss(xc, yc, mc):
+        logits = (xc @ table.T).float()                      # (B, c, V/tp)
+        # numerical-stability shift only: no gradient flows through it
+        m = logits.detach().amax(dim=-1)
+        z = psum_exact(torch.exp(logits - m[..., None]).sum(dim=-1),
+                       ctx.tp_size)
+        shifted = yc.long() - ctx.tp_rank * v_loc
+        valid = (shifted >= 0) & (shifted < v_loc)
+        picked = torch.gather(logits, -1,
+                              shifted.clamp(0, v_loc - 1)[..., None])[..., 0]
+        label_logit = psum_exact(torch.where(valid, picked, 0.0),
+                                 ctx.tp_size)
+        nll = (torch.log(z) + m) - label_logit
+        return (nll * mc).sum(), mc.sum()
+
+    loss = torch.zeros((), dtype=torch.float32, device=x_full.device)
+    count = torch.zeros((), dtype=torch.float32, device=x_full.device)
+    for i in range(0, s, chunk):
+        l, c = checkpoint(chunk_loss, x_full[:, i:i + chunk],
+                          labels[:, i:i + chunk],
+                          mask[:, i:i + chunk].float(), use_reentrant=False)
+        loss = loss + l
+        count = count + c
+    return loss, count
 
 
 def lm_head_logits(x, table_local, ctx):

@@ -1,4 +1,5 @@
-"""Public model API: param specs -> init (or JAX weights) on a device.
+"""Public model API: param specs -> init (or JAX weights) on a device,
+the training loss and the batch shapes.
 
 ``Model`` binds (ArchConfig, RunPlan) to a device.  It runs on CUDA unless
 the caller passes ``device="cpu"``; without a card and without that
@@ -43,8 +44,9 @@ class Model:
         transformer.check_family(cfg)
         if plan.tp != 1 or plan.fsdp != 1:
             raise NotImplementedError(
-                f"tp={plan.tp}, fsdp={plan.fsdp}: sharded serving needs the "
-                "NCCL transport, the next slice of the port")
+                f"tp={plan.tp}, fsdp={plan.fsdp}: sharded serving and "
+                "training need the NCCL transport, the next slice of the "
+                "port")
         self.cfg, self.plan = cfg, plan
         self.device = resolve_device(device)
 
@@ -67,3 +69,17 @@ class Model:
                                  f"{spec.shape}")
             return t
         return tree_map(conv, self.specs(), tree)
+
+    # ---- training ---------------------------------------------------------
+    def batch_shape(self, seq_len: int, global_batch: int) -> dict:
+        """Train-batch ``(shape, dtype)`` by key, as the data pipeline
+        emits them (token ids in torch's index dtype)."""
+        b, s = global_batch, seq_len
+        return {"tokens": ((b, s), torch.int64),
+                "labels": ((b, s), torch.int64),
+                "mask": ((b, s), torch.float32)}
+
+    def loss_parts(self, params, batch, ctx):
+        """(loss_sum, count, aux): f32 sums over this rank's batch."""
+        return transformer.forward_train(params, batch, self.cfg, self.plan,
+                                         ctx)

@@ -1,17 +1,31 @@
 """Transformer assembly: layer segments, per-layer and whole-model param
-specs, the LM-head table.  The port covers the dense family (rmsnorm or
-layernorm; swiglu, geglu or gelu; rope, learned or sinusoid positions;
-sliding-window attention); the other families raise.
+specs, the LM-head table, and the training forward (decode lives in
+``repro_torch/serve/serve_step.py``).  The port covers the dense family
+(rmsnorm or layernorm; swiglu, geglu or gelu; rope, learned or sinusoid
+positions; sliding-window attention); the other families raise.
+
+The training forward runs Megatron-SP, as the JAX package: the residual
+stream is sequence-sharded over the TP group, each block enters through a
+compressed all-gather (``tp_enter``) and leaves through a compressed
+reduce-scatter (``tp_exit``), and the embedding's exit and the final
+entry are TACO sites too.  Layers run one after another in a Python loop
+(the JAX package scans them), each under ``torch.utils.checkpoint`` when
+the plan asks for full recompute.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core.codecs import IdentityCodec
 from repro_torch.models import attention as attn_mod
 # embed_partial and mlp_apply are re-exported where the JAX package has them
 from repro_torch.models.layers import (  # noqa: F401
-    ParamBuilder, embed_partial, embed_specs, mlp_apply, mlp_specs,
-    norm_specs)
+    COMPUTE_DTYPE, ParamBuilder, apply_norm, embed_partial, embed_specs,
+    mlp_apply, mlp_specs, norm_specs, sinusoid_pos, tree_map,
+    vocab_parallel_xent)
 
 #: the later slice that ports each non-dense family
 LATER_SLICE = {"moe": "the MoE slice (models/moe.py, ep_all_to_all)",
@@ -74,3 +88,154 @@ def model_specs(cfg, plan) -> dict:
 def head_table(params, cfg):
     return params["embed"]["table"] if cfg.tie_embeddings \
         else params["head"]["table"]
+
+
+# --------------------------------------------------------------------------
+# residual-stream TP helpers (SP vs AllReduce mode)
+# --------------------------------------------------------------------------
+
+def tp_enter(x_shard, ctx):
+    """seq-sharded residual -> full-seq activations (TACO site:
+    all-gather)."""
+    if ctx.tp_mode == "sp":
+        return ctx.sp_gather(x_shard, 1)
+    return ctx.tp_f(x_shard)
+
+
+def tp_exit(y_partial, ctx):
+    """tp-partial block output -> seq-sharded residual (TACO site:
+    reduce-scatter)."""
+    if ctx.tp_mode == "sp":
+        return ctx.sp_scatter(y_partial, 1)
+    return ctx.tp_g(y_partial)
+
+
+def seq_slice(x_full, ctx, tp: int):
+    """Full-seq (replicated) -> this rank's seq shard, no communication."""
+    if ctx.tp_mode != "sp" or tp == 1:
+        return x_full
+    s_loc = x_full.shape[1] // tp
+    return x_full[:, ctx.tp_rank * s_loc:(ctx.tp_rank + 1) * s_loc]
+
+
+# --------------------------------------------------------------------------
+# block forward (train path; full sequence)
+# --------------------------------------------------------------------------
+
+def block_apply(x_shard, lp, cfg, plan, ctx, *, attn_kind: str, positions,
+                causal=True):
+    """One dense transformer block on the seq-sharded residual stream:
+    four TACO sites (two entries, two exits)."""
+    window = cfg.window if attn_kind == "swa" else None
+    h = apply_norm(x_shard, lp["norm1"], cfg.norm, cfg.norm_eps)
+    h_full = tp_enter(h, ctx)
+    partial = attn_mod.attention_apply(h_full, lp["attn"], cfg, plan, ctx,
+                                       causal=causal, window=window,
+                                       positions=positions)
+    x_shard = x_shard + tp_exit(partial, ctx)
+    h = apply_norm(x_shard, lp["norm2"], cfg.norm, cfg.norm_eps)
+    h_full = tp_enter(h, ctx)
+    out = tp_exit(mlp_apply(h_full, lp["mlp"], cfg.mlp, ctx), ctx)
+    if cfg.mlp == "gelu":
+        out = out + lp["mlp"]["b2"].to(out.dtype)
+    return x_shard + out
+
+
+def run_segments(x_shard, seg_params, segments, cfg, plan, ctx, *,
+                 positions, causal=True):
+    """Run each segment's stacked layers in order on the residual stream.
+
+    Per-layer CommPlan overrides (``skip_first`` / ``skip_last``) are
+    resolved into spans of layers sharing one plan.  With ``plan.remat``
+    and ``remat_policy == "full"`` each layer runs under
+    ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` with
+    ``nothing_saveable``): only the layer's input is kept, and the backward
+    recomputes the layer up to its last saved activation — the block's
+    final reduce-scatter, which saves nothing, is not recomputed."""
+    from repro_torch.core.parallel import iter_layer_spans
+    remat = plan.remat and plan.remat_policy != "none"
+    if remat and plan.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={plan.remat_policy!r} is not ported; the port "
+            "recomputes whole layers (remat_policy='full') or none")
+    n_total = max(s.start + s.count for s in segments)
+    for seg, sp_ in zip(segments, seg_params):
+        for span_n, span_ctx, sp_span in iter_layer_spans(
+                ctx, seg.start, seg.count, n_total, sp_):
+
+            def blk(x, lp, kind=seg.kind, c=span_ctx):
+                return block_apply(x, lp, cfg, plan, c, attn_kind=kind,
+                                   positions=positions, causal=causal)
+
+            for i in range(span_n):
+                lp = tree_map(lambda a, i=i: a[i], sp_span)
+                if remat:
+                    x_shard = checkpoint(blk, x_shard, lp,
+                                         use_reentrant=False)
+                else:
+                    x_shard = blk(x_shard, lp)
+    return x_shard
+
+
+# --------------------------------------------------------------------------
+# train forward (loss)
+# --------------------------------------------------------------------------
+
+def add_positional(x_shard, params, cfg, ctx, seq: int):
+    """Learned / sinusoid absolute positions, added on the seq shard."""
+    if cfg.pos not in ("learned", "sinusoid"):
+        return x_shard
+    s_loc = x_shard.shape[1]
+    start = ctx.tp_rank * s_loc if ctx.tp_mode == "sp" else 0
+    if cfg.pos == "learned":
+        table = ctx.weight_gather(params["pos_embed"], 0)
+        pe = table[start:start + s_loc]
+    else:
+        pe = torch.from_numpy(sinusoid_pos(seq, cfg.d_model)[
+            start:start + s_loc]).to(x_shard.device, COMPUTE_DTYPE)
+    return x_shard + pe[None].to(x_shard.dtype)
+
+
+def forward_train(params, batch, cfg, plan, ctx):
+    """batch: tokens (B, S), labels (B, S), mask (B, S).  Returns
+    ``(loss_sum, token_count, aux)`` as f32 scalars, local to this rank
+    (aux, the MoE balance loss, is 0 for the dense family)."""
+    check_family(cfg)
+    tokens, labels, mask = batch["tokens"], batch["labels"], batch["mask"]
+    # embedding (vocab-parallel; TACO reduce-scatter site)
+    partial = embed_partial(tokens, params["embed"]["table"], ctx)
+    seq = partial.shape[1]
+    x = tp_exit(partial, ctx)
+    x = add_positional(x, params, cfg, ctx, seq)
+    positions = torch.arange(seq, device=x.device)
+    x = run_segments(x, params["segments"], layer_segments(cfg), cfg, plan,
+                     ctx, positions=positions, causal=True)
+    x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    x_full = tp_enter(x, ctx)                          # TACO gather site
+    loss_sum, count = vocab_parallel_xent(x_full, head_table(params, cfg),
+                                          labels, mask, ctx, plan)
+    return loss_sum, count, torch.zeros((), device=loss_sum.device)
+
+
+def tp_hops_per_step(cfg, plan, comm_plan) -> dict:
+    """Compressed TP hops that one Megatron-SP training step runs, by kind:
+    each all-gather hop runs one compress and one decompress, each
+    reduce-scatter hop one compress and one decompress-reduce.
+
+    Forward: every compressed layer enters twice and exits twice, plus the
+    embedding's exit and the final entry.  Backward: each forward hop's
+    conjugate (an all-gather's is a reduce-scatter and back).  Full
+    recompute (``plan.remat``) runs each layer's forward again up to its
+    last saved activation, i.e. both entries and the attention exit; the
+    MLP exit saves nothing, so ``torch.utils.checkpoint`` stops before it.
+    Hops whose codec is the identity (``skip_first`` / ``skip_last``
+    layers, an uncompressed direction) run no codec and are not counted."""
+    n = cfg.n_layers
+    layers = sum(c for c, p in comm_plan.layer_spans(0, n, n)
+                 if not p.tp_identity)
+    f = not isinstance(comm_plan.tp_fwd, IdentityCodec)
+    b = not isinstance(comm_plan.tp_bwd, IdentityCodec)
+    remat = plan.remat and plan.remat_policy != "none"
+    ag = f * (2 * layers + 1) + f * remat * 2 * layers + b * (2 * layers + 1)
+    rs = f * (2 * layers + 1) + f * remat * layers + b * (2 * layers + 1)
+    return {"all_gather": ag, "reduce_scatter": rs}

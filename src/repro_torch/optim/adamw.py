@@ -1,0 +1,117 @@
+"""AdamW with f32 master weights and f32 moments — the JAX package's
+``repro/optim/adamw.py`` on one process.
+
+State: f32 master weights and both moments, one tensor per parameter, and
+the step count.  The update keeps the JAX package's order: global-norm
+clip scale, moments, bias-corrected step, decoupled weight decay on the
+master weights, then the bf16 parameters cast from the masters.  Unlike
+the JAX package, whose arrays are immutable, the update writes the
+masters, the moments and the bf16 parameters IN PLACE, so a step
+allocates no second copy of the optimizer state.
+
+On one card every replicated-gradient axis of the JAX package (model,
+fsdp) has size 1, so ``finalize_grads`` has nothing to sum; sharded state
+comes with the NCCL slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.models.layers import tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    lr_max: float = 3e-4
+    lr_min: float = 3e-5
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+
+
+def leaves(tree) -> list:
+    """Leaves of nested dicts / lists in the JAX package's pytree order
+    (sorted dict keys)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in leaves(t)]
+    return [tree]
+
+
+def schedule(step: int, oc: OptConfig) -> float:
+    """Linear warmup -> cosine decay (paper: 3e-4 -> 3e-5), in f32 as the
+    JAX package computes it."""
+    f = np.float32
+    s = f(step)
+    if s < oc.warmup_steps:
+        return float(f(f(oc.lr_max) * s) / f(max(oc.warmup_steps, 1)))
+    t = np.clip((s - f(oc.warmup_steps))
+                / f(max(oc.total_steps - oc.warmup_steps, 1)), f(0), f(1))
+    cos = f(oc.lr_min) + f(0.5 * (oc.lr_max - oc.lr_min)) * \
+        (f(1) + np.cos(f(math.pi) * t))
+    return float(cos)
+
+
+def init_opt_state(params) -> dict:
+    """f32 master copies, zero moments, step 0."""
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return {"master": tree_map(lambda p: p.detach().float().clone(), params),
+            "mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
+            "step": 0}
+
+
+def finalize_grads(grads, model):
+    """Sum the grads of replicated-but-divergently-used parameters over
+    the axes they are replicated on: all of size 1 on one card."""
+    if model.plan.tp != 1 or model.plan.fsdp != 1:
+        raise NotImplementedError("gradient sums over a TP / fsdp group > 1 "
+                                  "are the next slice of the port")
+    return grads
+
+
+def global_grad_norm(grads, model) -> torch.Tensor:
+    """Global L2 norm (f32), summed per sharding class of the spec in the
+    JAX package's order (its per-axes psums are size-1 sums here)."""
+    terms: dict = {}
+    for g, s in zip(leaves(grads), leaves(model.specs())):
+        key = (s.fsdp_dim is not None, s.tp_dim is not None)
+        terms.setdefault(key, []).append(torch.sum(g.float() ** 2))
+    return torch.sqrt(sum(sum(ts) for ts in terms.values()))
+
+
+@torch.no_grad()
+def adamw_update(params, grads, opt_state, oc: OptConfig, model) -> dict:
+    """One AdamW step from finalized grads, in place on ``params`` (bf16),
+    ``opt_state['master' | 'mu' | 'nu']`` and the step count.  Returns the
+    metrics ``{"grad_norm": tensor, "lr": float}``."""
+    step = opt_state["step"] + 1
+    lr = schedule(step, oc)
+    gnorm = global_grad_norm(grads, model)
+    scale = torch.clamp(oc.clip_norm / torch.clamp_min(gnorm, 1e-12),
+                        max=1.0)
+    b1, b2 = oc.b1, oc.b2
+    f = np.float32
+    bc1 = float(f(1) - f(b1) ** f(step))
+    bc2 = float(f(1) - f(b2) ** f(step))
+    for p, g, m, mu, nu in zip(leaves(params), leaves(grads),
+                               leaves(opt_state["master"]),
+                               leaves(opt_state["mu"]),
+                               leaves(opt_state["nu"])):
+        g = g.float() * scale
+        mu.mul_(b1).add_((1 - b1) * g)
+        nu.mul_(b2).add_((1 - b2) * g * g)
+        update = (mu / bc1) / (torch.sqrt(nu / bc2) + oc.eps)
+        m.sub_(lr * (update + oc.weight_decay * m))
+        p.copy_(m)
+    opt_state["step"] = step
+    return {"grad_norm": gnorm, "lr": lr}

@@ -3,17 +3,20 @@ one).  Run on a machine with an H100:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-The three CUDA wire kernels are held against their plain PyTorch versions
-on the same inputs with the parity rule of ``repro_torch.kernels.ref``,
-and the card's taco decode against the CPU's (plain versions).
+The six CUDA kernels are held against their plain PyTorch versions on the
+same inputs with the parity rule of ``repro_torch.kernels.ref``; each
+block form against its wire form bit for bit (they share one per-row
+body); the card's taco decode and taco train step against the CPU's
+(plain versions).
 """
 import numpy as np
 import pytest
 import torch
 
 from conftest import tp_like
+from repro_torch.core.codecs import pack_wire, unpack_wire
 from repro_torch.core.registry import codec_from_spec
-from repro_torch.kernels import ash_compress, ash_decompress, ref
+from repro_torch.kernels import ash_compress, ash_decompress, ops, ref
 
 pytestmark = pytest.mark.gpu
 
@@ -100,3 +103,121 @@ def test_decode_on_card_matches_cpu(card):
         assert float((lg - lc).norm() / lc.norm()) < 5e-2
     assert ash_compress.compress_wire.launches - before == \
         6 * 2 * (2 * cfg.n_layers + 1)
+
+
+BLOCK_SPECS = ["taco", "taco:folded", "taco:e5m2", "taco:int8", "taco:g64",
+               "taco:folded:g32", "taco:seps1e-20"]
+
+
+@pytest.mark.parametrize("spec", BLOCK_SPECS)
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", [40, 28 * 97])
+def test_block_kernels_match_plain(card, spec, in_dtype, rows, rng):
+    """K1, K3, K4 against their plain versions (each case at least 1e4
+    payload bytes, so the parity rule allows the odd one-code flip)."""
+    cfg = codec_from_spec(spec).cfg
+    x = torch.from_numpy(tp_like(rng, (rows, 256))).to(card, in_dtype)
+    q, a, s = ash_compress.compress_blocks(x, cfg)
+    qp, ap, sp = ref.compress_blocks_ref(x, cfg)
+    layout = ref._layout(cfg, rows * 256)
+
+    def row(q_, a_, s_):
+        from repro_torch.core import taco
+        pay = taco._storage_to_wire(q_, cfg.format_spec).reshape(1, -1)
+        if cfg.metadata == "folded":
+            return pack_wire((pay, (s_ / a_[:, None]).reshape(1, -1)), layout)
+        return pack_wire((pay, s_.reshape(1, -1), a_.reshape(1, -1)), layout)
+    ref.check_wire_parity(row(q, a, s), row(qp, ap, sp), rows * 256, cfg)
+    alpha = None if cfg.metadata == "folded" else ap
+    scale = sp / ap[:, None] if alpha is None else sp
+    ref.check_decoded_close(
+        ash_decompress.decompress_blocks(qp, scale, alpha, cfg),
+        ref.decompress_blocks_ref(qp, scale, alpha, cfg))
+    peers = 4
+    qs = qp.reshape(peers, rows // peers, 256) if rows % peers == 0 else \
+        qp[None]
+    p_ = qs.shape[0]
+    ss = scale.reshape(p_, -1, scale.shape[-1])
+    al = None if alpha is None else alpha.reshape(p_, -1)
+    ref.check_decoded_close(ash_decompress.decompress_reduce(qs, ss, al, cfg),
+                            ref.decompress_reduce_ref(qs, ss, al, cfg))
+
+
+@pytest.mark.parametrize("spec", BLOCK_SPECS)
+@pytest.mark.parametrize("peers", [1, 4])
+def test_block_forms_equal_wire_forms_bitwise(card, spec, peers, rng):
+    """pack_wire(K1(x)) == K2(x); K3(unpack_wire(w)) == K5(w);
+    K4(unpack_wire(w)) == K6(w) — one shared per-row body each."""
+    codec = codec_from_spec(spec)
+    n = 256 * 97
+    x = torch.from_numpy(tp_like(rng, (peers, n))).to(card, torch.bfloat16)
+    wire = ops.compress_wire(x, codec.cfg)
+    layout = codec.wire_layout(n)
+    assert torch.equal(pack_wire(codec.encode(x), layout), wire)
+    enc = unpack_wire(wire, layout)
+    assert torch.equal(codec.decode(enc, n, torch.float32),
+                       ops.decompress_wire(wire, n, codec.cfg))
+    assert torch.equal(codec.decode_sum(enc, n, torch.float32),
+                       ops.decompress_reduce_wire(wire, n, codec.cfg)
+                       .reshape(-1))
+
+
+def test_block_launches_count_once(card):
+    cfg = codec_from_spec("taco").cfg
+    counters = (ash_compress.compress_blocks,
+                ash_decompress.decompress_blocks,
+                ash_decompress.decompress_reduce)
+    before = [c.launches for c in counters]
+    q, a, s = ash_compress.compress_blocks(torch.zeros((2, 256),
+                                                       device=card), cfg)
+    ash_decompress.decompress_blocks(q, s, a, cfg)
+    ash_decompress.decompress_reduce(q[None], s[None], a[None], cfg)
+    ref.compress_blocks_ref(torch.zeros((2, 256), device=card), cfg)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1]
+
+
+@pytest.mark.parametrize("budget", [None, 0], ids=["wire", "blocks"])
+def test_train_step_on_card_matches_cpu(card, budget, monkeypatch):
+    """Smoke qwen2-0.5b, one taco train step: loss and grad norm on the
+    card (kernels) against the CPU (plain versions), same weights and
+    batch; 1e-3 on the loss and 5e-2 on the grad norm, the bounds of
+    tests/test_torch_train.py (the card's bf16 matmuls round differently
+    from the CPU's)."""
+    from repro_torch.configs import get_config, make_plan, smoke_config
+    from repro_torch.core.parallel import ParallelCtx
+    from repro_torch.core.registry import from_spec
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import build_train_step
+    if budget is not None:
+        monkeypatch.setattr(ops, "WIRE_FUSED_MAX_SLOT_ELEMS", budget)
+    cfg = smoke_config(get_config("qwen2-0.5b"))
+    plan = make_plan(cfg, 1, 1)
+    ctx = ParallelCtx(plan=from_spec("taco"))
+    oc = adamw.OptConfig(lr_max=1e-3, warmup_steps=2, total_steps=10)
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, 64, 2)).batch(0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = Model(cfg, plan, device=dev)
+        params = model.init(0) if dev == "cpu" else \
+            tree_map(lambda a: a.to(card), out["cpu"][0])
+        if dev == "cpu":
+            init = tree_map(lambda a: a.clone(), params)
+        step = build_train_step(model, ctx, oc)
+        counts = [k.launches for k in (ash_compress.compress_blocks,
+                                       ash_compress.compress_wire)]
+        _, _, m = step(params, adamw.init_opt_state(params),
+                       SyntheticLM.place(batch, model.device))
+        out[dev] = (init if dev == "cpu" else None, float(m["loss"]),
+                    float(m["grad_norm"]),
+                    [k.launches - c for k, c in zip(
+                        (ash_compress.compress_blocks,
+                         ash_compress.compress_wire), counts)])
+    _, lc, gc, _ = out["cpu"]
+    _, lg, gg, launched = out["cuda"]
+    assert abs(lg - lc) / lc < 1e-3
+    assert abs(gg - gc) / gc < 5e-2
+    assert launched[0 if budget == 0 else 1] > 0
+    assert launched[1 if budget == 0 else 0] == 0

@@ -154,7 +154,8 @@ def test_wrappers_raise_off_cpu_without_plain_fallback(monkeypatch):
     def boom(*a, **k):
         raise AssertionError("plain version called off the CPU")
     for name in ("compress_wire_ref", "decompress_wire_ref",
-                 "decompress_reduce_wire_ref"):
+                 "decompress_reduce_wire_ref", "compress_blocks_ref",
+                 "decompress_blocks_ref", "decompress_reduce_ref"):
         monkeypatch.setattr(ref, name, boom)
     cfg = codec_from_spec("taco").cfg
     x = torch.zeros(1, 256, device="meta")
@@ -165,9 +166,15 @@ def test_wrappers_raise_off_cpu_without_plain_fallback(monkeypatch):
         ash_decompress.decompress_wire(w, 256, cfg)
     with pytest.raises(ValueError, match="no kernel"):
         ash_decompress.decompress_reduce_wire(w, 256, cfg)
-    # the block operators have no CUDA kernel yet: off the CPU they raise
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+    # the block operators are kernel wrappers too
+    q = torch.zeros(1, 256, dtype=torch.float8_e4m3fn, device="meta")
+    s = torch.zeros(1, 1, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
         ops.compress_blocks(x, cfg)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.decompress_blocks(q, s, None, cfg)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.decompress_reduce(q[None], s[None], None, cfg)
 
 
 def test_kernel_coverage_rule():

@@ -18,7 +18,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      K6).  Each kernel is timed (device time from the profiler, per-call
      time with CUDA events) beside its bound and its plain version, and
      both routes of one training hop (wire kernels vs block kernels +
-     pack/unpack) are timed;
+     pack/unpack) are timed.  Phase 1c holds K7
+     (``compress_blocks_butterfly``, on no path) against its plain version
+     at the serve and training shapes with B = 256 and at B = 64 and 512,
+     and times it beside K1;
   2. serving: drives the serve launcher (``repro_torch.launch.serve``) on
      full-width qwen2-0.5b (24 layers, d 896, vocab 151936, bf16, weights
      from --seed) under ``baseline`` and then ``taco``; every decode tick
@@ -28,14 +31,22 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
   3. training: drives the train launcher (``repro_torch.launch.train``) on
      full-width qwen2-0.5b, batch 4 x seq 2048, seed 0, lr 3e-4, under
      ``baseline`` and ``taco``, 2 warm + 6 timed steps each; every taco
-     step must launch exactly the block-kernel counts that
-     ``models.transformer.tp_hops_per_step`` derives (268 K1, 146 K3, 122
-     K4) and no wire kernel, ``baseline`` none; every loss finite, taco's
-     within 5e-2 relative of baseline's at every step; one more step each
-     is profiled (wall, device busy, idle share, TACO kernel time);
+     step must launch exactly the block-kernel counts derived from the
+     code (``want_per_step``: 268 K1, 146 K3, 122 K4) and no wire kernel,
+     ``baseline`` none; every loss finite, taco's within 5e-2 relative of
+     baseline's at every step; one more step each is profiled (wall,
+     device busy, idle share, TACO kernel time);
   4. reference: the smoke-size taco decode and one smoke-size taco train
      step (wire and block routes) on the card must agree with the plain
-     versions on the CPU.
+     versions on the CPU;
+  5. process group: a 1-rank NCCL group on the card.  At smoke size the
+     hops (forward and backward) and the loss under the chunked ring of
+     ``tp=taco:folded:chunks=4`` (pipelined and serial) must equal the
+     monolithic ``tp=taco:folded`` bit for bit; then full-width training
+     (as phase 3) and serving (as phase 2) run under that spec with the
+     group passed: four times the block-kernel launches per step (one per
+     ring chunk), four times the wire-kernel launches per tick, losses
+     within 5e-2 of phase 3's baseline.
 
 Nothing is caught: any failure exits non-zero.  The line before the last
 is the kernel table as JSON; the last is
@@ -68,7 +79,9 @@ KERNEL_FN = {"compress_wire": "compress_wire_kernel",
              "decompress_reduce_wire": "decompress_reduce_wire_kernel",
              "compress_blocks": "compress_blocks_kernel",
              "decompress_blocks": "decompress_blocks_kernel",
-             "decompress_reduce": "decompress_reduce_kernel"}
+             "decompress_reduce": "decompress_reduce_kernel",
+             "compress_blocks_butterfly": "compress_blocks_butterfly_kernel"}
+RING_SPEC = "tp=taco:folded:chunks=4"     # the paper's spec: the chunked ring
 TRAIN_SIZE = "--no-smoke"                 # full width and depth
 DEVICE = "cuda"                           # where phase 1b's tensors live
 
@@ -320,15 +333,6 @@ def phase_blocks() -> dict:
     dev = torch.device(DEVICE)
     rows, hops = {}, {}
 
-    def packed(q, a, s, cfg, peers, n):
-        from repro_torch.core import taco
-        pay = taco._storage_to_wire(q, cfg.format_spec).reshape(peers, n)
-        if cfg.metadata == "folded":
-            enc = (pay, (s / a[:, None]).reshape(peers, -1))
-        else:
-            enc = (pay, s.reshape(peers, -1), a.reshape(peers, -1))
-        return pack_wire(enc, ref._layout(cfg, n))
-
     def case(spec, n, in_dtype, peers, timed=False, label="", x=None):
         codec = codec_from_spec(spec)
         cfg = codec.cfg
@@ -340,8 +344,8 @@ def phase_blocks() -> dict:
         q, a, s = ops.compress_blocks(blocks, cfg)
         qp, ap, sp = ref.compress_blocks_ref(blocks, cfg)
         torch.cuda.synchronize()
-        w_k, w_p = packed(q, a, s, cfg, peers, n), packed(qp, ap, sp, cfg,
-                                                          peers, n)
+        w_k = ref.blocks_to_wire(q, a, s, cfg, peers, n)
+        w_p = ref.blocks_to_wire(qp, ap, sp, cfg, peers, n)
         stats = ref.check_wire_parity(w_k, w_p, n, cfg)
         dec_k = ref.decompress_wire_ref(w_k, n, cfg)
         dec_p = ref.decompress_wire_ref(w_p, n, cfg)
@@ -455,20 +459,186 @@ def phase_blocks() -> dict:
     return {"rows": rows, "hops": hops}
 
 
-def phase_train(counters) -> dict:
-    """Full-width qwen2-0.5b training through the train launcher's entry
-    points, under baseline and taco: per-step launches, losses, wall and
-    peak memory, and one profiled step each."""
-    from repro_torch.launch import train
+def phase_butterfly() -> dict:
+    """K7 (``compress_blocks_butterfly``) against its plain version under
+    the parity rule: bf16 in, e4m3, at the serve shape (n = 3584) and the
+    training hop's (n = 7,340,032) with B = 256, and at the training hop's
+    n with B = 64 and B = 512.  K7 and K1 (B = 256 only) are timed at the
+    B = 256 shapes in this phase, each beside its bound and plain
+    version."""
+    from repro_torch.core.taco import TacoConfig
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fwht_butterfly import compress_blocks_butterfly
+    gen = np.random.default_rng(2)
+    rows = {}
+    for label, n, b in (("serve", SERVE_N, 256), ("train", TRAIN_N, 256),
+                        ("train B=64", TRAIN_N, 64),
+                        ("train B=512", TRAIN_N, 512)):
+        cfg = TacoConfig(block_size=b)
+        blocks = tp_like(gen, (1, n)).to(DEVICE, torch.bfloat16).reshape(-1, b)
+        m = blocks.shape[0]
+        q, a, s = compress_blocks_butterfly(blocks, cfg)
+        qp, ap, sp = ref.compress_blocks_butterfly_ref(blocks, cfg)
+        torch.cuda.synchronize()
+        w_k = ref.blocks_to_wire(q, a, s, cfg, 1, n)
+        w_p = ref.blocks_to_wire(qp, ap, sp, cfg, 1, n)
+        stats = ref.check_wire_parity(w_k, w_p, n, cfg)
+        dec_k = ref.decompress_wire_ref(w_k, n, cfg)
+        dec_p = ref.decompress_wire_ref(w_p, n, cfg)
+        if stats["flipped"] == 0:
+            ref.check_decoded_close(dec_k, dec_p)
+        err = float((dec_k - dec_p).abs().max())
+        del dec_k, dec_p, w_k, w_p
+        print(f"  {label:11s} n={n:8d} B={b:3d} in=bfloat16 e4m3 "
+              f"flipped={stats['flipped']} meta_rel="
+              f"{stats['meta_rel_err']:.2e} err compress_blocks_butterfly="
+              f"{err:.2e}")
+        if label not in ("serve", "train"):
+            continue
+        work = {
+            "compress_blocks_butterfly": (
+                lambda: compress_blocks_butterfly(blocks, cfg),
+                lambda: ref.compress_blocks_butterfly_ref(blocks, cfg),
+                # per element: square-add 2, alpha 1, log2(B) butterfly
+                # adds, 1/sqrt(B) 1, |z| and max 2, z/s 1, clip 2, cast 1
+                (9.0 + np.log2(b)) * n),
+            "compress_blocks": (
+                lambda: ops.compress_blocks(blocks, cfg),
+                lambda: ref.compress_blocks_ref(blocks, cfg), 16.0 * n)}
+        for name, (kern, plain, nops) in work.items():
+            (ms, events), plain_ms = kernel_ms(kern, KERNEL_FN[name]), \
+                device_ms(plain)
+            per_call, plain_call = call_ms(kern), call_ms(plain)
+            # bf16 in, one payload byte out, alpha and s f32 per row
+            b_ms, b_by = bound(2 * n + n + 8 * m, nops)
+            print(f"    {name:26s} {label:6s} device: kernel {ms:.6f} ms "
+                  f"({events} launches traced)  plain {plain_ms:.6f} ms  "
+                  f"bound {b_ms:.7f} ms ({b_by}); per call: kernel "
+                  f"{per_call:.6f} ms  plain {plain_call:.6f} ms")
+            rows.setdefault(name, {})[label] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "max_abs_err": err, "call_ms": per_call,
+                "plain_call_ms": plain_call}
+        del blocks, q, a, s, qp, ap, sp
+    torch.cuda.empty_cache()
+    return rows
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_group_parity(group) -> None:
+    """Smoke size through the 1-rank NCCL group, on both codec routes: the
+    hops of a smoke training step (batch 2 x seq 64 x d 128, bf16), forward
+    and backward, and the smoke model's loss, under the ring of
+    ``RING_SPEC`` (``schedule`` pipelined and serial) must equal the
+    monolithic ``tp=taco:folded`` bit for bit."""
+    from repro_torch.configs import get_config, make_plan, smoke_config
+    from repro_torch.core import collectives as cc
+    from repro_torch.core.parallel import ParallelCtx
+    from repro_torch.core.registry import from_spec
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import Model
+    gen = np.random.default_rng(3)
+    x = tp_like(gen, (2, 64, 128)).to(DEVICE, torch.bfloat16)
+    ct = tp_like(gen, (2, 64, 128)).to(DEVICE, torch.bfloat16)
+    cfg = smoke_config(get_config("qwen2-0.5b"))
+    model = Model(cfg, make_plan(cfg, 1, 1))
+    params = model.init(0)
+    batch = SyntheticLM.place(SyntheticLM(DataConfig(cfg.vocab_size, 64, 2))
+                              .batch(0), model.device)
+
+    def run(spec):
+        plan = from_spec(spec)
+        c = plan.tp_fwd
+        out = []
+        for fn in (cc.all_gather_c, cc.psum_scatter_c):
+            xx = x.clone().requires_grad_(True)
+            y = fn(xx, group, 1, c, c)
+            y.backward(ct)
+            out += [y.detach(), xx.grad]
+        out.append(cc.allreduce_g(x, group, c, c))
+        with torch.no_grad():
+            loss_sum, count, _ = model.loss_parts(
+                params, batch, ParallelCtx(plan=plan, group=group))
+        out.append(loss_sum / count)
+        return out
+
+    for route, budget in (("wire", 1 << 62), ("blocks", 0)):
+        with wire_budget(budget), nccl_calls() as calls:
+            mono = run("tp=taco:folded")
+            for spec in (RING_SPEC, RING_SPEC + ":schedule=serial"):
+                for i, (got, want) in enumerate(zip(run(spec), mono)):
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"{spec}, {route} route: output "
+                                             f"{i} differs from the "
+                                             "monolithic hop")
+        print(f"  smoke {route:6s} route: {RING_SPEC} (pipelined, serial) =="
+              f" tp=taco:folded bit for bit (AG, RS fwd+bwd, AR, loss "
+              f"{float(mono[-1]):.6f}); torch.distributed calls "
+              f"{({k: v for k, v in calls.items() if v})}")
+
+
+def want_per_step(cfg, model_plan, comm_plan) -> dict:
+    """Block-kernel launches per training step, derived from the code: each
+    compressed hop of ``models.transformer.tp_hops_per_step`` runs one
+    compress and one decompress (all-gather) or decompress-reduce
+    (reduce-scatter) per ring chunk (``chunks=1``: the monolithic hop)."""
+    from repro_torch.core import collectives as cc
     from repro_torch.models import transformer
+    hops = transformer.tp_hops_per_step(cfg, model_plan, comm_plan)
+    chunks = {cc.ring_chunks(comm_plan.tp_fwd), cc.ring_chunks(comm_plan.tp_bwd)}
+    if len(chunks) != 1:
+        raise AssertionError(f"forward and backward codecs chunk apart: "
+                             f"{chunks}")
+    k = chunks.pop()
+    ag, rs = hops["all_gather"] * k, hops["reduce_scatter"] * k
+    return {"compress_blocks": ag + rs, "decompress_blocks": ag,
+            "decompress_reduce": rs, "compress_wire": 0, "decompress_wire": 0,
+            "decompress_reduce_wire": 0, "compress_blocks_butterfly": 0}
+
+
+@contextlib.contextmanager
+def nccl_calls():
+    """Count the ``torch.distributed`` calls the port makes inside the
+    block, by name (the port calls them as attributes of the module)."""
+    import torch.distributed as dist
+    names = ("all_gather_into_tensor", "all_to_all_single", "all_reduce",
+             "reduce_scatter_tensor", "batch_isend_irecv", "broadcast")
+    counts = dict.fromkeys(names, 0)
+    saved = {n: getattr(dist, n) for n in names}
+
+    def counted(name):
+        def call(*a, **k):
+            counts[name] += 1
+            return saved[name](*a, **k)
+        return call
+    for n in names:
+        setattr(dist, n, counted(n))
+    try:
+        yield counts
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+def phase_train(counters, runs) -> dict:
+    """Full-width qwen2-0.5b training through the train launcher's entry
+    points, one run per ``(label, spec, group)``: per-step launches,
+    losses, wall and peak memory, and one profiled step each."""
+    from repro_torch.launch import train
     names = list(counters)
     out = {}
-    for spec in ("baseline", "taco"):
+    for label, spec, group in runs:
         args = train.parse_args([
             "--arch", "qwen2-0.5b", TRAIN_SIZE, "--comm-spec", spec,
             "--steps", str(TRAIN_STEPS), "--seq", str(TRAIN_SEQ), "--batch",
             str(TRAIN_BATCH), "--lr", "3e-4", "--seed", "0"])
-        trainer, cfg = train.build_trainer(args)
+        trainer, cfg = train.build_trainer(args, group=group)
         per_step = []
         inner = trainer.step_fn_for
 
@@ -487,36 +657,35 @@ def phase_train(counters) -> dict:
         torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
             c.launches = 0
-        params, opt, hist = trainer.run()
+        with nccl_calls() as calls:
+            params, opt, hist = trainer.run()
         launches = dict(zip(names, (counters[k].launches for k in names)))
         peak = torch.cuda.max_memory_allocated() / 2**20
-        hops = transformer.tp_hops_per_step(cfg, trainer.model.plan,
-                                            trainer.ctx.plan)
-        ag, rs = hops["all_gather"], hops["reduce_scatter"]
-        want = {"compress_blocks": ag + rs, "decompress_blocks": ag,
-                "decompress_reduce": rs, "compress_wire": 0,
-                "decompress_wire": 0, "decompress_reduce_wire": 0}
-        if spec == "baseline":
+        want = want_per_step(cfg, trainer.model.plan, trainer.ctx.plan)
+        if trainer.ctx.plan.tp_identity:
             want = dict.fromkeys(want, 0)
         want_row = [want[k] for k in names]
         if any(row != want_row for row in per_step):
-            raise AssertionError(f"{spec}: per-step launches {per_step}, "
+            raise AssertionError(f"{label}: per-step launches {per_step}, "
                                  f"want {want_row} ({names})")
         if [launches[k] for k in names] != \
                 [TRAIN_STEPS * w for w in want_row]:
-            raise AssertionError(f"{spec}: launches {launches}")
+            raise AssertionError(f"{label}: launches {launches}")
         for h in hist:
             if not np.isfinite(h["loss"]) or not np.isfinite(h["grad_norm"]):
-                raise AssertionError(f"{spec}: non-finite step {h}")
-            print(f"  {spec:8s} step {h['step']} loss {h['loss']:.6f} "
+                raise AssertionError(f"{label}: non-finite step {h}")
+            print(f"  {label:8s} step {h['step']} loss {h['loss']:.6f} "
                   f"grad_norm {h['grad_norm']:.6f} lr {h['lr']:.3e} "
                   f"wall {h['ms']:.3f} ms tok/s {h['tok_per_s']:.1f}")
         timed = hist[TRAIN_WARM:]
         mean_ms = sum(h["ms"] for h in timed) / len(timed)
-        print(f"  {spec:8s} {len(timed)} timed steps: mean wall {mean_ms:.3f}"
+        print(f"  {label:8s} ({spec}, tp group "
+              f"{'none' if group is None else trainer.ctx.tp_size}) "
+              f"{len(timed)} timed steps: mean wall {mean_ms:.3f}"
               f" ms/step, {TRAIN_BATCH * TRAIN_SEQ / mean_ms * 1e3:.1f} tok/s"
               f", peak memory {peak:.1f} MiB, launches/step "
-              f"{dict(zip(names, want_row))}")
+              f"{dict(zip(names, want_row))}, torch.distributed calls per "
+              f"step {({k: v / TRAIN_STEPS for k, v in calls.items() if v})}")
         # one more step, timed alone and then profiled
         batch = trainer.data.place(trainer.data.batch(TRAIN_STEPS),
                                    trainer.model.device)
@@ -538,25 +707,32 @@ def phase_train(counters) -> dict:
         print(f"    one step: wall {wall:.3f} ms, device busy {busy:.3f} ms,"
               f" idle share {1 - busy / wall:.3f}, TACO kernels "
               f"{taco_ms:.3f} ms; top {top}")
-        out[spec] = {"hist": hist, "launches": launches, "per_step": want_row,
-                     "peak_mib": peak, "mean_ms": mean_ms,
-                     "step_profile": {"wall_ms": wall, "device_ms": busy,
-                                      "idle_share": 1 - busy / wall,
-                                      "taco_kernels_ms": taco_ms}}
+        out[label] = {"hist": hist, "launches": launches, "per_step": want_row,
+                      "peak_mib": peak, "mean_ms": mean_ms,
+                      "step_profile": {"wall_ms": wall, "device_ms": busy,
+                                       "idle_share": 1 - busy / wall,
+                                       "taco_kernels_ms": taco_ms}}
         trainer.step_fn_for = inner = counted = fn = None
         del trainer, params, opt, batch
         gc.collect()
         torch.cuda.empty_cache()
-    for a, b in zip(out["baseline"]["hist"], out["taco"]["hist"]):
+    return out
+
+
+def check_losses(base: dict, other: dict, label: str) -> float:
+    """``other``'s loss within 5e-2 relative of ``base``'s at every step;
+    returns the worst relative difference."""
+    worst = 0.0
+    for a, b in zip(base["hist"], other["hist"], strict=True):
         r = abs(b["loss"] - a["loss"]) / abs(a["loss"])
         if r > 5e-2:
-            raise AssertionError(f"step {a['step']}: taco loss {b['loss']} vs "
-                                 f"baseline {a['loss']} ({r:.3e} relative)")
-    worst = max(abs(b["loss"] - a["loss"]) / abs(a["loss"])
-                for a, b in zip(out["baseline"]["hist"], out["taco"]["hist"]))
-    print(f"  taco vs baseline loss: worst relative difference {worst:.3e} "
-          f"(bound 5e-2)")
-    return out
+            raise AssertionError(f"step {a['step']}: {label} loss {b['loss']}"
+                                 f" vs baseline {a['loss']} ({r:.3e} "
+                                 f"relative)")
+        worst = max(worst, r)
+    print(f"  {label} vs baseline loss: worst relative difference "
+          f"{worst:.3e} (bound 5e-2)")
+    return worst
 
 
 def phase_reference_train() -> float:
@@ -604,18 +780,25 @@ def phase_reference_train() -> float:
     return worst
 
 
-def phase_serve(kernels) -> dict:
+def phase_serve(kernels, runs) -> dict:
+    """Full-width qwen2-0.5b serving through the serve launcher's entry
+    points, one run per ``(label, spec, group)``: every decode tick of a
+    compressed run launches, per hop of the decode path (24 layers x 2 + 1
+    = 49 AllReduce hops) and ring chunk, two compress, one
+    decompress-reduce and one decompress wire kernel, and no block
+    kernel."""
+    from repro_torch.core import collectives as cc
+    from repro_torch.core.registry import from_spec
     from repro_torch.launch import serve
     counters = [kernels["compress_wire"], kernels["decompress_reduce_wire"],
                 kernels["decompress_wire"]]
-    want_tick = [98, 49, 49]     # 24 layers x 2 + 1 hops, 2 compressions each
     out = {}
-    for spec in ("baseline", "taco"):
+    for label, spec, group in runs:
         args = serve.parse_args([
             "--arch", "qwen2-0.5b", "--no-smoke", "--comm-spec", spec,
             "--max-batch", "4", "--requests", "6", "--prompt-len", "16",
             "--gen", "16", "--qps", "16", "--seed", "0"])
-        eng, cfg = serve.build_engine(args)
+        eng, cfg = serve.build_engine(args, group=group)
         ticks = []
         inner = eng._decode_tick
 
@@ -628,28 +811,35 @@ def phase_serve(kernels) -> dict:
         torch.cuda.reset_peak_memory_stats()
         for c in kernels.values():
             c.launches = 0
-        s, wall = serve.drive(eng, args, cfg)
+        with nccl_calls() as calls:
+            s, wall = serve.drive(eng, args, cfg)
         launches = [c.launches for c in counters]
         blocks = {k: kernels[k].launches for k in (
             "compress_blocks", "decompress_blocks", "decompress_reduce")}
         if any(blocks.values()):
-            raise AssertionError(f"{spec}: decode hops reached the block "
+            raise AssertionError(f"{label}: decode hops reached the block "
                                  f"kernels {blocks}")
         done = eng.sched.done
         if len(done) != 6 or any(len(r.tokens) != 16 for r in done):
-            raise AssertionError(f"{spec}: not every request finished")
+            raise AssertionError(f"{label}: not every request finished")
         if any(not 0 <= t < cfg.vocab_size for r in done for t in r.tokens):
-            raise AssertionError(f"{spec}: token id out of range")
-        per_tick = want_tick if spec == "taco" else [0, 0, 0]
+            raise AssertionError(f"{label}: token id out of range")
+        plan = from_spec(spec)
+        hops = 2 * cfg.n_layers + 1
+        chunks = cc.ring_chunks(plan.tp_fwd)
+        per_tick = [0, 0, 0] if plan.tp_identity else \
+            [2 * hops * chunks, hops * chunks, hops * chunks]
         if any(t != per_tick for t in ticks):
-            raise AssertionError(f"{spec}: per-tick launches {ticks}, want "
+            raise AssertionError(f"{label}: per-tick launches {ticks}, want "
                                  f"{per_tick} every tick")
-        calls = s["decode_steps"] + s["prefill_steps"]
-        if launches != [k * calls for k in per_tick]:
-            raise AssertionError(f"{spec}: launches {launches} over {calls} "
-                                 f"forward calls")
+        fwd_calls = s["decode_steps"] + s["prefill_steps"]
+        if launches != [k * fwd_calls for k in per_tick]:
+            raise AssertionError(f"{label}: launches {launches} over "
+                                 f"{fwd_calls} forward calls")
         toks = s["total_new_tokens"]
-        print(f"  {spec:8s} requests={s['requests']} tokens={toks} "
+        print(f"  {label:8s} ({spec}, tp group "
+              f"{'none' if group is None else eng.ctx.tp_size}) "
+              f"requests={s['requests']} tokens={toks} "
               f"wall={wall:.3f}s tok/s={toks / wall:.2f} "
               f"p50={s['decode_ms_per_tok_p50']:.3f} "
               f"p99={s['decode_ms_per_tok_p99']:.3f} ms/tok "
@@ -658,13 +848,14 @@ def phase_serve(kernels) -> dict:
               f"prefill_calls={s['prefill_steps']} "
               f"launches[compress,reduce,decompress]={launches} "
               f"per_tick={ticks[0]} "
-              f"max_mem={torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+              f"max_mem={torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+              f"torch.distributed calls {({k: v for k, v in calls.items() if v})}")
         prof = profile_tick(eng)
         print(f"    one decode tick: wall {prof['wall_ms']:.3f} ms, device "
               f"busy {prof['device_ms']:.3f} ms, idle share "
               f"{prof['idle_share']:.3f}, taco kernels "
               f"{prof['taco_kernels_ms']:.4f} ms; top {prof['top']}")
-        out[spec] = dict(s, wall_s=wall, launches=launches, tick=prof)
+        out[label] = dict(s, wall_s=wall, launches=launches, tick=prof)
         eng._decode_tick = inner = None   # break the engine's self-cycle
         del eng
         gc.collect()
@@ -719,7 +910,11 @@ def main() -> None:
         check=True).stdout.strip().splitlines()[0]
     print(smi)
     print(sys.version.split()[0], torch.__version__, torch.version.cuda)
-    from repro_torch.kernels import ash_compress, ash_decompress, build
+    import torch.distributed as dist
+
+    from repro_torch.core.parallel import init_tp_group
+    from repro_torch.kernels import (ash_compress, ash_decompress, build,
+                                     fwht_butterfly)
     t_start = t0 = time.monotonic()
     logs = build.build_all()
     print(f"kernels built in {time.monotonic() - t0:.1f}s")
@@ -730,19 +925,39 @@ def main() -> None:
                "decompress_reduce": ash_decompress.decompress_reduce,
                "compress_wire": ash_compress.compress_wire,
                "decompress_wire": ash_decompress.decompress_wire,
-               "decompress_reduce_wire": ash_decompress.decompress_reduce_wire}
+               "decompress_reduce_wire": ash_decompress.decompress_reduce_wire,
+               "compress_blocks_butterfly":
+                   fwht_butterfly.compress_blocks_butterfly}
     rows = phase_kernels()
     blocks = phase_blocks()
     rows.update(blocks["rows"])
+    print("phase 1c: K7 (compress_blocks_butterfly) vs its plain version "
+          "(same rule), timed beside K1")
+    for name, by_label in phase_butterfly().items():
+        for label, r in by_label.items():
+            key = f"{label}, beside K7" if name == "compress_blocks" else label
+            rows.setdefault(name, {})[key] = r
     print("phase 2: serving full-width qwen2-0.5b")
-    served = phase_serve(kernels)
+    served = phase_serve(kernels, [("baseline", "baseline", None),
+                                   ("taco", "taco", None)])
     print(f"phase 3: training full-width qwen2-0.5b, batch {TRAIN_BATCH} x "
           f"seq {TRAIN_SEQ}, {TRAIN_WARM} warm + "
           f"{TRAIN_STEPS - TRAIN_WARM} timed steps")
-    trained = phase_train(kernels)
+    trained = phase_train(kernels, [("baseline", "baseline", None),
+                                    ("taco", "taco", None)])
+    check_losses(trained["baseline"], trained["taco"], "taco")
     print("phase 4: reference checks at smoke size")
     phase_reference()
     phase_reference_train()
+    print(f"phase 5: a 1-rank NCCL process group on the card, {RING_SPEC}")
+    group = init_tp_group("cuda",
+                          init_method=f"tcp://127.0.0.1:{free_port()}",
+                          world_size=1, rank=0, timeout_s=300)
+    phase_group_parity(group)
+    ring_train = phase_train(kernels, [("ring", RING_SPEC, group)])["ring"]
+    check_losses(trained["baseline"], ring_train, "ring")
+    ring_serve = phase_serve(kernels, [("ring", RING_SPEC, group)])["ring"]
+    dist.destroy_process_group()
     meta = {
         "compress_blocks": ("src/repro_torch/kernels/csrc/ash_compress.cu",
                             "src/repro/kernels/ash_compress.py:76", "train"),
@@ -760,12 +975,22 @@ def main() -> None:
         "decompress_reduce_wire": (
             "src/repro_torch/kernels/csrc/ash_decompress.cu",
             "src/repro/kernels/ash_decompress.py:231", "serve"),
+        "compress_blocks_butterfly": (
+            "src/repro_torch/kernels/csrc/fwht_butterfly.cu",
+            "src/repro/kernels/fwht_butterfly.py:53", "train"),
     }
-    launches = dict(zip(("compress_wire", "decompress_reduce_wire",
-                         "decompress_wire"), served["taco"]["launches"]))
-    launches.update({k: trained["taco"]["launches"][k]
+    wire_names = ("compress_wire", "decompress_reduce_wire", "decompress_wire")
+    # launches on each main path: the count set to 0 before it, read after
+    by_path = {
+        "serve taco": dict(zip(wire_names, served["taco"]["launches"])),
+        "train taco": trained["taco"]["launches"],
+        "train ring": ring_train["launches"],
+        "serve ring": dict(zip(wire_names, ring_serve["launches"]))}
+    launches = dict(by_path["serve taco"])
+    launches.update({k: by_path["train taco"][k]
                      for k in ("compress_blocks", "decompress_blocks",
-                               "decompress_reduce")})
+                               "decompress_reduce",
+                               "compress_blocks_butterfly")})
     table = []
     for name, (source, replaces, path) in meta.items():
         r = rows[name][path]
@@ -777,15 +1002,10 @@ def main() -> None:
             "bound_by": r["bound_by"], "library_ms": None,
             "call_ms": r["call_ms"], "plain_call_ms": r["plain_call_ms"],
             "path": path,
+            "launches_by_path": {p_: c.get(name, 0)
+                                 for p_, c in by_path.items()},
             "shapes": {k: v for k, v in rows[name].items() if k != path}})
     print(f"train hop routes: {json.dumps(blocks['hops'])}")
-    # K7 (compress_blocks_butterfly, not ported): its bound from its shapes
-    # — bf16 (M, 256) in, q (M, 256) one byte, alpha (M,) and s (M, 1) f32
-    for label, n in (("serve", SERVE_N), ("train", TRAIN_N)):
-        m = n // 256
-        b_ms, b_by = bound(2 * n + n + 8 * m, 16.0 * n)
-        print(f"K7 bound at the {label} shape (n={n}): {b_ms:.7f} ms "
-              f"({b_by})")
     print(f"chip_smoke: {time.monotonic() - t_start:.1f}s in all")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -78,11 +78,19 @@ def block_unpartition(blocks: torch.Tensor, orig_size: int,
 
 
 def _rotate(z: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """f32 rotation ``z @ h``.  On the card the oracle must not run in TF32
-    (about ten mantissa bits), so both TF32 switches are set off here."""
+    """Rotation ``z @ h``.  An f32 rotation accumulates in f64 and rounds
+    once: the products of f32 values with the +-2^-k entries of H/sqrt(B)
+    are exact in f64, so a row's result no longer depends on how the BLAS
+    tiles the rows of the call — a chunked ring hop and the monolithic hop
+    then rotate each row bit for bit alike (an f32 matmul of 3 rows and of
+    1 row differ in the last bit on the CPU).  On the card the oracle must
+    not run in TF32 (about ten mantissa bits), so both TF32 switches are
+    set off here."""
     if z.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    if z.dtype == torch.float32:
+        return (z.double() @ h.double()).float()
     return z @ h
 
 

@@ -27,6 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import taco as taco_mod
+# the ring's stage orders (the ``schedule=`` spec token of chunked codecs)
+from repro_torch.core.overlap import PIPELINED, SCHEDULES
 from repro_torch.core.taco import TacoConfig
 from repro_torch.kernels import ops as kops
 
@@ -36,10 +38,6 @@ __all__ = [
     "PIPELINED", "SCHEDULES",
 ]
 
-#: ring stage orders of chunked codecs (``schedule=`` spec token); the
-#: ring itself (``core/overlap.py``) is not ported yet
-PIPELINED, SERIAL = "pipelined", "serial"
-SCHEDULES = (PIPELINED, SERIAL)
 
 _TORCH_DTYPES = {"uint8": torch.uint8, "int8": torch.int8,
                  "float32": torch.float32}

@@ -15,28 +15,80 @@ operator on the receiver: the fused wire kernels for a slot inside the
 codec's wire budget (decode hops), the block kernels for a larger one
 (training hops).
 
+The move goes through ``torch.distributed`` on the TP process group —
+NCCL on the cards, gloo on the CPU — with one implementation for both
+backends:
+
+  all-gather      : ``(1, total)`` uint8 rows -> ``all_gather_into_tensor``
+                    -> ``(P, total)``, peer j's row at index j
+  reduce-scatter  : ``(P, total)`` rows, row j for peer j ->
+                    ``all_to_all_single`` -> ``(P, total)``, peer j's
+                    contribution at index j
+
+A codec with ``chunks > 1`` takes the chunked ring instead (the JAX
+package's ``_ag_one_ring`` / ``_rs_one_ring``): each chunk is encoded,
+forwarded neighbour to neighbour with ``batch_isend_irecv`` and decoded,
+the three stages pipelined over chunks by ``core/overlap.py``.  The
+ring's arrivals are put back in peer-index order (:func:`_peer_order`)
+before the decode, so the ring is bit-identical to the monolithic hop.
+
+The group is a ``torch.distributed`` process group, or ``None`` (or the
+int 1) for a group of one: this process alone, where the move is the
+identity on the wire — as JAX's size-1 ``all_to_all`` / ``all_gather``
+is — and encode and decode still run.  The identity codec takes the plain
+collectives of the same meaning (``all_gather_into_tensor``,
+``reduce_scatter_tensor``, ``all_reduce``).
+
 Every collective takes a forward and a backward codec and is a
 ``torch.autograd.Function`` whose backward routes the cotangent through
-the conjugate collective with the codec pair swapped, as the JAX
-package's ``custom_vjp`` (quantization is straight-through: the quantizer
-is not differentiated):
+the conjugate collective on the same group with the codec pair swapped,
+as the JAX package's ``custom_vjp`` (quantization is straight-through:
+the quantizer is not differentiated):
 
   Megatron-SP : ``all_gather_c`` fwd / ``psum_scatter_c`` bwd, and back
   AllReduce   : ``allreduce_g`` (fwd AR, bwd id) / ``copy_f`` (fwd id,
                 bwd AR)
 
-The move takes the group size.  At size 1 it is the identity on the wire
-— as JAX's size-1 ``all_to_all`` / ``all_gather`` is — and encode and
-decode still run.  Larger groups (the NCCL transport) and the chunked
-ring (``chunks > 1``, ``core/overlap.py``) are the next slice and raise.
+Every rank must issue the same collectives in the same order.  The model
+guarantees it: all ranks run the same layers on same-shaped shards, and
+``torch.utils.checkpoint`` recomputes the same hops on every rank.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.core import overlap
 from repro_torch.core.codecs import IdentityCodec
 
 Identity = IdentityCodec()
+
+
+def group_size(group) -> int:
+    """Ranks in ``group``: 1 for ``None`` / the int 1 (this process
+    alone), else the process group's size."""
+    if group is None or group == 1:
+        return 1
+    if isinstance(group, int):
+        raise ValueError(
+            f"a group of {group} given as a bare size: pass the "
+            "torch.distributed process group (parallel.init_tp_group)")
+    return dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    """This process's rank in ``group`` (0 for a group of one)."""
+    if group is None or group == 1:
+        return 0
+    group_size(group)                      # rejects a bare size > 1
+    return dist.get_rank(group)
+
+
+def moves(group) -> bool:
+    """True when the hop goes through ``torch.distributed`` (a process
+    group, even of one rank); False for this process alone."""
+    group_size(group)                      # rejects a bare size > 1
+    return not (group is None or group == 1)
 
 
 def _pad_to(x: torch.Tensor, mult: int):
@@ -47,89 +99,257 @@ def _pad_to(x: torch.Tensor, mult: int):
     return x, n
 
 
-def _check_group(group_size: int) -> None:
-    if group_size != 1:
-        raise NotImplementedError(
-            f"compressed collectives over a group of {group_size}: the NCCL "
-            "transport is the next slice of the port (group size 1 only)")
+# --------------------------------------------------------------------------
+# the moves of one packed wire buffer
+# --------------------------------------------------------------------------
+
+def _gather_rows(row: torch.Tensor, group) -> torch.Tensor:
+    """(1, total) -> (P, total), row j from peer j (the wire's uint8 rows,
+    or any flattened tensor)."""
+    if not moves(group):
+        return row
+    out = row.new_empty((group_size(group), row.shape[-1]))
+    dist.all_gather_into_tensor(out, row.contiguous(), group=group)
+    return out
 
 
-def _move(wire: torch.Tensor, group_size: int) -> torch.Tensor:
-    """The collective that carries one packed wire buffer: at group size 1
-    every peer is this process, so the buffer arrives unchanged."""
-    _check_group(group_size)
-    return wire
+def _exchange_rows(rows: torch.Tensor, group) -> torch.Tensor:
+    """(P, total) uint8, row j for peer j -> (P, total), row j from peer j
+    (the two-shot reduce-scatter's all-to-all)."""
+    if not moves(group):
+        return rows
+    out = torch.empty_like(rows)
+    dist.all_to_all_single(out, rows.contiguous(), group=group)
+    return out
 
 
-def _transport(x2d, codec, group_size, *, reduce=False, dtype):
+def _transport(x2d, codec, move, *, reduce=False, dtype):
     """Pad the trailing dim of ``x2d`` to the codec granule, encode into the
-    packed wire buffer, move it, decode (fused peer sum when ``reduce``),
-    and crop the padding."""
-    if getattr(codec, "chunks", 1) > 1:
-        raise NotImplementedError(
-            "chunks>1 routes through the ring transport (core/overlap.py), "
-            "which is the next slice of the port")
+    packed wire buffer, ``move`` it (one collective), decode (fused peer
+    sum when ``reduce``), and crop the padding."""
     padded, n = _pad_to(x2d, codec.granule)
     pn = padded.shape[-1]
-    wire = _move(codec.encode_wire(padded), group_size)
+    wire = move(codec.encode_wire(padded))
     if reduce:
         return codec.decode_sum_wire(wire, pn, dtype)[:n]
     return codec.decode_wire(wire, pn, dtype)[..., :n]
 
 
-def _rs_one(x, group_size, dim, codec):
-    """One-axis compressed reduce-scatter along ``dim``: ONE compressed
-    all-to-all, ONE fused local reduction."""
-    if isinstance(codec, IdentityCodec):
-        _check_group(group_size)
-        return x
-    moved = torch.movedim(x, dim, 0)
-    d = moved.shape[0]
-    if d % group_size:
-        raise ValueError(
-            f"compressed reduce-scatter: scatter dim {dim} has size {d}, "
-            f"not divisible by the group size {group_size}")
-    chunks = moved.reshape(group_size, -1)              # chunk i -> peer i
-    summed = _transport(chunks, codec, group_size, reduce=True,
-                        dtype=x.dtype)
-    out = summed.reshape(d // group_size, *moved.shape[1:])
-    return torch.movedim(out, 0, dim) if dim != 0 else out
+# --------------------------------------------------------------------------
+# the chunked ring
+# --------------------------------------------------------------------------
+
+def ring_chunks(codec) -> int:
+    """Number of ring chunks the codec requests (1 = monolithic; the
+    identity codec, which has no wire buffer to slice, always 1)."""
+    return int(getattr(codec, "chunks", 1) or 1)
 
 
-def _ag_one(x, group_size, dim, codec):
-    """One-axis compressed all-gather concatenating along ``dim``."""
-    if isinstance(codec, IdentityCodec):
-        _check_group(group_size)
-        return x
-    dec = _transport(x.reshape(1, -1), codec, group_size, dtype=x.dtype)
-    dec = dec.reshape(group_size, *x.shape)                   # (P, ...)
+def _peer_order(arrivals, idx: int, p: int) -> torch.Tensor:
+    """Stack arrival-ordered buffers into peer-index order.
+
+    THE ring bit-parity invariant.  After k neighbour-forwarding hops a
+    rank holds the buffer of peer ``(idx - k) mod P``, so arrivals come in
+    a rank-DEPENDENT order; the monolithic collectives deliver peer-index
+    order on every rank.  Decoding — and especially ``decode_sum``'s
+    sequential float accumulation, whose rounding depends on operand
+    order — must therefore consume ``stack[j] == peer j's buffer``
+    everywhere (peer j's buffer sits at arrival ``(idx - j) mod P``).
+    Skipping it would give per-rank 1-ulp sum differences, not just
+    permuted outputs."""
+    return torch.stack([arrivals[(idx - j) % p] for j in range(p)])
+
+
+def _chunk_slices(x2d, codec):
+    """Pad the trailing dim to ``chunks * granule`` and return the chunk
+    views plus the original trailing size and the chunk size.  The padding
+    is compressed and shipped like real data, and every chunk has the same
+    size, so all ring streams share one wire layout."""
+    chunks = ring_chunks(codec)
+    padded, n0 = _pad_to(x2d, chunks * codec.granule)
+    csz = padded.shape[-1] // chunks
+    return ([padded[:, c * csz:(c + 1) * csz].contiguous()
+             for c in range(chunks)], n0, csz)
+
+
+def _exchange(sends, recvs, group) -> list:
+    """Post ``(peer, tensor)`` sends and receives as one batch; returns the
+    async work handles (nothing to do for an empty batch)."""
+    ops = [dist.P2POp(op, t, dist.get_global_rank(group, peer), group)
+           for op, pairs in ((dist.isend, sends), (dist.irecv, recvs))
+           for peer, t in pairs]
+    return dist.batch_isend_irecv(ops) if ops else []
+
+
+def _ag_one_ring(x, group, dim, codec):
+    """Chunked ring all-gather: each chunk's local wire buffer is forwarded
+    neighbour to neighbour for P-1 steps, and each chunk's decode consumes
+    the peer-ordered arrival stack (:func:`_peer_order`), so the result is
+    bit-identical to the monolithic hop.  A step's send is the buffer the
+    step before received, so each step but the last is waited on before
+    the next is posted; the last stays in flight until its decode."""
+    p, idx = group_size(group), group_rank(group)
+    segs, n0, csz = _chunk_slices(x.reshape(1, -1), codec)
+    nxt, prv = (idx + 1) % p, (idx - 1) % p
+
+    def transfer(buf):
+        arrivals, works = [buf], []
+        for _ in range(p - 1):
+            for w in works:
+                w.wait()
+            got = torch.empty_like(buf)
+            works = _exchange([(nxt, arrivals[-1])], [(prv, got)], group)
+            arrivals.append(got)
+        return arrivals, works
+
+    def decode(moved):
+        stack = _peer_order(moved[0], idx, p)[:, 0]          # (P, bytes)
+        return codec.decode_wire(stack, csz, x.dtype)
+
+    outs = overlap.run_ring(segs, encode=codec.encode_wire,
+                            transfer=transfer, decode=decode,
+                            schedule=overlap.ring_schedule(codec))
+    dec = (torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0])[:, :n0]
+    dec = dec.reshape(p, *x.shape)
     out = torch.movedim(dec, 0, dim)
     shape = list(x.shape)
-    shape[dim] *= group_size
+    shape[dim] *= p
     return out.reshape(shape)
 
 
-def _ag_impl(x, group_size, dim, codec):
+def _rs_one_ring(x, group, dim, codec):
+    """Chunked ring reduce-scatter (two-shot preserving): every rank sends
+    its once-compressed contribution for the peer k hops ahead straight to
+    it, for k = 1..P-1, in one batch — no partial-sum requantization — and
+    the fused ``decode_sum`` runs per chunk on the peer-ordered stack
+    (:func:`_peer_order`), bit-identical to the monolithic all-to-all."""
+    p, idx = group_size(group), group_rank(group)
+    rowsrc = torch.movedim(x, dim, 0)
+    d = rowsrc.shape[0]
+    if d % p:
+        raise ValueError(
+            f"compressed reduce-scatter: scatter dim {dim} has size {d}, "
+            f"not divisible by the group size {p}")
+    rows = rowsrc.reshape(p, -1)                   # row j -> destined peer j
+    segs, n0, csz = _chunk_slices(rows, codec)
+
+    def transfer(wire):
+        # arrival k: the contribution of peer (idx - k) for this rank
+        arrivals = [wire[idx]] + [torch.empty_like(wire[0])
+                                  for _ in range(p - 1)]
+        works = _exchange(
+            [((idx + k) % p, wire[(idx + k) % p]) for k in range(1, p)],
+            [((idx - k) % p, arrivals[k]) for k in range(1, p)], group)
+        return arrivals, works
+
+    def decode(moved):
+        stack = _peer_order(moved[0], idx, p)               # (P, bytes)
+        return codec.decode_sum_wire(stack, csz, x.dtype).reshape(-1)[:csz]
+
+    outs = overlap.run_ring(segs, encode=codec.encode_wire,
+                            transfer=transfer, decode=decode,
+                            schedule=overlap.ring_schedule(codec))
+    summed = (torch.cat(outs) if len(outs) > 1 else outs[0])[:n0]
+    out = summed.reshape(d // p, *rowsrc.shape[1:])
+    return torch.movedim(out, 0, dim) if dim != 0 else out
+
+
+# --------------------------------------------------------------------------
+# one-axis hops
+# --------------------------------------------------------------------------
+
+def _ag_plain(x, group, dim):
+    """Uncompressed tiled all-gather along ``dim``."""
+    p = group_size(group)
+    if not moves(group):
+        return x
+    out = _gather_rows(x.reshape(1, -1), group).reshape(p, *x.shape)
+    shape = list(x.shape)
+    shape[dim] *= p
+    return torch.movedim(out, 0, dim).reshape(shape)
+
+
+def _rs_plain(x, group, dim):
+    """Uncompressed tiled reduce-scatter along ``dim``."""
+    p = group_size(group)
+    if not moves(group):
+        return x
+    moved = torch.movedim(x, dim, 0).contiguous()
+    if moved.shape[0] % p:
+        raise ValueError(
+            f"reduce-scatter: scatter dim {dim} has size {moved.shape[0]}, "
+            f"not divisible by the group size {p}")
+    out = moved.new_empty((moved.shape[0] // p, *moved.shape[1:]))
+    dist.reduce_scatter_tensor(out, moved, group=group)
+    return torch.movedim(out, 0, dim) if dim != 0 else out
+
+
+def _ag_one(x, group, dim, codec):
+    """One-axis compressed all-gather concatenating along ``dim``: identity
+    codecs take the plain all-gather, chunked wire codecs the ring,
+    everything else the monolithic packed transport — all bit-identical
+    for a given codec."""
+    if isinstance(codec, IdentityCodec):
+        return _ag_plain(x, group, dim)
+    if ring_chunks(codec) > 1:
+        return _ag_one_ring(x, group, dim, codec)
+    p = group_size(group)
+    dec = _transport(x.reshape(1, -1), codec,
+                     lambda w: _gather_rows(w, group), dtype=x.dtype)
+    dec = dec.reshape(p, *x.shape)                            # (P, ...)
+    out = torch.movedim(dec, 0, dim)
+    shape = list(x.shape)
+    shape[dim] *= p
+    return out.reshape(shape)
+
+
+def _rs_one(x, group, dim, codec):
+    """One-axis compressed reduce-scatter along ``dim`` (same three-way
+    dispatch as :func:`_ag_one`): ONE compressed all-to-all, ONE fused
+    local reduction."""
+    if isinstance(codec, IdentityCodec):
+        return _rs_plain(x, group, dim)
+    if ring_chunks(codec) > 1:
+        return _rs_one_ring(x, group, dim, codec)
+    p = group_size(group)
+    moved = torch.movedim(x, dim, 0)
+    d = moved.shape[0]
+    if d % p:
+        raise ValueError(
+            f"compressed reduce-scatter: scatter dim {dim} has size {d}, "
+            f"not divisible by the group size {p}")
+    chunks = moved.reshape(p, -1)                       # chunk i -> peer i
+    summed = _transport(chunks, codec, lambda w: _exchange_rows(w, group),
+                        reduce=True, dtype=x.dtype)
+    out = summed.reshape(d // p, *moved.shape[1:])
+    return torch.movedim(out, 0, dim) if dim != 0 else out
+
+
+def _ag_impl(x, group, dim, codec):
     """All-gather over the TP group (one axis in the port; the JAX
     package's tuple axes gather innermost first)."""
-    return _ag_one(x, group_size, dim, codec)
+    return _ag_one(x, group, dim, codec)
 
 
-def _rs_impl(x, group_size, dim, codec):
+def _rs_impl(x, group, dim, codec):
     """Reduce-scatter over the TP group (the conjugate of
     :func:`_ag_impl`)."""
-    return _rs_one(x, group_size, dim, codec)
+    return _rs_one(x, group, dim, codec)
 
 
-def _ar_impl(x, group_size, codec):
+def _ar_impl(x, group, codec):
     """Compressed two-shot AllReduce = ReduceScatter ∘ AllGather over the
-    flattened tensor; identity codecs take the plain (uncompressed) sum."""
+    flattened tensor; identity codecs take the plain ``all_reduce``."""
     if isinstance(codec, IdentityCodec):
-        _check_group(group_size)
-        return x
-    flat, n = _pad_to(x.reshape(1, -1), group_size * codec.granule)
-    rs = _rs_impl(flat[0], group_size, 0, codec)
-    ag = _ag_impl(rs, group_size, 0, codec)
+        if not moves(group):
+            return x
+        out = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+    p = group_size(group)
+    flat, n = _pad_to(x.reshape(1, -1), p * codec.granule)
+    rs = _rs_impl(flat[0], group, 0, codec)
+    ag = _ag_impl(rs, group, 0, codec)
     return ag[:n].reshape(x.shape)
 
 
@@ -152,50 +372,69 @@ class _Collective(torch.autograd.Function):
 def _apply(x, impl, bwd, static):
     """``impl(x, *static)``, recorded for autograd when a gradient flows
     through ``x`` (the decode path runs without an autograd node)."""
+    group_size(static[0])                  # a bare size > 1 raises here
     if torch.is_grad_enabled() and x.requires_grad:
         return _Collective.apply(x, impl, bwd, static)
     return impl(x, *static)
 
 
-def all_gather_c(x, group_size, dim, fwd_codec, bwd_codec):
+def all_gather_c(x, group, dim, fwd_codec, bwd_codec):
     """Compressed all-gather concatenating along ``dim`` (tiled layout);
     backward is the compressed reduce-scatter with the codec pair
     swapped."""
     return _apply(
         x, lambda a, g, d, fc, bc: _ag_impl(a, g, d, fc),
         lambda ct, g, d, fc, bc: psum_scatter_c(ct, g, d, bc, fc),
-        (group_size, dim, fwd_codec, bwd_codec))
+        (group, dim, fwd_codec, bwd_codec))
 
 
-def psum_scatter_c(x, group_size, dim, fwd_codec, bwd_codec):
+def psum_scatter_c(x, group, dim, fwd_codec, bwd_codec):
     """Compressed reduce-scatter along ``dim`` (two-shot: every
     contribution compressed once, peers summed in index order); backward is
     the compressed all-gather with the codec pair swapped."""
     return _apply(
         x, lambda a, g, d, fc, bc: _rs_impl(a, g, d, fc),
         lambda ct, g, d, fc, bc: all_gather_c(ct, g, d, bc, fc),
-        (group_size, dim, fwd_codec, bwd_codec))
+        (group, dim, fwd_codec, bwd_codec))
 
 
-def allreduce_g(x, group_size, fwd_codec, bwd_codec):
+def allreduce_g(x, group, fwd_codec, bwd_codec):
     """Megatron "g": forward compressed two-shot AllReduce (row-parallel
     outputs and the decode path); backward identity."""
     return _apply(
         x, lambda a, g, fc, bc: _ar_impl(a, g, fc),
-        lambda ct, g, fc, bc: ct, (group_size, fwd_codec, bwd_codec))
+        lambda ct, g, fc, bc: ct, (group, fwd_codec, bwd_codec))
 
 
-def copy_f(x, group_size, fwd_codec, bwd_codec):
+def copy_f(x, group, fwd_codec, bwd_codec):
     """Megatron "f": forward identity (column-parallel inputs); backward
     compressed AllReduce with the BACKWARD codec."""
     return _apply(
         x, lambda a, g, fc, bc: a,
         lambda ct, g, fc, bc: _ar_impl(ct, g, bc),
-        (group_size, fwd_codec, bwd_codec))
+        (group, fwd_codec, bwd_codec))
 
 
-def psum_exact(x, group_size):
-    """Sum over the group whose backward passes the (replicated) cotangent
-    through unchanged — for scalars every consumer of which is replicated
-    (losses, softmax statistics)."""
-    return allreduce_g(x, group_size, Identity, Identity)
+def psum_exact(x, group):
+    """Sum over the group (a plain ``all_reduce``) whose backward passes the
+    (replicated) cotangent through unchanged — for scalars every consumer
+    of which is replicated (losses, softmax statistics)."""
+    return allreduce_g(x, group, Identity, Identity)
+
+
+def pmax(x, group):
+    """Elementwise max over the group, no gradient (the softmax's
+    stability shift)."""
+    if not moves(group):
+        return x
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+def all_gather_stack(x, group) -> torch.Tensor:
+    """(…) -> (P, …): every peer's ``x``, stacked in peer order, no
+    gradient (small per-shard statistics)."""
+    if not moves(group):
+        return x[None]
+    return _gather_rows(x.reshape(1, -1), group).reshape(-1, *x.shape)

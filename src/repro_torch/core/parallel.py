@@ -1,4 +1,5 @@
-"""Parallelism context: group sizes + the declarative per-path codec plan.
+"""Parallelism context: the TP process group + the declarative per-path
+codec plan.
 
 Models never move tensors between devices themselves; they go through a
 ``ParallelCtx`` so that every communication site is a named, compressible
@@ -11,15 +12,21 @@ path of a :class:`CommPlan` (paper Fig. 7 integration points):
   sp              : sequence-parallel attention hops
 
 Plans are built from spec strings by ``repro_torch.core.registry``.  The
-port runs both TP modes on a tensor-parallel group of size 1: Megatron-SP
-(``sp_gather`` / ``sp_scatter``, the training path) and AllReduce
-(``tp_g`` / ``tp_f``, the decode path).  Larger groups (NCCL) are the next
-slice.  ``CommPlan.at_step`` resolves the warmup schedule per optimizer
-step, outside the step function, as the JAX trainer does.
+port runs both TP modes over a ``torch.distributed`` process group (NCCL
+on the cards, gloo on the CPU; :func:`init_tp_group` builds it), or on
+this process alone: Megatron-SP (``sp_gather`` / ``sp_scatter``, the
+training path) and AllReduce (``tp_g`` / ``tp_f``, the decode path).
+``CommPlan.at_step`` resolves the warmup schedule per optimizer step,
+outside the step function, as the JAX trainer does.
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import os
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.core import collectives as cc
 from repro_torch.core.codecs import IdentityCodec
@@ -95,11 +102,13 @@ class CommPlan:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
-    """Group sizes + codec plan, passed through the model stack.
+    """TP group + codec plan, passed through the model stack.
 
-    ``tp_size`` / ``tp_rank`` describe the tensor-parallel group of this
-    process (size 1 on one card).  ``tp_mode`` is the training forward's
-    TP mode: ``"sp"`` (Megatron-SP: the residual stream is
+    ``group`` is the tensor-parallel ``torch.distributed`` process group of
+    this process, or ``None`` for this process alone; ``tp_size`` /
+    ``tp_rank`` are derived from it (without a group they may be set by
+    hand, for code that only slices shards).  ``tp_mode`` is the training
+    forward's TP mode: ``"sp"`` (Megatron-SP: the residual stream is
     sequence-sharded, every block enters through an all-gather and exits
     through a reduce-scatter) or ``"allreduce"`` (f/g).  The decode path
     always takes the f/g pair."""
@@ -108,6 +117,18 @@ class ParallelCtx:
     tp_rank: int = 0
     plan: CommPlan = CommPlan()
     tp_mode: str = "sp"
+    group: object = None
+
+    def __post_init__(self):
+        if self.group is not None:
+            object.__setattr__(self, "tp_size", cc.group_size(self.group))
+            object.__setattr__(self, "tp_rank", cc.group_rank(self.group))
+
+    @property
+    def comm(self):
+        """What the collectives move over: the group, or the bare size
+        (1 moves nothing; a larger bare size raises at the first hop)."""
+        return self.group if self.group is not None else self.tp_size
 
     def layer_views(self, start: int, count: int,
                     total: int) -> tuple[tuple[int, "ParallelCtx"], ...]:
@@ -121,29 +142,80 @@ class ParallelCtx:
     def sp_gather(self, x, dim: int):
         """Megatron-SP entry: compressed all-gather along ``dim`` (backward:
         the compressed reduce-scatter with the tp_bwd codec)."""
-        return cc.all_gather_c(x, self.tp_size, dim, self.plan.tp_fwd,
+        return cc.all_gather_c(x, self.comm, dim, self.plan.tp_fwd,
                                self.plan.tp_bwd)
 
     def sp_scatter(self, x, dim: int):
         """Megatron-SP exit: compressed reduce-scatter along ``dim``
         (backward: the compressed all-gather with the tp_bwd codec)."""
-        return cc.psum_scatter_c(x, self.tp_size, dim, self.plan.tp_fwd,
+        return cc.psum_scatter_c(x, self.comm, dim, self.plan.tp_fwd,
                                  self.plan.tp_bwd)
 
     def tp_g(self, x):
         """Megatron "g": compressed two-shot AllReduce over the TP group."""
-        return cc.allreduce_g(x, self.tp_size, self.plan.tp_fwd,
+        return cc.allreduce_g(x, self.comm, self.plan.tp_fwd,
                               self.plan.tp_bwd)
 
     def tp_f(self, x):
         """Megatron "f": identity forward; backward the compressed
         AllReduce with the tp_bwd codec."""
-        return cc.copy_f(x, self.tp_size, self.plan.tp_fwd, self.plan.tp_bwd)
+        return cc.copy_f(x, self.comm, self.plan.tp_fwd, self.plan.tp_bwd)
 
     def weight_gather(self, w, dim: int = 0):
         """fsdp weight gather: identity, since this slice runs unsharded
         weights."""
         return w
+
+
+def init_tp_group(device, *, init_method: str = "env://",
+                  world_size: int | None = None, rank: int | None = None,
+                  timeout_s: float = 600.0):
+    """Join (or start) the default process group and return it as the TP
+    group.  The device's type picks the backend — NCCL for a CUDA device,
+    gloo for the CPU — so the choice follows the data, not a fallback.
+    ``init_method`` ``"env://"`` reads ``RANK`` / ``WORLD_SIZE`` /
+    ``MASTER_ADDR`` / ``MASTER_PORT`` as ``torchrun`` sets them; pass
+    ``world_size`` and ``rank`` with any other (``tcp://127.0.0.1:<port>``,
+    ``file://<path>``).  On CUDA each rank takes the card of its
+    ``LOCAL_RANK`` (default: its rank modulo the card count).  Collectives
+    that wait longer than ``timeout_s`` fail instead of hanging."""
+    dev = torch.device(device)
+    backend = {"cuda": "nccl", "cpu": "gloo"}.get(dev.type)
+    if backend is None:
+        raise ValueError(f"no process-group backend for device {dev}")
+    if not dist.is_initialized():
+        if init_method == "env://" and "RANK" not in os.environ:
+            raise ValueError(
+                "a TP group over env:// needs RANK / WORLD_SIZE / "
+                "MASTER_ADDR / MASTER_PORT: start the launcher under "
+                "torchrun --nproc-per-node P")
+        kw = {}
+        if world_size is not None:
+            kw = {"world_size": int(world_size), "rank": int(rank or 0)}
+        if backend == "nccl":
+            r = int(os.environ.get("RANK", kw.get("rank", 0)))
+            torch.cuda.set_device(int(os.environ.get(
+                "LOCAL_RANK", r % torch.cuda.device_count())))
+        dist.init_process_group(
+            backend, init_method=init_method,
+            timeout=datetime.timedelta(seconds=timeout_s), **kw)
+    elif dist.get_backend() != backend:
+        raise ValueError(f"the process group runs {dist.get_backend()}, "
+                         f"but a {dev.type} device needs {backend}")
+    return dist.group.WORLD
+
+
+def mesh_tp(mesh: str) -> int:
+    """The model-axis size of a ``pod,data,model`` mesh string; the port
+    has no pod or data axis yet, so either > 1 raises."""
+    shape = tuple(int(v) for v in mesh.split(","))
+    if len(shape) != 3 or min(shape) < 1:
+        raise ValueError(f"mesh {mesh!r}: want pod,data,model sizes")
+    if shape[0] != 1 or shape[1] != 1:
+        raise NotImplementedError(
+            f"mesh {mesh}: pod and data axes (DP / fsdp) are not ported; "
+            "the port runs tensor parallelism only (--mesh 1,1,P)")
+    return shape[2]
 
 
 def iter_layer_spans(ctx: ParallelCtx, start: int, count: int, total: int,

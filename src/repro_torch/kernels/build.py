@@ -24,7 +24,7 @@ import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("ash_compress", "ash_decompress")
+SOURCES = ("ash_compress", "ash_decompress", "fwht_butterfly")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -11,6 +11,7 @@ the byte layout both packages share.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core import ash as ash_mod
@@ -75,6 +76,45 @@ def decompress_reduce_ref(q, s, alpha, cfg) -> torch.Tensor:
         g = decompress_blocks_ref(q[p], s[p], a, cfg)
         out = g if out is None else out + g
     return out
+
+
+#: the scale floor of the butterfly compress (K7), fixed in the reference
+BUTTERFLY_SCALE_FLOOR = 1e-30
+
+
+def compress_blocks_butterfly_ref(blocks: torch.Tensor, cfg):
+    """K7's function: (M, B) -> (q storage-dtype (M, B), alpha (M,),
+    s (M, 1)).  ASH with alpha applied before the rotation, the butterfly
+    ``ash.fwht`` scaled by 1/sqrt(B), ONE block-level scale floored at
+    :data:`BUTTERFLY_SCALE_FLOOR` (not ``cfg.scale_eps``), clip to +-qmax,
+    then the cast (fp8) or round half to even (int8).  Only ``tau``,
+    ``eps`` and ``fmt`` of ``cfg`` are read, as in the reference."""
+    fmt = cfg.format_spec
+    b = blocks.shape[-1]
+    g = blocks.float()
+    sigma = torch.sqrt(torch.mean(g * g, dim=-1) + cfg.eps)
+    alpha = torch.div(torch.tensor(cfg.tau, dtype=torch.float32,
+                                   device=g.device), sigma)
+    z = ash_mod.fwht(alpha[:, None] * g) * float(np.float32(1.0 / b ** 0.5))
+    s = torch.clamp_min(z.abs().amax(dim=-1) / fmt.qmax,
+                        BUTTERFLY_SCALE_FLOOR)
+    scaled = torch.clamp(z / s[:, None], -fmt.qmax, fmt.qmax)
+    q = scaled.to(fmt.dtype) if fmt.is_float else \
+        torch.round(scaled).to(torch.int8)
+    return q, alpha, s[:, None]
+
+
+def blocks_to_wire(q, alpha, s, cfg, slots: int, n: int) -> torch.Tensor:
+    """Block-form arrays (q (M, B), alpha (M,), s (M, G)) -> the packed wire
+    rows (slots, total) of ``cfg``'s layout for ``n`` elements per slot:
+    how a block kernel's output is held to :func:`check_wire_parity`."""
+    from repro_torch.core import codecs, taco
+    pay = taco._storage_to_wire(q, cfg.format_spec).reshape(slots, n)
+    if cfg.metadata == "folded":
+        enc = (pay, (s / alpha[:, None]).reshape(slots, -1))
+    else:
+        enc = (pay, s.reshape(slots, -1), alpha.reshape(slots, -1))
+    return codecs.pack_wire(enc, _layout(cfg, n))
 
 
 # --------------------------------------------------------------------------

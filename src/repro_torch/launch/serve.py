@@ -7,6 +7,13 @@ slot table, prompts prefill in chunks interleaved with decode ticks, and
 every TP hop of the decode path runs through the compressed collectives
 selected by ``--comm-spec``.  Runs on the card unless ``--device cpu``.
 
+``--mesh 1,1,P`` serves tensor-parallel over P processes started by
+``torchrun`` (NCCL with one card per rank, or gloo with ``--device
+cpu``).  Every rank runs the same scheduler on the same arrivals: the
+host clock that decides which arrivals have come is rank 0's, broadcast
+to the group at every scheduling round, so all ranks take the same steps
+and issue the same collectives.  Rank 0 prints.
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --no-smoke --qps 16 --requests 8 --max-batch 4 --gen 16 \
         --comm-spec taco
@@ -19,9 +26,12 @@ import time
 import warnings
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, make_plan, smoke_config
-from repro_torch.core.parallel import ParallelCtx
+from repro_torch.core import collectives as cc
+from repro_torch.core.parallel import ParallelCtx, init_tp_group, mesh_tp
 from repro_torch.core.registry import from_spec, to_spec
 from repro_torch.models.model import Model
 from repro_torch.serve.engine import ServeEngine
@@ -36,7 +46,8 @@ def parse_args(argv=None):
                     default=True,
                     help="reduced config (CPU-sized); --no-smoke for full")
     ap.add_argument("--mesh", default="1,1,1",
-                    help="pod,data,model; one card serves 1,1,1")
+                    help="pod,data,model; 1,1,P serves TP over P processes "
+                         "(torchrun)")
     ap.add_argument("--comm-spec", default=None, dest="comm_spec",
                     help="compression plan spec or alias (default: taco)")
     ap.add_argument("--policy", default=None,
@@ -72,24 +83,29 @@ def resolve_comm_spec(args) -> str:
     return args.comm_spec if args.comm_spec is not None else DEFAULT_SPEC
 
 
-def build_engine(args):
-    """(engine, cfg) for parsed launcher args."""
-    shape = tuple(int(x) for x in args.mesh.split(","))
-    if shape != (1, 1, 1):
-        raise NotImplementedError(
-            f"mesh {args.mesh}: serving across cards (NCCL) is the next "
-            "slice of the port; one card serves --mesh 1,1,1")
+def build_engine(args, group=None):
+    """(engine, cfg) for parsed launcher args.  The TP group is ``group``
+    when given (its size must be the mesh's model axis), else joined from
+    the ``torchrun`` environment when the mesh's model axis is > 1, else
+    none."""
+    tp = mesh_tp(args.mesh)
     if args.ckpt:
         raise NotImplementedError("checkpoint restore (ckpt/checkpoint.py) "
                                   "is ported in a later slice")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
-    plan = make_plan(cfg, 1, 1, remat=False, kv_strategy=args.kv)
-    model = Model(cfg, plan, device=args.device)
+    if group is None and tp > 1:
+        group = init_tp_group(args.device or "cuda")
     comm_plan = from_spec(resolve_comm_spec(args))
-    print(f"serving with comm spec: {to_spec(comm_plan)}")
-    ctx = ParallelCtx(plan=comm_plan)
+    ctx = ParallelCtx(plan=comm_plan, group=group)
+    if ctx.tp_size != tp:
+        raise ValueError(f"mesh {args.mesh} wants a TP group of {tp}, the "
+                         f"process group has {ctx.tp_size} ranks")
+    plan = make_plan(cfg, tp, 1, remat=False, kv_strategy=args.kv)
+    model = Model(cfg, plan, device=args.device, tp_rank=ctx.tp_rank)
+    if ctx.tp_rank == 0:
+        print(f"serving with comm spec: {to_spec(comm_plan)}")
     params = model.init(args.seed)
     max_len = max(args.max_len, args.prompt_len + args.gen + 1)
     buckets = tuple(sorted({min(8, args.prompt_len),
@@ -110,7 +126,7 @@ def drive(eng, args, cfg) -> tuple[dict, float]:
         for t in arrivals)
     t0 = time.monotonic()
     while pending or not eng.sched.idle():
-        now = time.monotonic() - t0
+        now = _group_clock(time.monotonic() - t0, eng)
         while pending and pending[0][0] <= now:
             t_arr, prompt = pending.popleft()
             eng.submit(prompt, max_new=args.gen, now=t_arr)
@@ -121,10 +137,26 @@ def drive(eng, args, cfg) -> tuple[dict, float]:
     return eng.summary(), time.monotonic() - t0
 
 
+def _group_clock(now: float, eng) -> float:
+    """Rank 0's ``now``, on every rank of the engine's TP group."""
+    if not cc.moves(eng.ctx.comm):
+        return now
+    t = torch.tensor([now], dtype=torch.float64, device=eng.device)
+    dist.broadcast(t, dist.get_global_rank(eng.ctx.group, 0),
+                   group=eng.ctx.group)
+    return float(t[0])
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
     eng, cfg = build_engine(args)
-    s, wall = drive(eng, args, cfg)
+    try:
+        s, wall = drive(eng, args, cfg)
+    finally:
+        if eng.ctx.group is not None:
+            dist.destroy_process_group()
+    if eng.ctx.tp_rank != 0:
+        return s
     for row in eng.reporter.of_kind("serve/request"):
         print("request rid={rid} prompt={prompt_len} new={new_tokens} "
               "queue={queue_s:.4f}s ttft={ttft_s:.4f}s "

@@ -77,12 +77,16 @@ def init_param(spec: ParamSpec, generator: torch.Generator, device,
     return (x * spec.scale).to(dtype)
 
 
-def init_params(specs, seed: int, device, dtype=COMPUTE_DTYPE):
+def init_params(specs, seed: int, device, dtype=COMPUTE_DTYPE, cut=None):
     """Random parameters from ``torch.Generator`` seeded with ``seed``,
-    drawn leaf by leaf in pytree order."""
+    drawn leaf by leaf in pytree order; ``cut(spec, leaf)``, when given,
+    keeps a part of each leaf as soon as it is drawn (a rank's shard)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    return tree_map(lambda s: init_param(s, gen, device, dtype), specs)
+    if cut is None:
+        return tree_map(lambda s: init_param(s, gen, device, dtype), specs)
+    return tree_map(lambda s: cut(s, init_param(s, gen, device, dtype)),
+                    specs)
 
 
 # --------------------------------------------------------------------------
@@ -212,14 +216,11 @@ def vocab_parallel_xent(x_full, table_local, labels, mask, ctx, plan,
     tokens, each under ``torch.utils.checkpoint``, so one chunk's (B,
     chunk, V/tp) f32 logits are live at a time, in the forward and in the
     backward.  The softmax statistics are combined over the group with
-    ``psum_exact`` (O(B*S) scalars, left uncompressed as in the paper)."""
+    ``psum_exact`` (O(B*S) scalars, left uncompressed as in the paper),
+    after the shift by the group max of the logits."""
     from torch.utils.checkpoint import checkpoint
 
-    from repro_torch.core.collectives import psum_exact
-    if ctx.tp_size != 1:
-        raise NotImplementedError("vocab_parallel_xent over a TP group > 1 "
-                                  "(the group max of the logits) is the "
-                                  "next slice of the port")
+    from repro_torch.core.collectives import pmax, psum_exact
     table = ctx.weight_gather(table_local, 1)                # (V/tp, D)
     v_loc = table.shape[0]
     s = x_full.shape[1]
@@ -229,16 +230,17 @@ def vocab_parallel_xent(x_full, table_local, labels, mask, ctx, plan,
 
     def chunk_loss(xc, yc, mc):
         logits = (xc @ table.T).float()                      # (B, c, V/tp)
-        # numerical-stability shift only: no gradient flows through it
-        m = logits.detach().amax(dim=-1)
+        # numerical-stability shift only: no gradient flows through it;
+        # the group max, so that every rank shifts by the same value
+        m = pmax(logits.detach().amax(dim=-1), ctx.comm)
         z = psum_exact(torch.exp(logits - m[..., None]).sum(dim=-1),
-                       ctx.tp_size)
+                       ctx.comm)
         shifted = yc.long() - ctx.tp_rank * v_loc
         valid = (shifted >= 0) & (shifted < v_loc)
         picked = torch.gather(logits, -1,
                               shifted.clamp(0, v_loc - 1)[..., None])[..., 0]
         label_logit = psum_exact(torch.where(valid, picked, 0.0),
-                                 ctx.tp_size)
+                                 ctx.comm)
         nll = (torch.log(z) + m) - label_logit
         return (nll * mc).sum(), mc.sum()
 
@@ -260,10 +262,14 @@ def lm_head_logits(x, table_local, ctx):
 
 
 def distributed_argmax(logits, ctx):
-    """logits (B, 1, V/tp) -> global argmax token ids (B, 1).  First
-    maximum wins, as ``jnp.argmax``.  The cross-group gather of the
-    per-shard maxima is the next slice (groups of size 1 here)."""
-    if ctx.tp_size != 1:
-        raise NotImplementedError("distributed_argmax over a TP group > 1 "
-                                  "is the next slice of the port")
-    return torch.argmax(logits, dim=-1) + ctx.tp_rank * logits.shape[-1]
+    """logits (B, 1, V/tp) -> global argmax token ids (B, 1).  Each rank's
+    shard maximum and its global id are gathered over the group; the first
+    maximum wins, across shards as inside one (``jnp.argmax``)."""
+    from repro_torch.core.collectives import all_gather_stack
+    v_loc = logits.shape[-1]
+    local_val = logits.amax(dim=-1)                         # (B, 1)
+    local_arg = torch.argmax(logits, dim=-1) + ctx.tp_rank * v_loc
+    vals = all_gather_stack(local_val, ctx.comm)            # (tp, B, 1)
+    args = all_gather_stack(local_arg, ctx.comm)
+    best = torch.argmax(vals, dim=0)                        # first max
+    return torch.gather(args, 0, best[None])[0]

@@ -1,9 +1,17 @@
 """Public model API: param specs -> init (or JAX weights) on a device,
 the training loss and the batch shapes.
 
-``Model`` binds (ArchConfig, RunPlan) to a device.  It runs on CUDA unless
-the caller passes ``device="cpu"``; without a card and without that
-request it raises — nothing falls back to the CPU.
+``Model`` binds (ArchConfig, RunPlan) to a device and to one rank of the
+plan's TP group.  It runs on CUDA unless the caller passes
+``device="cpu"``; without a card and without that request it raises —
+nothing falls back to the CPU.
+
+Parameters are this rank's shards: every global (padded) parameter is
+made in full and cut along its spec's ``tp_dim`` into ``plan.tp`` equal
+slices, of which rank r keeps slice r (the rule of the JAX package's
+multi-device check, ``tests/multidev/check_tp_model.py``).  So tp = 1 and
+tp = P start from the same weights wherever their padded global shapes
+agree.
 """
 from __future__ import annotations
 
@@ -40,34 +48,49 @@ class Model:
     """(ArchConfig, RunPlan) on a device; parameters are a nested dict in
     the JAX package's tree layout."""
 
-    def __init__(self, cfg: ArchConfig, plan: RunPlan, *, device=None):
+    def __init__(self, cfg: ArchConfig, plan: RunPlan, *, device=None,
+                 tp_rank: int = 0):
         transformer.check_family(cfg)
-        if plan.tp != 1 or plan.fsdp != 1:
+        if plan.fsdp != 1:
             raise NotImplementedError(
-                f"tp={plan.tp}, fsdp={plan.fsdp}: sharded serving and "
-                "training need the NCCL transport, the next slice of the "
-                "port")
-        self.cfg, self.plan = cfg, plan
+                f"fsdp={plan.fsdp}: sharded weights over a data axis are not "
+                "ported; the port runs tensor parallelism only")
+        if not 0 <= tp_rank < plan.tp:
+            raise ValueError(f"tp_rank {tp_rank} outside the plan's tp "
+                             f"{plan.tp}")
+        self.cfg, self.plan, self.tp_rank = cfg, plan, tp_rank
         self.device = resolve_device(device)
 
     def specs(self):
+        """Global (padded) parameter specs, the JAX package's."""
         return transformer.model_specs(self.cfg, self.plan)
+
+    def shard(self, spec: ParamSpec, full: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a global parameter along ``spec.tp_dim``."""
+        if spec.tp_dim is None or self.plan.tp == 1:
+            return full
+        width = spec.shape[spec.tp_dim] // self.plan.tp
+        return full.narrow(spec.tp_dim, self.tp_rank * width,
+                           width).contiguous()
 
     def init(self, seed: int = 0, dtype=COMPUTE_DTYPE):
         """Random parameters from a ``torch.Generator`` seeded with
-        ``seed``, made on the model's device."""
-        return init_params(self.specs(), seed, self.device, dtype)
+        ``seed``, made on the model's device: every rank draws the same
+        global parameters and keeps its shard."""
+        return init_params(self.specs(), seed, self.device, dtype,
+                           cut=self.shard)
 
     def from_jax_params(self, tree):
-        """Carry JAX parameters across: ``tree`` is the JAX param pytree
-        with numpy leaves (``jax.device_get``); bf16 leaves keep their
-        bits.  Shapes are checked against this model's specs."""
+        """Carry JAX parameters across: ``tree`` is the JAX param pytree of
+        GLOBAL (padded) arrays with numpy leaves (``jax.device_get``); bf16
+        leaves keep their bits.  Shapes are checked against this model's
+        specs, then each leaf is cut to this rank's shard."""
         def conv(spec: ParamSpec, a):
             t = _to_tensor(a, self.device)
             if tuple(t.shape) != spec.shape:
                 raise ValueError(f"param shape {tuple(t.shape)} != spec "
                                  f"{spec.shape}")
-            return t
+            return self.shard(spec, t)
         return tree_map(conv, self.specs(), tree)
 
     # ---- training ---------------------------------------------------------

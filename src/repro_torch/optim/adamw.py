@@ -9,9 +9,12 @@ the JAX package, whose arrays are immutable, the update writes the
 masters, the moments and the bf16 parameters IN PLACE, so a step
 allocates no second copy of the optimizer state.
 
-On one card every replicated-gradient axis of the JAX package (model,
-fsdp) has size 1, so ``finalize_grads`` has nothing to sum; sharded state
-comes with the NCCL slice.
+Every rank of the TP group holds its shards of the parameters and of the
+state.  ``finalize_grads`` sums, over the group, the grads of parameters
+that are replicated but used divergently (norm scales on the
+sequence-sharded residual, replicated kv heads); ``global_grad_norm`` sums
+the squares of the sharded parameters over the group and counts the
+replicated ones once, as the JAX package.  There is no data axis yet.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.core import collectives as cc
 from repro_torch.models.layers import tree_map
 
 
@@ -70,33 +74,59 @@ def init_opt_state(params) -> dict:
             "step": 0}
 
 
-def finalize_grads(grads, model):
-    """Sum the grads of replicated-but-divergently-used parameters over
-    the axes they are replicated on: all of size 1 on one card."""
-    if model.plan.tp != 1 or model.plan.fsdp != 1:
-        raise NotImplementedError("gradient sums over a TP / fsdp group > 1 "
-                                  "are the next slice of the port")
-    return grads
+def finalize_grads(grads, model, group=None):
+    """Sum the grads of replicated-but-divergently-used parameters (no
+    ``tp_dim``) over the TP ``group``: per-rank autograd covers only this
+    rank's use of them (the JAX package's ``replicated_grad_axes``).  The
+    sums run in f32, in one ``all_reduce`` of the concatenated grads, and
+    the summed grads stay f32."""
+    if model.plan.fsdp != 1:
+        raise NotImplementedError("gradient sums over an fsdp axis are not "
+                                  "ported")
+    if not cc.moves(group):
+        return grads
+    flat, specs = leaves(grads), leaves(model.specs())
+    rep = [i for i, s in enumerate(specs) if s.tp_dim is None]
+    if not rep:
+        return grads
+    buf = torch.cat([flat[i].float().reshape(-1) for i in rep])
+    buf = cc.psum_exact(buf, group)
+    out, off = list(flat), 0
+    for i in rep:
+        n = flat[i].numel()
+        out[i] = buf[off:off + n].reshape(flat[i].shape)
+        off += n
+    it = iter(out)
+    return tree_map(lambda _: next(it), grads)
 
 
-def global_grad_norm(grads, model) -> torch.Tensor:
+def global_grad_norm(grads, model, group=None) -> torch.Tensor:
     """Global L2 norm (f32), summed per sharding class of the spec in the
-    JAX package's order (its per-axes psums are size-1 sums here)."""
+    JAX package's order: the TP-sharded classes' sums of squares are summed
+    over ``group``, the replicated ones are counted once."""
     terms: dict = {}
     for g, s in zip(leaves(grads), leaves(model.specs())):
         key = (s.fsdp_dim is not None, s.tp_dim is not None)
         terms.setdefault(key, []).append(torch.sum(g.float() ** 2))
-    return torch.sqrt(sum(sum(ts) for ts in terms.values()))
+    totals = {k: sum(ts) for k, ts in terms.items()}
+    sharded = [k for k in totals if k[1]]
+    if sharded:
+        summed = cc.psum_exact(torch.stack([totals[k] for k in sharded]),
+                               group)
+        totals.update(zip(sharded, summed))
+    return torch.sqrt(sum(totals.values()))
 
 
 @torch.no_grad()
-def adamw_update(params, grads, opt_state, oc: OptConfig, model) -> dict:
+def adamw_update(params, grads, opt_state, oc: OptConfig, model,
+                 group=None) -> dict:
     """One AdamW step from finalized grads, in place on ``params`` (bf16),
-    ``opt_state['master' | 'mu' | 'nu']`` and the step count.  Returns the
-    metrics ``{"grad_norm": tensor, "lr": float}``."""
+    ``opt_state['master' | 'mu' | 'nu']`` and the step count; ``group`` is
+    the TP group the grad norm sums over.  Returns the metrics
+    ``{"grad_norm": tensor, "lr": float}``."""
     step = opt_state["step"] + 1
     lr = schedule(step, oc)
-    gnorm = global_grad_norm(grads, model)
+    gnorm = global_grad_norm(grads, model, group)
     scale = torch.clamp(oc.clip_norm / torch.clamp_min(gnorm, 1e-12),
                         max=1.0)
     b1, b2 = oc.b1, oc.b2

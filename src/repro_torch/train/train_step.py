@@ -1,11 +1,14 @@
 """The training step: loss, backward through the compressed collectives,
-AdamW — the JAX package's ``repro/train/train_step.py`` on one process.
+AdamW — the JAX package's ``repro/train/train_step.py`` on one rank of the
+TP group.
 
 Every TP hop of the forward is a compressed collective whose backward is
 its conjugate (``core/collectives.py``), so the backward moves compressed
-cotangents through the ``tp_bwd`` codec.  The data-parallel group is this
-process alone, so the JAX step's psums of the loss and the token count
-over the dp axes are the identity here.
+cotangents through the ``tp_bwd`` codec.  Every rank of the group takes
+the same batch; the loss is the group's (the cross-entropy's softmax
+statistics are summed over the group, so every rank holds the same value)
+and so is the grad norm.  There is no data axis yet, so the JAX step's
+psums of the loss and the token count over the dp axes are the identity.
 """
 from __future__ import annotations
 
@@ -32,10 +35,11 @@ def build_train_step(model, ctx, oc: adamw.OptConfig):
         # a parameter the loss does not reach gets a zero grad, as in JAX
         grads = adamw.finalize_grads(tree_map(
             lambda p: torch.zeros_like(p) if p.grad is None else p.grad,
-            params), model)
+            params), model, ctx.comm)
         for p in flat:
             p.grad = None
-        metrics = adamw.adamw_update(params, grads, opt_state, oc, model)
+        metrics = adamw.adamw_update(params, grads, opt_state, oc, model,
+                                     ctx.comm)
         metrics["loss"] = loss.detach()
         return params, opt_state, metrics
 

@@ -235,9 +235,11 @@ def test_conjugate_pairs_swap_codecs(budget, monkeypatch, rng):
 
 
 def test_sp_pair_of_a_group_larger_than_one_raises():
+    """A group larger than one moves through a torch.distributed process
+    group (tests/test_torch_dist.py); a bare size names no group."""
     x = torch.zeros(1, 4, 256, dtype=torch.bfloat16, requires_grad=True)
     for codec in (codec_from_spec("taco"), codec_from_spec("none")):
-        with pytest.raises(NotImplementedError, match="NCCL"):
+        with pytest.raises(ValueError, match="process group"):
             cc.all_gather_c(x, 2, 1, codec, codec)
-        with pytest.raises(NotImplementedError, match="NCCL"):
+        with pytest.raises(ValueError, match="process group"):
             cc.psum_scatter_c(x, 2, 1, codec, codec)

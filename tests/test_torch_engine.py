@@ -105,5 +105,9 @@ def test_launcher_on_cpu(capsys):
     assert s["requests"] == 2 and s["total_new_tokens"] == 6
     out = capsys.readouterr().out
     assert "tp=taco:folded" in out and "serving done" in out
-    with pytest.raises(NotImplementedError, match="NCCL"):
+    # a TP group of 2 is started by torchrun (tests/test_torch_dist.py runs
+    # one); a data axis is not ported
+    with pytest.raises(ValueError, match="torchrun"):
         serve.main(["--device", "cpu", "--mesh", "1,1,2"])
+    with pytest.raises(NotImplementedError, match="data axes"):
+        serve.main(["--device", "cpu", "--mesh", "1,2,1"])

@@ -221,3 +221,66 @@ def test_train_step_on_card_matches_cpu(card, budget, monkeypatch):
     assert abs(gg - gc) / gc < 5e-2
     assert launched[0 if budget == 0 else 1] > 0
     assert launched[1 if budget == 0 else 0] == 0
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "int8"])
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [64, 256, 512])
+def test_butterfly_kernel_matches_plain(card, b, in_dtype, fmt, rng):
+    """K7 against its plain version: alpha and s within the parity rule's
+    metadata tolerance, the payload under its flip rule (each case
+    compares more than 1e4 bytes)."""
+    from repro_torch.core.taco import TacoConfig
+    from repro_torch.kernels import fwht_butterfly
+    cfg = TacoConfig(block_size=b, fmt=fmt)
+    rows = 40 * 1024 // b
+    x = torch.from_numpy(tp_like(rng, (rows, b))).to(card, in_dtype)
+    before = fwht_butterfly.compress_blocks_butterfly.launches
+    q, a, s = fwht_butterfly.compress_blocks_butterfly(x, cfg)
+    assert fwht_butterfly.compress_blocks_butterfly.launches == before + 1
+    qp, ap, sp = ref.compress_blocks_butterfly_ref(x, cfg)
+    torch.cuda.synchronize()
+    assert s.shape == (rows, 1) and q.dtype == qp.dtype
+    ref.check_wire_parity(ref.blocks_to_wire(q, a, s, cfg, 1, rows * b),
+                          ref.blocks_to_wire(qp, ap, sp, cfg, 1, rows * b),
+                          rows * b, cfg)
+
+
+@pytest.mark.parametrize("budget", [None, 0], ids=["wire", "blocks"])
+def test_nccl_ring_equals_monolithic(card, budget, tmp_path, monkeypatch,
+                                     rng):
+    """A 1-rank NCCL group on the card: the monolithic hops move the wire
+    through NCCL; the ring (chunks 4, both schedules) equals them bit for
+    bit, forward and backward."""
+    import torch.distributed as dist
+
+    from repro_torch.core import collectives as cc
+    from repro_torch.core.parallel import init_tp_group
+    if budget is not None:
+        monkeypatch.setattr(ops, "WIRE_FUSED_MAX_SLOT_ELEMS", budget)
+    group = init_tp_group("cuda", init_method=f"file://{tmp_path}/store",
+                          world_size=1, rank=0, timeout_s=60)
+    try:
+        x = torch.from_numpy(tp_like(rng, (2, 48, 128))).to(card,
+                                                            torch.bfloat16)
+        ct = torch.from_numpy(tp_like(rng, (2, 48, 128))).to(card,
+                                                             torch.bfloat16)
+
+        def hops(spec):
+            c = codec_from_spec(spec)
+            out = []
+            for fn in (cc.all_gather_c, cc.psum_scatter_c):
+                xx = x.clone().requires_grad_(True)
+                y = fn(xx, group, 1, c, c)
+                y.backward(ct)
+                out += [y.detach(), xx.grad]
+            out.append(cc.allreduce_g(x, group, c, c))
+            return out
+        mono = hops("taco:folded")
+        assert not torch.equal(mono[0], x)          # the codec ran
+        for spec in ("taco:folded:chunks=4",
+                     "taco:folded:chunks=4:schedule=serial"):
+            for got, want in zip(hops(spec), mono):
+                assert torch.equal(got, want), spec
+    finally:
+        dist.destroy_process_group()

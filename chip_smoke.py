@@ -11,17 +11,27 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      ``decompress_reduce_wire``) at the serve shape (slots=1, n=3584 = 4 x
      896) and n = 4096 x 896; the block kernels K1, K3, K4
      (``compress_blocks``, ``decompress_blocks``, ``decompress_reduce``) at
-     the serve shape and at the training hop's (n = 4 x 2048 x 896); dual
-     and folded, P in {1, 4}, the other payload formats, group scales, a
-     scale floor and all-zero blocks.  Each block form must equal its wire
-     form bit for bit (pack(K1) == K2, K3(unpack) == K5, K4(unpack) ==
-     K6).  Each kernel is timed (device time from the profiler, per-call
-     time with CUDA events) beside its bound and its plain version, and
-     both routes of one training hop (wire kernels vs block kernels +
-     pack/unpack) are timed.  Phase 1c holds K7
-     (``compress_blocks_butterfly``, on no path) against its plain version
-     at the serve and training shapes with B = 256 and at B = 64 and 512,
-     and times it beside K1;
+     the serve shape, at one ring chunk (n = 1,835,008) and at the
+     training hop's (n = 4 x 2048 x 896); dual and folded, P in {1, 4},
+     the other payload formats, group scales (g32, g64, g128), a scale
+     floor, all-zero blocks, wire rows at 4-byte offsets (folded, n = 1792,
+     3 slots), a ragged row count (4099 rows), inputs that are unaligned
+     views (which must give the aligned copy's bytes), and every block size
+     the kernels are built for (B = 32 .. 512) under an f32 and a bf16
+     compute dtype (the bf16 allowances of the parity rule).  Each
+     block form must equal its wire form bit for bit (pack(K1) == K2,
+     K3(unpack) == K5, K4(unpack) == K6).  Each kernel is timed (device
+     time from the profiler, per-call time with CUDA events) beside its
+     bound and its plain version, and both routes of one training hop
+     (wire kernels vs block kernels + pack/unpack) are timed.  Phase 1c
+     holds K7 (``compress_blocks_butterfly``, on no path) against its
+     plain version at the serve and training shapes with B = 256 and at
+     B = 64 and 512, and times it beside K1.  Phase 1d runs one hop of
+     each ablation configuration (``F1_SPECS``) on the card against the
+     same hop on the CPU: ``b128`` and ``cdbfloat16`` through the kernels,
+     the configurations with no kernel (another transform, tensor scales)
+     through the plain versions by the route of ``repro_torch.kernels.ops``
+     (and no kernel launch);
   2. serving: drives the serve launcher (``repro_torch.launch.serve``) on
      full-width qwen2-0.5b (24 layers, d 896, vocab 151936, bf16, weights
      from --seed) under ``baseline`` and then ``taco``; every decode tick
@@ -48,7 +58,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      ring chunk), four times the wire-kernel launches per tick, losses
      within 5e-2 of phase 3's baseline.
 
-Nothing is caught: any failure exits non-zero.  The line before the last
+Every training and serving run of phases 2, 3 and 5 must take only
+kernels: ``ops.plain_routes`` stays 0.  Nothing is caught: any failure
+exits non-zero.  The line before the last
 is the kernel table as JSON; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -72,6 +84,11 @@ SERVE_N = 4 * 896          # one decode hop of qwen2-0.5b at max-batch 4
 LARGE_N = 4096 * 896
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 TRAIN_N = TRAIN_BATCH * TRAIN_SEQ * 896   # one training hop of qwen2-0.5b
+RING_N = TRAIN_N // 4                     # one chunk of the ring's hop
+ODD_N = 1792               # folded, mb G = 7 odd: total = 4 mod 8
+BLOCK_SIZES = (32, 64, 128, 256, 512)     # the kernels' (ash_compress)
+F1_SPECS = ("taco:hadamard", "taco:notransform", "taco:tensorscale",
+            "taco:b128", "taco:cdbfloat16")
 TRAIN_WARM, TRAIN_STEPS = 2, 8            # 2 warm steps, then 6 timed
 #: the __global__ function each kernel wrapper launches
 KERNEL_FN = {"compress_wire": "compress_wire_kernel",
@@ -240,14 +257,14 @@ def phase_kernels() -> dict:
         dec_k = ref.decompress_wire_ref(w_k, n, cfg)
         dec_p = ref.decompress_wire_ref(w_p, n, cfg)
         if stats["flipped"] == 0:      # a flipped code moves its whole block
-            ref.check_decoded_close(dec_k, dec_p)
+            ref.check_decoded_close(dec_k, dec_p, cfg)
         err_c = float((dec_k - dec_p).abs().max())
         d_k = decompress_wire(w_p, n, cfg)
-        err_d = ref.check_decoded_close(d_k, ref.decompress_wire_ref(w_p, n,
-                                                                     cfg))
+        err_d = ref.check_decoded_close(
+            d_k, ref.decompress_wire_ref(w_p, n, cfg), cfg)
         r_k = decompress_reduce_wire(w_p, n, cfg)
         err_r = ref.check_decoded_close(
-            r_k, ref.decompress_reduce_wire_ref(w_p, n, cfg))
+            r_k, ref.decompress_reduce_wire_ref(w_p, n, cfg), cfg)
         print(f"  {label:6s} {spec:16s} n={n:8d} P={peers} "
               f"in={str(in_dtype)[6:]:8s} flipped={stats['flipped']} "
               f"meta_rel={stats['meta_rel_err']:.2e} "
@@ -300,6 +317,13 @@ def phase_kernels() -> dict:
     case("taco:int8", SERVE_N, torch.float32, 1)
     case("taco:g64", SERVE_N, torch.bfloat16, 4)
     case("taco:folded:g32", SERVE_N, torch.bfloat16, 1)
+    case("taco:g128", SERVE_N, torch.float32, 4)
+    case("taco:folded", ODD_N, torch.bfloat16, 3)     # slots at 4 mod 8
+    case("taco:e5m2:g32", 256 * 4099, torch.bfloat16, 1)   # ragged rows
+    for b in BLOCK_SIZES:                  # every block size, both dtypes
+        case(f"taco:b{b}", SERVE_N, torch.bfloat16, 4)
+        case(f"taco:b{b}:cdbfloat16:folded", SERVE_N, torch.bfloat16, 4)
+    case("taco:cdbfloat16:int8:g32", SERVE_N, torch.float32, 4)
     case("taco", LARGE_N, torch.bfloat16, 4, timed=True, label="large")
     case("taco:seps1e-20", 1024, torch.float32, 1)
     z = torch.zeros((1, 1024), device=dev)       # all-zero blocks: s floor
@@ -333,13 +357,18 @@ def phase_blocks() -> dict:
     dev = torch.device(DEVICE)
     rows, hops = {}, {}
 
-    def case(spec, n, in_dtype, peers, timed=False, label="", x=None):
+    def case(spec, n, in_dtype, peers, timed=False, label="", x=None,
+             offset=0):
         codec = codec_from_spec(spec)
         cfg = codec.cfg
         if x is None:
-            x = tp_like(gen, (peers, n)).to(dev, in_dtype)
-        blocks = x.reshape(-1, 256)
-        mb = n // 256
+            # offset > 0: a contiguous view that starts ``offset`` elements
+            # into its storage, so its loads are not 16-byte aligned
+            x = tp_like(gen, (peers * n + offset,)).to(dev, in_dtype)[
+                offset:].view(peers, n)
+        b = cfg.block_size
+        blocks = x.reshape(-1, b)
+        mb = n // b
         # K1 against its plain version, under the wire parity rule
         q, a, s = ops.compress_blocks(blocks, cfg)
         qp, ap, sp = ref.compress_blocks_ref(blocks, cfg)
@@ -350,7 +379,7 @@ def phase_blocks() -> dict:
         dec_k = ref.decompress_wire_ref(w_k, n, cfg)
         dec_p = ref.decompress_wire_ref(w_p, n, cfg)
         if stats["flipped"] == 0:
-            ref.check_decoded_close(dec_k, dec_p)
+            ref.check_decoded_close(dec_k, dec_p, cfg)
         err_c = float((dec_k - dec_p).abs().max())
         del dec_k, dec_p
         # K3 and K4 on the plain version's blocks
@@ -358,29 +387,36 @@ def phase_blocks() -> dict:
         scale = sp / ap[:, None] if alpha is None else sp
         err_d = ref.check_decoded_close(
             ops.decompress_blocks(qp, scale, alpha, cfg),
-            ref.decompress_blocks_ref(qp, scale, alpha, cfg))
-        q3 = qp.reshape(peers, mb, 256)
+            ref.decompress_blocks_ref(qp, scale, alpha, cfg), cfg)
+        q3 = qp.reshape(peers, mb, b)
         s3 = scale.reshape(peers, mb, -1)
         a3 = None if alpha is None else alpha.reshape(peers, mb)
-        err_r = ref.check_decoded_close(ops.decompress_reduce(q3, s3, a3, cfg),
-                                        ref.decompress_reduce_ref(q3, s3, a3,
-                                                                  cfg))
+        err_r = ref.check_decoded_close(
+            ops.decompress_reduce(q3, s3, a3, cfg),
+            ref.decompress_reduce_ref(q3, s3, a3, cfg), cfg)
         # route identity, bit for bit: pack(K1) == K2, K3(unpack) == K5,
         # K4(unpack) == K6
         wire = ops.compress_wire(x, cfg)
         layout = codec.wire_layout(n)
         if not torch.equal(pack_wire(codec.encode(x), layout), wire):
             raise AssertionError(f"{spec} n={n}: pack_wire(K1) != K2")
+        if offset and not (torch.equal(wire, ops.compress_wire(
+                x.clone(), cfg)) and all(torch.equal(a, b) for a, b in zip(
+                    ops.compress_blocks(blocks, cfg),
+                    ops.compress_blocks(blocks.clone(), cfg)))):
+            raise AssertionError(f"{spec} n={n}: an unaligned view differs "
+                                 "from its aligned copy")
         enc = unpack_wire(wire, layout)
         if not torch.equal(codec.decode(enc, n, torch.float32),
-                           ops.decompress_wire(wire, n, cfg)):
+                           ops.decompress_wire(wire, n, cfg).float()):
             raise AssertionError(f"{spec} n={n}: K3(unpack) != K5")
         if not torch.equal(codec.decode_sum(enc, n, torch.float32),
                            ops.decompress_reduce_wire(wire, n, cfg)
-                           .reshape(-1)):
+                           .float().reshape(-1)):
             raise AssertionError(f"{spec} n={n}: K4(unpack) != K6")
-        print(f"  {label:6s} {spec:16s} n={n:8d} P={peers} "
-              f"in={str(in_dtype)[6:]:8s} flipped={stats['flipped']} "
+        print(f"  {label:10s} {spec:16s} n={n:8d} P={peers} "
+              f"in={str(in_dtype)[6:]:8s}{' offset ' * bool(offset)}"
+              f"{offset or ''} flipped={stats['flipped']} "
               f"meta_rel={stats['meta_rel_err']:.2e} err compress_blocks="
               f"{err_c:.2e} decompress_blocks={err_d:.2e} "
               f"decompress_reduce={err_r:.2e}; block == wire bitwise")
@@ -409,11 +445,11 @@ def phase_blocks() -> dict:
                 device_ms(plain)
             per_call, plain_call = call_ms(kern), call_ms(plain)
             b_ms, b_by = bound(nbytes, nops)
-            print(f"    {name:24s} {label:6s} device: kernel {ms:.6f} ms "
+            print(f"    {name:24s} {label:10s} device: kernel {ms:.7f} ms "
                   f"({events} launches traced)  "
-                  f"plain {plain_ms:.6f} ms  bound {b_ms:.6f} ms ({b_by}); "
-                  f"per call: kernel {per_call:.6f} ms  plain "
-                  f"{plain_call:.6f} ms")
+                  f"plain {plain_ms:.7f} ms  bound {b_ms:.7f} ms ({b_by}, "
+                  f"{b_ms / ms:.1%} of it); per call: kernel "
+                  f"{per_call:.7f} ms  plain {plain_call:.7f} ms")
             rows.setdefault(name, {})[label] = {
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "max_abs_err": err, "call_ms": per_call,
@@ -450,8 +486,20 @@ def phase_blocks() -> dict:
     case("taco:int8", SERVE_N, torch.float32, 1)
     case("taco:g64", SERVE_N, torch.bfloat16, 4)
     case("taco:folded:g32", SERVE_N, torch.bfloat16, 1)
+    case("taco:int8:g128", SERVE_N, torch.bfloat16, 4)
     case("taco:seps1e-20", 1024, torch.float32, 1)
     case("taco", 1024, torch.float32, 1, x=torch.zeros((1, 1024), device=dev))
+    case("taco:folded", ODD_N, torch.bfloat16, 3)     # slots at 4 mod 8
+    case("taco:folded:g32", ODD_N, torch.float32, 3)
+    case("taco", 256 * 4099, torch.bfloat16, 1)        # ragged rows
+    case("taco:g64", SERVE_N, torch.bfloat16, 4, offset=1)   # unaligned
+    case("taco:e5m2", SERVE_N, torch.float32, 4, offset=3)
+    for b in BLOCK_SIZES:                  # every block size, both dtypes
+        case(f"taco:b{b}:folded", SERVE_N, torch.bfloat16, 4)
+        case(f"taco:b{b}:cdbfloat16", SERVE_N, torch.bfloat16, 4)
+    case("taco:b128:cdbfloat16:e5m2:g32", ODD_N, torch.float32, 3, offset=1)
+    case("taco:folded", RING_N, torch.bfloat16, 1, timed=True,
+         label="ring chunk")
     case("taco", TRAIN_N, torch.bfloat16, 1, timed=True, label="train")
     case("taco:folded", TRAIN_N, torch.bfloat16, 1)
     case("taco", TRAIN_N, torch.bfloat16, 4)
@@ -522,6 +570,58 @@ def phase_butterfly() -> dict:
         del blocks, q, a, s, qp, ap, sp
     torch.cuda.empty_cache()
     return rows
+
+
+def phase_f1(kernels) -> dict:
+    """One hop of each ablation configuration (``F1_SPECS``: encode to the
+    wire, decode, peer-sum decode) on the card against the same hop on the
+    CPU, held by ``ref.check_hop_parity`` (the parity rule; under a bf16
+    compute dtype one bf16 ulp and a flip in 1e-3 of the payload bytes),
+    by the route of ``kernels.ops``: a configuration with no kernel
+    (another transform, tensor scales) runs its plain versions, launches
+    no kernel and counts every operator call in ``ops.plain_routes``;
+    ``b128`` and ``cdbfloat16`` launch the kernels and count nothing
+    there."""
+    from repro_torch.core.registry import codec_from_spec
+    from repro_torch.kernels import ops, ref
+    gen = np.random.default_rng(4)
+    out = {}
+    for spec in F1_SPECS:
+        codec = codec_from_spec(spec)
+        x = tp_like(gen, (4, 256 * 512))
+        for c in kernels.values():
+            c.launches = 0
+        for k in ops.plain_routes:
+            ops.plain_routes[k] = 0
+        stats = ref.check_hop_parity(codec, x, DEVICE)
+        launched = {k: c.launches for k, c in kernels.items() if c.launches}
+        routes = {k: v for k, v in ops.plain_routes.items() if v}
+        want = "kernels" if ops.supported(codec.cfg) else "plain"
+        if (want == "kernels") != bool(launched) or \
+                (want == "plain") != bool(routes):
+            raise AssertionError(f"{spec}: want {want}; kernels launched "
+                                 f"{launched}, plain routes {routes}")
+        print(f"  {spec:18s} (slots 4, n {x.shape[1]}) card vs CPU: flipped "
+              f"{stats['flipped']}, meta_rel {stats['meta_rel_err']:.2e}, "
+              f"decode {stats['decode_rel_err']:.2e}, decode_sum "
+              f"{stats['decode_sum_rel_err']:.2e}; {want}: launched "
+              f"{launched}, plain routes {routes}")
+        out[spec] = dict(stats, route=want, launched=launched,
+                         plain_routes=routes)
+    for c in kernels.values():
+        c.launches = 0
+    for k in ops.plain_routes:
+        ops.plain_routes[k] = 0
+    return out
+
+
+def no_plain_routes(label: str) -> None:
+    """A main-path run took only kernels: ``ops.plain_routes`` is 0."""
+    from repro_torch.kernels import ops
+    if any(ops.plain_routes.values()):
+        raise AssertionError(f"{label}: plain routes on the card "
+                             f"{ops.plain_routes}")
+    print(f"  {label}: plain routes {ops.plain_routes}")
 
 
 def free_port() -> int:
@@ -630,6 +730,7 @@ def phase_train(counters, runs) -> dict:
     """Full-width qwen2-0.5b training through the train launcher's entry
     points, one run per ``(label, spec, group)``: per-step launches,
     losses, wall and peak memory, and one profiled step each."""
+    from repro_torch.kernels import ops
     from repro_torch.launch import train
     names = list(counters)
     out = {}
@@ -657,9 +758,12 @@ def phase_train(counters, runs) -> dict:
         torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
             c.launches = 0
+        for k in ops.plain_routes:
+            ops.plain_routes[k] = 0
         with nccl_calls() as calls:
             params, opt, hist = trainer.run()
         launches = dict(zip(names, (counters[k].launches for k in names)))
+        no_plain_routes(f"train {label}")
         peak = torch.cuda.max_memory_allocated() / 2**20
         want = want_per_step(cfg, trainer.model.plan, trainer.ctx.plan)
         if trainer.ctx.plan.tp_identity:
@@ -789,6 +893,7 @@ def phase_serve(kernels, runs) -> dict:
     kernel."""
     from repro_torch.core import collectives as cc
     from repro_torch.core.registry import from_spec
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve
     counters = [kernels["compress_wire"], kernels["decompress_reduce_wire"],
                 kernels["decompress_wire"]]
@@ -811,9 +916,12 @@ def phase_serve(kernels, runs) -> dict:
         torch.cuda.reset_peak_memory_stats()
         for c in kernels.values():
             c.launches = 0
+        for k in ops.plain_routes:
+            ops.plain_routes[k] = 0
         with nccl_calls() as calls:
             s, wall = serve.drive(eng, args, cfg)
         launches = [c.launches for c in counters]
+        no_plain_routes(f"serve {label}")
         blocks = {k: kernels[k].launches for k in (
             "compress_blocks", "decompress_blocks", "decompress_reduce")}
         if any(blocks.values()):
@@ -937,6 +1045,10 @@ def main() -> None:
         for label, r in by_label.items():
             key = f"{label}, beside K7" if name == "compress_blocks" else label
             rows.setdefault(name, {})[key] = r
+    print("phase 1d: F1, the ablation configurations on the card "
+          "(kernels, or the plain versions by the route of kernels.ops) vs "
+          "the CPU")
+    phase_f1(kernels)
     print("phase 2: serving full-width qwen2-0.5b")
     served = phase_serve(kernels, [("baseline", "baseline", None),
                                    ("taco", "taco", None)])

@@ -2,13 +2,17 @@
 ``repro/kernels/ash_compress.py`` ``compress_blocks_pallas`` (block form)
 and ``compress_wire_pallas`` (wire form).
 
-Two kernels (``csrc/ash_compress.cu``) read the input once: the block RMS
-energy, the adaptive rescale, the Hadamard rotation (a shared-memory
-butterfly), the per-group max-abs scale and the saturating low-bit cast
-all happen in registers and shared memory.  ``compress_blocks`` writes the
-payload, alpha and scales as three arrays; ``compress_wire`` writes each
-slot's packed uint8 wire row.  Both share one per-row body, so
-``pack_wire`` of the block form is the wire form byte for byte.
+Two kernels (``csrc/ash_compress.cu``) read the input once, one warp per
+block row: the block RMS energy, the adaptive rescale, the Hadamard
+rotation (a butterfly in registers and warp shuffles), the per-group
+max-abs scale and the saturating low-bit cast all happen in registers.
+``compress_blocks`` writes the payload, alpha and scales as three arrays;
+``compress_wire`` writes each slot's packed uint8 wire row.  Both share one
+per-row body, so ``pack_wire`` of the block form is the wire form byte for
+byte.  The input may be any contiguous view (unaligned ones take narrower
+loads) and a wire row may start at any 4-byte offset.  The kernels are
+built for the block sizes of :data:`BLOCK_SIZES` and for an f32 or a bf16
+compute dtype (rounding to bf16 where the plain version does).
 
 Each wrapper dispatches by the tensor's device: a CPU tensor takes the
 plain PyTorch version (``ref``), a CUDA tensor launches the kernel or
@@ -27,25 +31,49 @@ from repro_torch.kernels import build, ref
 
 #: payload format codes of the C interface (csrc/ash_common.cuh)
 FMT_CODE = {"e4m3": 0, "e5m2": 1, "int8": 2}
-#: grid.y limit: one block row per slot on the y axis
+#: grid.y limit: the wire forms put one slot per grid row
 MAX_SLOTS = 65535
-#: grid.x limit: the block forms put one block row per block on the x axis
+#: grid.x limit: the compress kernels run 8 rows per block (one warp each),
+#: the decompress kernels one row per block, on the x axis
 MAX_ROWS = 2**31 - 1
+#: the block sizes B the CUDA kernels are built for (``with_shape`` in
+#: csrc/ash_common.cuh): the paper's sweep
+BLOCK_SIZES = (32, 64, 128, 256, 512)
 
 
 def supported(cfg) -> bool:
-    """Coverage of the CUDA wire kernels: the production TACO configuration
-    (ash transform, block-or-finer scales, as the TPU kernels) at the
-    kernels' block size B=256 with an f32 compute dtype."""
-    return (cfg.transform == "ash" and cfg.scale_granularity == "block"
-            and cfg.block_size == 256 and cfg.compute_dtype == "float32")
+    """The configurations the CUDA kernels are for, as the TPU kernels'
+    ``supported``: the ash transform with block-or-finer scales.  The
+    others (another transform, tensor scales) have only a plain
+    version."""
+    return cfg.transform == "ash" and cfg.scale_granularity == "block"
 
 
 def check_supported(cfg) -> None:
-    if not supported(cfg):
+    if not supported(cfg) or cfg.block_size not in BLOCK_SIZES:
         raise NotImplementedError(
-            f"the CUDA wire kernels cover transform='ash', block scales, "
-            f"block_size=256 and compute_dtype='float32'; got {cfg}")
+            f"the CUDA wire kernels cover transform='ash' and block scales "
+            f"at block_size in {BLOCK_SIZES}; got {cfg}")
+
+
+def kernel_args(cfg) -> tuple[int, int, float]:
+    """``(block, bf16_compute, inv_sqrt_b)`` of the C interface: the block
+    size, whether the compute dtype is bf16, and the plain version's
+    1/sqrt(B) in that dtype (the entry of ``ash.hadamard_matrix``)."""
+    cd = cfg.torch_compute_dtype
+    b = cfg.block_size
+    inv = float(torch.tensor(1.0 / np.sqrt(b), dtype=cd))
+    return b, int(cd == torch.bfloat16), inv
+
+
+def groups(cfg) -> int:
+    """Quantization groups per block row; the group size must divide the
+    block size (as in the plain version)."""
+    b = cfg.block_size
+    gs = cfg.quant_group_size or b
+    if b % gs:
+        raise ValueError(f"group_size {gs} must divide block {b}")
+    return b // gs
 
 
 def wire_geometry(cfg, n: int):
@@ -58,11 +86,10 @@ def wire_geometry(cfg, n: int):
              for name, dtype, size in taco_mod.wire_components(cfg, n)}
     mb = n // cfg.block_size
     scale_nbytes = comps["scale"][1] * np.dtype(comps["scale"][0]).itemsize
-    groups = cfg.block_size // (cfg.quant_group_size or cfg.block_size)
     alpha_nbytes = 0
     if "alpha" in comps:
         alpha_nbytes = comps["alpha"][1] * np.dtype(comps["alpha"][0]).itemsize
-    return mb, groups, scale_nbytes, alpha_nbytes, \
+    return mb, groups(cfg), scale_nbytes, alpha_nbytes, \
         n + scale_nbytes + alpha_nbytes
 
 
@@ -71,10 +98,10 @@ def _lib():
     lib = build.library("ash_compress")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.taco_compress_wire.argtypes = [p, p, i, i, i, ctypes.c_longlong, i,
-                                       i, i, f, f, f, f, p]
+                                       i, i, i, i, f, f, f, f, f, p]
     lib.taco_compress_wire.restype = i
     lib.taco_compress_blocks.argtypes = [p, p, p, p, i, ctypes.c_longlong,
-                                         i, i, f, f, f, f, p]
+                                         i, i, i, i, f, f, f, f, f, p]
     lib.taco_compress_blocks.restype = i
     return lib
 
@@ -98,19 +125,21 @@ def compress_blocks(blocks: torch.Tensor, cfg):
     rows = blocks.shape[0]
     if rows > MAX_ROWS:
         raise ValueError(f"compress_blocks: {rows} rows > {MAX_ROWS}")
-    groups = cfg.block_size // (cfg.quant_group_size or cfg.block_size)
+    g = groups(cfg)
     dev = blocks.device
     q = torch.empty((rows, cfg.block_size), dtype=cfg.format_spec.dtype,
                     device=dev)
     alpha = torch.empty((rows,), dtype=torch.float32, device=dev)
-    s = torch.empty((rows, groups), dtype=torch.float32, device=dev)
+    s = torch.empty((rows, g), dtype=torch.float32, device=dev)
     if rows == 0:
         return q, alpha, s
+    b, bf, inv = kernel_args(cfg)
     with torch.cuda.device(dev):
         err = _lib().taco_compress_blocks(
             blocks.data_ptr(), q.data_ptr(), alpha.data_ptr(), s.data_ptr(),
-            int(blocks.dtype == torch.bfloat16), rows, FMT_CODE[cfg.fmt],
-            groups, cfg.tau, cfg.eps, cfg.scale_eps, cfg.format_spec.qmax,
+            int(blocks.dtype == torch.bfloat16), rows, b, bf,
+            FMT_CODE[cfg.fmt], g, cfg.tau, cfg.eps, cfg.scale_eps,
+            cfg.format_spec.qmax, inv,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"compress_blocks kernel launch failed: CUDA "
@@ -135,16 +164,18 @@ def compress_wire(x: torch.Tensor, cfg) -> torch.Tensor:
     slots, n = x.shape
     if slots > MAX_SLOTS:
         raise ValueError(f"compress_wire: {slots} slots > {MAX_SLOTS}")
-    mb, groups, _, _, total = wire_geometry(cfg, n)
+    mb, g, _, _, total = wire_geometry(cfg, n)
     wire = torch.empty((slots, total), dtype=torch.uint8, device=x.device)
     if mb == 0 or slots == 0:
         return wire
+    b, bf, inv = kernel_args(cfg)
     with torch.cuda.device(x.device):
         err = _lib().taco_compress_wire(
             x.data_ptr(), wire.data_ptr(), int(x.dtype == torch.bfloat16),
-            slots, n, total, FMT_CODE[cfg.fmt], groups,
+            slots, n, total, b, bf, FMT_CODE[cfg.fmt], g,
             int(cfg.metadata == "folded"), cfg.tau, cfg.eps, cfg.scale_eps,
-            cfg.format_spec.qmax, torch.cuda.current_stream().cuda_stream)
+            cfg.format_spec.qmax, inv,
+            torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"compress_wire kernel launch failed: CUDA error "
                            f"{err}")

@@ -10,8 +10,9 @@ domain first, so P peers cost ONE rotation.  The block forms read the
 payload, scales and alpha as separate arrays, the wire forms at their
 static ``wire_layout(n)`` byte offsets; each pair shares one per-row body,
 so a block form on ``unpack_wire(w)`` equals its wire form on ``w`` bit
-for bit.  They write the compute dtype (f32); the codec casts to the
-hop's dtype.
+for bit.  They compute in f32 (rounding to bf16 where the plain version
+does under a bf16 compute dtype) and return the compute dtype; the codec
+casts to the hop's dtype.
 
 Each wrapper dispatches by the tensor's device: a CPU tensor takes the
 plain PyTorch version (``ref``), a CUDA tensor launches the kernel or
@@ -24,24 +25,26 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import ash_compress, build, ref
 from repro_torch.kernels.ash_compress import (FMT_CODE, MAX_ROWS,
                                               MAX_SLOTS, check_supported,
-                                              wire_geometry)
+                                              kernel_args, wire_geometry)
 
 
 @functools.cache
 def _lib():
     lib = build.library("ash_decompress")
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll = ctypes.c_longlong
-    lib.taco_decompress_wire.argtypes = [p, p, i, i, ll, i, i, i, p]
+    lib.taco_decompress_wire.argtypes = [p, p, i, i, ll, i, i, i, i, i, f, p]
     lib.taco_decompress_wire.restype = i
-    lib.taco_decompress_reduce_wire.argtypes = [p, p, i, i, ll, i, i, i, p]
+    lib.taco_decompress_reduce_wire.argtypes = [p, p, i, i, ll, i, i, i, i,
+                                                i, f, p]
     lib.taco_decompress_reduce_wire.restype = i
-    lib.taco_decompress_blocks.argtypes = [p, p, p, p, ll, i, i, p]
+    lib.taco_decompress_blocks.argtypes = [p, p, p, p, ll, i, i, i, i, f, p]
     lib.taco_decompress_blocks.restype = i
-    lib.taco_decompress_reduce.argtypes = [p, p, p, p, i, ll, i, i, p]
+    lib.taco_decompress_reduce.argtypes = [p, p, p, p, i, ll, i, i, i, i, f,
+                                           p]
     lib.taco_decompress_reduce.restype = i
     return lib
 
@@ -78,7 +81,7 @@ def _check_blocks(name, q, s, alpha, cfg):
     if q.element_size() != 1 or q.shape[-1] != cfg.block_size:
         raise ValueError(f"{name}: q must be (..., {cfg.block_size}) "
                          f"one-byte codes, got {tuple(q.shape)} {q.dtype}")
-    groups = cfg.block_size // (cfg.quant_group_size or cfg.block_size)
+    groups = ash_compress.groups(cfg)
     if s.dtype != torch.float32 or tuple(s.shape) != (*lead, groups):
         raise ValueError(f"{name}: s must be {(*lead, groups)} f32, got "
                          f"{tuple(s.shape)} {s.dtype}")
@@ -102,7 +105,7 @@ def _ptr(t):
 def decompress_blocks(q: torch.Tensor, s: torch.Tensor, alpha,
                       cfg) -> torch.Tensor:
     """(q (M, B), s (M, G), alpha (M,) | None) -> blocks (M, B) in the
-    compute dtype (f32).  alpha=None means folded metadata."""
+    compute dtype.  alpha=None means folded metadata."""
     if q.device.type == "cpu":
         return ref.decompress_blocks_ref(q, s, alpha, cfg).to(
             cfg.torch_compute_dtype)
@@ -114,22 +117,24 @@ def decompress_blocks(q: torch.Tensor, s: torch.Tensor, alpha,
     out = torch.empty((rows, cfg.block_size), dtype=torch.float32,
                       device=q.device)
     if rows == 0:
-        return out
+        return out.to(cfg.torch_compute_dtype)
+    b, bf, inv = kernel_args(cfg)
     with torch.cuda.device(q.device):
         err = _lib().taco_decompress_blocks(
-            q.data_ptr(), s.data_ptr(), _ptr(alpha), out.data_ptr(), rows,
-            FMT_CODE[cfg.fmt], groups, torch.cuda.current_stream().cuda_stream)
+            q.data_ptr(), s.data_ptr(), _ptr(alpha), out.data_ptr(), rows, b,
+            bf, FMT_CODE[cfg.fmt], groups, inv,
+            torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"decompress_blocks kernel launch failed: CUDA "
                            f"error {err}")
     decompress_blocks.launches += 1
-    return out
+    return out.to(cfg.torch_compute_dtype)
 
 
 def decompress_reduce(q: torch.Tensor, s: torch.Tensor, alpha,
                       cfg) -> torch.Tensor:
     """Stacked peers q (P, M, B), s (P, M, G), alpha (P, M) | None ->
-    peer sum (M, B) f32, summed in peer-index order in the rotated domain
+    peer sum (M, B) in the compute dtype, summed in peer-index order in the rotated domain
     with ONE inverse rotation."""
     if q.device.type == "cpu":
         return ref.decompress_reduce_ref(q, s, alpha, cfg).to(
@@ -143,21 +148,23 @@ def decompress_reduce(q: torch.Tensor, s: torch.Tensor, alpha,
     out = torch.empty((rows, cfg.block_size), dtype=torch.float32,
                       device=q.device)
     if rows == 0:
-        return out
+        return out.to(cfg.torch_compute_dtype)
+    b, bf, inv = kernel_args(cfg)
     with torch.cuda.device(q.device):
         err = _lib().taco_decompress_reduce(
             q.data_ptr(), s.data_ptr(), _ptr(alpha), out.data_ptr(), peers,
-            rows, FMT_CODE[cfg.fmt], groups,
+            rows, b, bf, FMT_CODE[cfg.fmt], groups, inv,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"decompress_reduce kernel launch failed: CUDA "
                            f"error {err}")
     decompress_reduce.launches += 1
-    return out
+    return out.to(cfg.torch_compute_dtype)
 
 
 def decompress_wire(wire: torch.Tensor, n: int, cfg) -> torch.Tensor:
-    """(slots, total_bytes) packed uint8 -> (slots, n) f32."""
+    """(slots, total_bytes) packed uint8 -> (slots, n) in the compute
+    dtype."""
     if wire.device.type == "cpu":
         return ref.decompress_wire_ref(wire, n, cfg)
     _device_check("decompress_wire", wire)
@@ -165,21 +172,23 @@ def decompress_wire(wire: torch.Tensor, n: int, cfg) -> torch.Tensor:
     slots = wire.shape[0]
     out = torch.empty((slots, n), dtype=torch.float32, device=wire.device)
     if mb == 0 or slots == 0:
-        return out
+        return out.to(cfg.torch_compute_dtype)
+    b, bf, inv = kernel_args(cfg)
     with torch.cuda.device(wire.device):
         err = _lib().taco_decompress_wire(
-            wire.data_ptr(), out.data_ptr(), slots, n, total,
-            FMT_CODE[cfg.fmt], groups, int(cfg.metadata == "folded"),
+            wire.data_ptr(), out.data_ptr(), slots, n, total, b, bf,
+            FMT_CODE[cfg.fmt], groups, int(cfg.metadata == "folded"), inv,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"decompress_wire kernel launch failed: CUDA "
                            f"error {err}")
     decompress_wire.launches += 1
-    return out
+    return out.to(cfg.torch_compute_dtype)
 
 
 def decompress_reduce_wire(wire: torch.Tensor, n: int, cfg) -> torch.Tensor:
-    """Peer-stacked packed rows (P, total_bytes) -> peer sum (n/B, B) f32."""
+    """Peer-stacked packed rows (P, total_bytes) -> peer sum (n/B, B) in
+    the compute dtype."""
     if wire.device.type == "cpu":
         return ref.decompress_reduce_wire_ref(wire, n, cfg)
     _device_check("decompress_reduce_wire", wire)
@@ -190,17 +199,18 @@ def decompress_reduce_wire(wire: torch.Tensor, n: int, cfg) -> torch.Tensor:
     out = torch.empty((mb, cfg.block_size), dtype=torch.float32,
                       device=wire.device)
     if mb == 0:
-        return out
+        return out.to(cfg.torch_compute_dtype)
+    b, bf, inv = kernel_args(cfg)
     with torch.cuda.device(wire.device):
         err = _lib().taco_decompress_reduce_wire(
-            wire.data_ptr(), out.data_ptr(), peers, n, total,
-            FMT_CODE[cfg.fmt], groups, int(cfg.metadata == "folded"),
+            wire.data_ptr(), out.data_ptr(), peers, n, total, b, bf,
+            FMT_CODE[cfg.fmt], groups, int(cfg.metadata == "folded"), inv,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"decompress_reduce_wire kernel launch failed: "
                            f"CUDA error {err}")
     decompress_reduce_wire.launches += 1
-    return out
+    return out.to(cfg.torch_compute_dtype)
 
 
 decompress_blocks.launches = 0

@@ -85,7 +85,8 @@ def _worker(rank, p, store, task, payload, out):
         group = init_tp_group("cpu", init_method=f"file://{store}",
                               world_size=p, rank=rank,
                               timeout_s=COLL_TIMEOUT_S)
-        res = TASKS[task](rank, p, group, payload)
+        res = (TASKS[task] if isinstance(task, str) else task)(
+            rank, p, group, payload)
         dist.barrier()
         dist.destroy_process_group()
         out.put((rank, res, None))
@@ -94,11 +95,13 @@ def _worker(rank, p, store, task, payload, out):
 
 
 def run_group(tmp_path, p, task, payload):
-    """Run ``TASKS[task](rank, p, group, payload)`` on each of ``p`` ranks;
+    """Run ``TASKS[task](rank, p, group, payload)`` on each of ``p`` ranks
+    (or ``task`` itself, a module-level function of a test module);
     returns the results by rank."""
     mp = multiprocessing.get_context("spawn")
     out = mp.Queue()
-    store = tmp_path / f"store-{task}-{p}"
+    name = task if isinstance(task, str) else task.__name__
+    store = tmp_path / f"store-{name}-{p}"
     procs = [mp.Process(target=_worker,
                         args=(r, p, str(store), task, payload, out))
              for r in range(p)]
@@ -111,7 +114,7 @@ def run_group(tmp_path, p, task, payload):
                 rank, res, err = out.get(
                     timeout=max(deadline - time.monotonic(), 0.1))
             except queue.Empty:
-                raise AssertionError(f"{task} on {p} ranks: no result "
+                raise AssertionError(f"{name} on {p} ranks: no result "
                                      f"within {GROUP_TIMEOUT_S}s") from None
             if err is not None:
                 raise AssertionError(f"rank {rank} of {p}:\n{err}")

@@ -284,3 +284,203 @@ def test_nccl_ring_equals_monolithic(card, budget, tmp_path, monkeypatch,
                 assert torch.equal(got, want), spec
     finally:
         dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------
+# K1 and K2: one warp per row, one shared row body
+# --------------------------------------------------------------------------
+
+def _k1_k2(x, codec, slots, n):
+    """K1 on the blocks of ``x`` (slots, n) and K2 on ``x``: returns K2's
+    wire, K1's packed wire and the plain version's wire."""
+    cfg = codec.cfg
+    q, a, s = ash_compress.compress_blocks(x.reshape(-1, cfg.block_size),
+                                           cfg)
+    k1 = ref.blocks_to_wire(q, a, s, cfg, slots, n)
+    k2 = ash_compress.compress_wire(x, cfg)
+    return k2, k1, ref.compress_wire_ref(x, cfg)
+
+
+def _hold_small_groups(got, want, n, cfg):
+    """The parity rule for groups of fewer than 8 elements.  A group's
+    scale is the magnitude of its largest rotated value, and with a few
+    elements per group that value can be the result of a cancellation in
+    the rotation, where the kernel's f32 butterfly and the plain version's
+    f64-accumulated rotation differ by ~1e-7 of the row's magnitude, not
+    of the value's (at g1 a group's own scale can differ by percents).  So
+    each scale is held within META_RTOL of its row's largest scale; the
+    payload under the rule's flip allowance, alpha within META_RTOL, and
+    the decoded rows within DECODE_RTOL / DECODE_ATOL where no code
+    differs, as everywhere else."""
+    from repro_torch.core.codecs import unpack_wire
+    payload_only = got.cpu().clone()
+    payload_only[:, n:] = want.cpu()[:, n:]
+    stats = ref.check_wire_parity(payload_only, want, n, cfg)
+    layout = ref._layout(cfg, n)
+    fg, fw = unpack_wire(got.cpu(), layout), unpack_wire(want.cpu(), layout)
+    groups = ash_compress.groups(cfg)
+    sg, sw = fg[1].reshape(-1, groups), fw[1].reshape(-1, groups)
+    assert float(((sg - sw).abs() / sw.amax(-1, keepdim=True)).max()) \
+        <= ref.META_RTOL
+    for g, w in zip(fg[2:], fw[2:]):
+        torch.testing.assert_close(g, w, rtol=ref.META_RTOL, atol=0)
+    if stats["flipped"] == 0:
+        ref.check_decoded_close(ref.decompress_wire_ref(got.cpu(), n, cfg),
+                                ref.decompress_wire_ref(want.cpu(), n, cfg))
+
+
+@pytest.mark.parametrize("metadata", ["", ":folded"])
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2", "int8"])
+@pytest.mark.parametrize("gs", [1, 2, 4, 8, 16, 32, 64, 128, 256])
+def test_compress_kernels_every_group_size(card, gs, fmt, metadata, rng):
+    """Every group size the registry's ``g<k>`` takes (one group per lane
+    element up to one per row), every format, both metadata layouts: K2 and
+    pack(K1) equal bit for bit, and both within the parity rule of the plain
+    version (64 rows: 16384 payload bytes; groups under 8 elements by
+    :func:`_hold_small_groups`)."""
+    codec = codec_from_spec(f"taco:{fmt}:g{gs}{metadata}")
+    n = 256 * 64
+    x = torch.from_numpy(tp_like(rng, (1, n))).to(card, torch.bfloat16)
+    k2, k1, plain = _k1_k2(x, codec, 1, n)
+    assert torch.equal(k1, k2)
+    if gs < 8:
+        _hold_small_groups(k2, plain, n, codec.cfg)
+    else:
+        ref.check_wire_parity(k2, plain, n, codec.cfg)
+
+
+@pytest.mark.parametrize("spec", ["taco", "taco:folded", "taco:folded:g32",
+                                  "taco:int8:g128"])
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
+def test_compress_wire_rows_at_4_byte_offsets(card, spec, in_dtype, rng):
+    """n = 1792 (7 rows) under folded metadata gives total = 1820 = 4 mod 8
+    (dual int8:g128: 1876),
+    so every odd slot's payload starts 4-byte aligned only; 9 slots, 16128
+    payload bytes, and 7 rows per slot (a ragged count for 8-row blocks)."""
+    codec = codec_from_spec(spec)
+    slots, n = 9, 1792
+    x = torch.from_numpy(tp_like(rng, (slots, n))).to(card, in_dtype)
+    k2, k1, plain = _k1_k2(x, codec, slots, n)
+    if spec in ("taco:folded", "taco:int8:g128"):     # mb G (+ mb) odd
+        assert k2.shape[1] % 8 == 4
+    assert torch.equal(k1, k2)
+    ref.check_wire_parity(k2, plain, n, codec.cfg)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 9, 14, 4099])
+def test_compress_blocks_ragged_row_counts(card, rows, rng):
+    """Row counts that are not a multiple of a block's 8 warps: the warps
+    past the last row return, the rows before it are all written."""
+    codec = codec_from_spec("taco")
+    x = torch.from_numpy(tp_like(rng, (1, rows * 256))).to(card,
+                                                          torch.bfloat16)
+    k2, k1, plain = _k1_k2(x, codec, 1, rows * 256)
+    assert torch.equal(k1, k2)
+    if rows * 256 >= 1e4:
+        ref.check_wire_parity(k2, plain, rows * 256, codec.cfg)
+    else:
+        # too few bytes for the flip allowance: the decoded rows agree
+        ref.check_decoded_close(ref.decompress_wire_ref(k2, rows * 256,
+                                                        codec.cfg),
+                                ref.decompress_wire_ref(plain, rows * 256,
+                                                        codec.cfg))
+
+
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_compress_kernels_on_unaligned_views(card, in_dtype, offset, rng):
+    """A contiguous view whose first element is not 16-byte aligned takes
+    the scalar loads: the same bytes as the aligned copy, bit for bit."""
+    codec = codec_from_spec("taco:g64")
+    n = 256 * 40
+    base = torch.from_numpy(tp_like(rng, (n + offset,))).to(card, in_dtype)
+    view = base[offset:].view(1, n)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    aligned = view.clone()
+    assert aligned.data_ptr() % 16 == 0
+    for fn in (lambda t: ash_compress.compress_wire(t, codec.cfg),
+               lambda t: torch.cat([
+                   a.reshape(-1).view(torch.uint8) for a in
+                   ash_compress.compress_blocks(t.reshape(-1, 256),
+                                                codec.cfg)])):
+        assert torch.equal(fn(view), fn(aligned))
+
+
+def test_compress_launches_one_warp_per_row_and_count_once(card):
+    cfg = codec_from_spec("taco").cfg
+    before = [ash_compress.compress_blocks.launches,
+              ash_compress.compress_wire.launches]
+    x = torch.zeros((3, 1792), device=card)
+    ash_compress.compress_blocks(x.reshape(-1, 256), cfg)
+    ash_compress.compress_wire(x, cfg)
+    torch.cuda.synchronize()
+    assert [ash_compress.compress_blocks.launches - before[0],
+            ash_compress.compress_wire.launches - before[1]] == [1, 1]
+
+
+# --------------------------------------------------------------------------
+# every block size the kernels are built for, both compute dtypes
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("metadata", ["", ":folded"])
+@pytest.mark.parametrize("cd", ["", ":cdbfloat16"])
+@pytest.mark.parametrize("b", [32, 64, 128, 256, 512])
+def test_kernels_every_block_size_and_compute_dtype(card, b, cd, metadata,
+                                                    rng):
+    """K1 to K6 at each block size of ``ash_compress.BLOCK_SIZES`` under
+    an f32 and a bf16 compute dtype (3 slots, 18432 payload bytes): pack(K1)
+    == K2, K3(unpack) == K5 and K4(unpack) == K6 bit for bit, K2 within the
+    parity rule of the plain version (its bf16 allowances under
+    ``cdbfloat16``), K5 and K6 within the decode tolerance of the compute
+    dtype."""
+    codec = codec_from_spec(f"taco:b{b}{cd}{metadata}")
+    cfg = codec.cfg
+    slots, n = 3, 256 * 24
+    x = torch.from_numpy(tp_like(rng, (slots, n))).to(card, torch.bfloat16)
+    k2, k1, plain = _k1_k2(x, codec, slots, n)
+    assert torch.equal(k1, k2)
+    ref.check_wire_parity(k2, plain, n, cfg)
+    k5 = ash_decompress.decompress_wire(plain, n, cfg)
+    k6 = ash_decompress.decompress_reduce_wire(plain, n, cfg)
+    assert k5.dtype == k6.dtype == cfg.torch_compute_dtype
+    ref.check_decoded_close(k5, ref.decompress_wire_ref(plain, n, cfg), cfg)
+    ref.check_decoded_close(k6, ref.decompress_reduce_wire_ref(plain, n, cfg),
+                            cfg)
+    enc = unpack_wire(plain, codec.wire_layout(n))
+    assert torch.equal(codec.decode(enc, n, torch.float32), k5.float())
+    assert torch.equal(codec.decode_sum(enc, n, torch.float32),
+                       k6.float().reshape(-1))
+
+
+# --------------------------------------------------------------------------
+# F1: the ablation configurations on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("spec", ["taco:hadamard", "taco:notransform",
+                                  "taco:tensorscale", "taco:b128",
+                                  "taco:cdbfloat16"])
+def test_ablation_hop_on_card_matches_cpu(card, spec, rng):
+    """One compressed hop (encode to the wire, decode) of each ablation
+    configuration on the card against the same hop on the CPU, through the
+    route of ``ops``: a configuration with no kernel (another transform,
+    tensor scales) launches none and counts every call in
+    ``ops.plain_routes``; ``b128`` and ``cdbfloat16`` launch the kernels
+    and count nothing there.  Held by ``ref.check_hop_parity``: the parity
+    rule (with a bf16 compute dtype, one bf16 ulp of metadata and a flip
+    in 1e-3 of the payload bytes)."""
+    codec = codec_from_spec(spec)
+    x = torch.from_numpy(tp_like(rng, (2, 256 * 64)))
+    counters = (ash_compress.compress_blocks, ash_compress.compress_wire,
+                ash_decompress.decompress_blocks,
+                ash_decompress.decompress_reduce,
+                ash_decompress.decompress_wire,
+                ash_decompress.decompress_reduce_wire)
+    launches = [c.launches for c in counters]
+    before = dict(ops.plain_routes)
+    ref.check_hop_parity(codec, x, card)
+    launched = sum(c.launches - n for c, n in zip(counters, launches))
+    routed = sum(ops.plain_routes[k] - before[k] for k in before)
+    if ops.supported(codec.cfg):
+        assert launched > 0 and routed == 0
+    else:
+        assert launched == 0 and routed > 0

@@ -103,6 +103,7 @@ def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
     for call in calls:
         with pytest.raises(AssertionError, match="not compiled with CUDA"):
             call()
-    # a CUDA tensor outside the kernels' coverage raises, too
+    # a CUDA tensor outside the kernels' coverage (a block size they are
+    # not built for) raises, too
     with pytest.raises(NotImplementedError, match="CUDA wire kernels"):
-        ash_compress.compress_wire(x, codec_from_spec("taco:b128").cfg)
+        ash_compress.compress_wire(x, codec_from_spec("taco:b1024").cfg)

@@ -20,7 +20,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      the kernels are built for (B = 32 .. 512) under an f32 and a bf16
      compute dtype (the bf16 allowances of the parity rule).  Each
      block form must equal its wire form bit for bit (pack(K1) == K2,
-     K3(unpack) == K5, K4(unpack) == K6).  Each kernel is timed (device
+     K3(unpack) == K5, K4(unpack) == K6), and under folded f32 metadata K3
+     (one warp per row) must equal K4 on one peer (the shared-memory
+     butterfly) bit for bit.  K5 on a wire that is a view at byte offset
+     1, 2 or 3 must equal K5 on the aligned wire bit for bit, and K6 must
+     refuse it (ValueError, no launch).  Each kernel is timed (device
      time from the profiler, per-call time with CUDA events) beside its
      bound and its plain version, and both routes of one training hop
      (wire kernels vs block kernels + pack/unpack) are timed.  Phase 1c
@@ -352,7 +356,7 @@ def phase_blocks() -> dict:
     its wire form bit for bit, and both routes of a whole hop timed."""
     from repro_torch.core.codecs import pack_wire, unpack_wire
     from repro_torch.core.registry import codec_from_spec
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ash_decompress, ops, ref
     gen = np.random.default_rng(1)
     dev = torch.device(DEVICE)
     rows, hops = {}, {}
@@ -385,9 +389,17 @@ def phase_blocks() -> dict:
         # K3 and K4 on the plain version's blocks
         alpha = None if cfg.metadata == "folded" else ap
         scale = sp / ap[:, None] if alpha is None else sp
+        k3 = ops.decompress_blocks(qp, scale, alpha, cfg)
         err_d = ref.check_decoded_close(
-            ops.decompress_blocks(qp, scale, alpha, cfg),
-            ref.decompress_blocks_ref(qp, scale, alpha, cfg), cfg)
+            k3, ref.decompress_blocks_ref(qp, scale, alpha, cfg), cfg)
+        # K3's warp butterfly against K4's shared-memory one: under folded
+        # f32 metadata K4 on one peer does K3's arithmetic (its sum starts
+        # from +0, which torch.equal counts equal to -0)
+        if alpha is None and cfg.torch_compute_dtype == torch.float32 and \
+                not torch.equal(k3, ops.decompress_reduce(
+                    qp[None], scale[None], None, cfg)):
+            raise AssertionError(f"{spec} n={n}: K3 != K4 at P=1")
+        del k3
         q3 = qp.reshape(peers, mb, b)
         s3 = scale.reshape(peers, mb, -1)
         a3 = None if alpha is None else alpha.reshape(peers, mb)
@@ -476,8 +488,42 @@ def phase_blocks() -> dict:
                     "device_ms": busy, "kernel_ms": kern, "call_ms": per_call,
                     "wire_bytes": total}
 
+    def wire_views(spec, n, slots):
+        """K5 on a wire that is a view at byte offset 1, 2 and 3 of a
+        larger buffer equals K5 on the aligned wire bit for bit; K6 refuses
+        such a wire before it launches."""
+        cfg = codec_from_spec(spec).cfg
+        x = tp_like(gen, (slots, n)).to(dev, torch.bfloat16)
+        wire = ops.compress_wire(x, cfg)
+        want = ops.decompress_wire(wire, n, cfg)
+        for off in (1, 2, 3):
+            buf = torch.empty(wire.numel() + off, dtype=torch.uint8,
+                              device=dev)
+            view = buf[off:].view(wire.shape)
+            view.copy_(wire)
+            if view.data_ptr() % 4 != off:
+                raise AssertionError(f"view at {view.data_ptr():#x}, want "
+                                     f"{off} mod 4")
+            if not torch.equal(ops.decompress_wire(view, n, cfg), want):
+                raise AssertionError(f"{spec} n={n}: K5 on a view at byte "
+                                     f"offset {off} != K5 aligned")
+            launched = ash_decompress.decompress_reduce_wire.launches
+            try:
+                ops.decompress_reduce_wire(view, n, cfg)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"{spec} n={n}: K6 took a wire at byte "
+                                     f"offset {off}")
+            if ash_decompress.decompress_reduce_wire.launches != launched:
+                raise AssertionError("K6 launched on an unaligned wire")
+        torch.cuda.synchronize()
+        print(f"  wire view  {spec:16s} n={n:8d} slots={slots} byte offsets "
+              f"1-3: K5 == K5 aligned bitwise; K6 raises ValueError")
+
     print("phase 1b: block kernels K1/K3/K4 vs plain versions (same rule), "
-          "and block form == wire form bit for bit")
+          "block form == wire form bit for bit, and K3 == K4 at P=1 under "
+          "folded f32 metadata bit for bit")
     case("taco", SERVE_N, torch.bfloat16, 1, timed=True, label="serve")
     case("taco:folded", SERVE_N, torch.bfloat16, 1)
     case("taco", SERVE_N, torch.bfloat16, 4)
@@ -498,6 +544,11 @@ def phase_blocks() -> dict:
         case(f"taco:b{b}:folded", SERVE_N, torch.bfloat16, 4)
         case(f"taco:b{b}:cdbfloat16", SERVE_N, torch.bfloat16, 4)
     case("taco:b128:cdbfloat16:e5m2:g32", ODD_N, torch.float32, 3, offset=1)
+    wire_views("taco:g64", SERVE_N, 4)                 # B = 256, dual
+    wire_views("taco:folded", ODD_N, 3)                # rows at 4 mod 8
+    wire_views("taco:b512:e5m2:g32", SERVE_N, 1)       # 16 codes a lane
+    wire_views("taco:b64:cdbfloat16:int8", SERVE_N, 2)  # 2 codes a lane
+    wire_views("taco:b32:folded:g1", SERVE_N, 1)       # 1 code a lane
     case("taco:folded", RING_N, torch.bfloat16, 1, timed=True,
          label="ring chunk")
     case("taco", TRAIN_N, torch.bfloat16, 1, timed=True, label="train")

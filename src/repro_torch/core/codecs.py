@@ -114,11 +114,17 @@ def pack_wire(enc, layout: WireLayout) -> torch.Tensor:
 
 def unpack_wire(wire: torch.Tensor, layout: WireLayout) -> tuple:
     """Inverse of :func:`pack_wire`: slice the uint8 buffer at the static
-    byte offsets and reinterpret each component (any leading axes)."""
-    return tuple(
-        wire[..., c.offset:c.offset + c.nbytes].contiguous().view(
-            _TORCH_DTYPES[c.dtype])
-        for c in layout.components)
+    byte offsets and reinterpret each component (any leading axes).  A
+    field that does not start at a multiple of its element size (a wire
+    view at an odd byte offset) is copied first, so any view decodes."""
+    out = []
+    for c in layout.components:
+        dtype = _TORCH_DTYPES[c.dtype]
+        field = wire[..., c.offset:c.offset + c.nbytes].contiguous()
+        if field.storage_offset() % dtype.itemsize:
+            field = field.clone()
+        out.append(field.view(dtype))
+    return tuple(out)
 
 
 class WireFastPath:

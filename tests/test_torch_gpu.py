@@ -6,8 +6,9 @@ one).  Run on a machine with an H100:
 The six CUDA kernels are held against their plain PyTorch versions on the
 same inputs with the parity rule of ``repro_torch.kernels.ref``; each
 block form against its wire form bit for bit (they share one per-row
-body); the card's taco decode and taco train step against the CPU's
-(plain versions).
+body); K3 (one warp per row) against K4 on one peer (a shared-memory
+butterfly) bit for bit under folded f32 metadata; the card's taco decode
+and taco train step against the CPU's (plain versions).
 """
 import numpy as np
 import pytest
@@ -484,3 +485,110 @@ def test_ablation_hop_on_card_matches_cpu(card, spec, rng):
         assert launched > 0 and routed == 0
     else:
         assert launched == 0 and routed > 0
+
+
+# --------------------------------------------------------------------------
+# K3 and K5: one warp per row, one shared row body
+# --------------------------------------------------------------------------
+
+def _k3_k5(wire, cfg, n):
+    """K5 on ``wire`` (slots, n) and K3 on its unpacked block fields, both
+    (slots, n); with those fields (q (M, B), s (M, G), alpha (M,) | None)."""
+    q, s, alpha = ref._block_fields(wire, n, cfg)
+    q, s = q.reshape(-1, cfg.block_size), s.reshape(-1, s.shape[-1])
+    alpha = None if alpha is None else alpha.reshape(-1)
+    k3 = ash_decompress.decompress_blocks(q, s, alpha, cfg)
+    k5 = ash_decompress.decompress_wire(wire, n, cfg)
+    return k5, k3.reshape(k5.shape), (q, s, alpha)
+
+
+def _hold_k3_k5(wire, cfg, n):
+    """K3(unpack) == K5 bit for bit, K5 within the decode tolerance of the
+    plain version, and, under folded f32 metadata, K3 == K4 on one peer bit
+    for bit (K4 keeps the shared-memory butterfly; its sum starts from +0,
+    which torch.equal counts equal to -0)."""
+    k5, k3, (q, s, alpha) = _k3_k5(wire, cfg, n)
+    assert torch.equal(k3, k5)
+    ref.check_decoded_close(k5, ref.decompress_wire_ref(wire, n, cfg), cfg)
+    if alpha is None and cfg.torch_compute_dtype == torch.float32:
+        k4 = ash_decompress.decompress_reduce(q[None], s[None], None, cfg)
+        assert torch.equal(k3.reshape(k4.shape), k4)
+    return k5
+
+
+@pytest.mark.parametrize("metadata", ["", ":folded"])
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2", "int8"])
+@pytest.mark.parametrize("gs", [1, 2, 4, 8, 16, 32, 64, 128, 256])
+def test_decompress_kernels_every_group_size(card, gs, fmt, metadata, rng):
+    """Every group size (E/gs scales a lane up to one scale per row), every
+    format, both metadata layouts, on the plain version's wire (64 rows)."""
+    cfg = codec_from_spec(f"taco:{fmt}:g{gs}{metadata}").cfg
+    n = 256 * 64
+    x = torch.from_numpy(tp_like(rng, (1, n))).to(card, torch.bfloat16)
+    _hold_k3_k5(ref.compress_wire_ref(x, cfg), cfg, n)
+
+
+@pytest.mark.parametrize("spec", ["taco", "taco:folded", "taco:folded:g32",
+                                  "taco:int8:g128"])
+def test_decompress_wire_rows_at_4_byte_offsets(card, spec, rng):
+    """n = 1792 under folded metadata (and dual int8:g128): total = 4 mod 8,
+    so every odd slot's payload is 4-byte aligned only; 3 slots (P = 3 for
+    K6), 7 rows per slot (a ragged count for 8-row blocks)."""
+    cfg = codec_from_spec(spec).cfg
+    slots, n = 3, 1792
+    x = torch.from_numpy(tp_like(rng, (slots, n))).to(card, torch.bfloat16)
+    wire = ref.compress_wire_ref(x, cfg)
+    if spec in ("taco:folded", "taco:int8:g128"):
+        assert wire.shape[1] % 8 == 4
+    _hold_k3_k5(wire, cfg, n)
+    ref.check_decoded_close(
+        ash_decompress.decompress_reduce_wire(wire, n, cfg),
+        ref.decompress_reduce_wire_ref(wire, n, cfg))
+
+
+@pytest.mark.parametrize("rows", [1, 7, 9, 14, 4099])
+def test_decompress_blocks_ragged_row_counts(card, rows, rng):
+    """Row counts that are not a multiple of a block's 8 warps: the warps
+    past the last row return, every row before it is written."""
+    cfg = codec_from_spec("taco:folded").cfg
+    n = rows * 256
+    x = torch.from_numpy(tp_like(rng, (1, n))).to(card, torch.bfloat16)
+    _hold_k3_k5(ref.compress_wire_ref(x, cfg), cfg, n)
+
+
+@pytest.mark.parametrize("spec", ["taco:g64", "taco:b512:e5m2:g32",
+                                  "taco:b64:cdbfloat16:int8",
+                                  "taco:b32:folded:g1"])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_decompress_wire_views_at_byte_offsets(card, spec, offset, rng):
+    """A wire that is a view at byte offset 1, 2 or 3 of a larger buffer:
+    K5 reads its f32 fields bytewise and its codes with narrower loads, and
+    equals K5 on the aligned wire bit for bit; K6 raises ValueError before
+    it launches."""
+    cfg = codec_from_spec(spec).cfg
+    slots, n = 2, 3584
+    x = torch.from_numpy(tp_like(rng, (slots, n))).to(card, torch.bfloat16)
+    wire = ash_compress.compress_wire(x, cfg)
+    buf = torch.empty(wire.numel() + offset, dtype=torch.uint8, device=card)
+    view = buf[offset:].view(wire.shape)
+    view.copy_(wire)
+    assert view.is_contiguous() and view.data_ptr() % 4 == offset
+    assert torch.equal(ash_decompress.decompress_wire(view, n, cfg),
+                       ash_decompress.decompress_wire(wire, n, cfg))
+    before = ash_decompress.decompress_reduce_wire.launches
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        ash_decompress.decompress_reduce_wire(view, n, cfg)
+    assert ash_decompress.decompress_reduce_wire.launches == before
+    torch.cuda.synchronize()
+
+
+def test_decompress_launches_one_warp_per_row_and_count_once(card):
+    cfg = codec_from_spec("taco").cfg
+    wire = ash_compress.compress_wire(torch.zeros((3, 1792), device=card),
+                                      cfg)
+    counters = (ash_decompress.decompress_blocks,
+                ash_decompress.decompress_wire)
+    before = [c.launches for c in counters]
+    _k3_k5(wire, cfg, 1792)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1]

@@ -122,6 +122,30 @@ def test_fused_paths_equal_generic_composition(spec, rng):
         rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("slots", [1, 3])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_plain_decode_of_wire_views_at_any_byte_offset(offset, slots, rng):
+    """A wire that is a view at byte offset 1-3 of a larger buffer decodes
+    in the plain versions of K5 and K6 (the CPU path of their wrappers)
+    bit for bit as the aligned wire does, and as the JAX package decodes
+    the same bytes (it bitcasts them wherever they lie)."""
+    n = 512
+    codec, jc = codec_from_spec("taco:g64"), jax_codec("taco:g64")
+    wire = codec.encode_wire(t(tp_like(rng, (slots, n))))
+    buf = torch.empty(wire.numel() + offset, dtype=torch.uint8)
+    view = buf[offset:].view(wire.shape)
+    view.copy_(wire)
+    assert view.is_contiguous() and view.storage_offset() == offset
+    jw = jnp.asarray(wire.numpy())
+    for op, jop in ((ash_decompress.decompress_wire, jc.decode_wire),
+                    (ash_decompress.decompress_reduce_wire,
+                     jc.decode_sum_wire)):
+        got = op(view, n, codec.cfg)
+        assert torch.equal(got, op(wire, n, codec.cfg))
+        ref.check_decoded_close(got, t(jop(jw, n, jnp.float32)).reshape(
+            got.shape))
+
+
 @pytest.mark.parametrize("spec", ["none", "taco", "taco:folded"])
 @pytest.mark.parametrize("shape", [(4, 1, 896), (1, 1, 128), (2, 3, 100)])
 def test_allreduce_size1_matches_jax(spec, shape, rng):

@@ -21,13 +21,14 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      compute dtype (the bf16 allowances of the parity rule).  Each
      block form must equal its wire form bit for bit (pack(K1) == K2,
      K3(unpack) == K5, K4(unpack) == K6), and under folded f32 metadata K3
-     (one warp per row) must equal K4 on one peer (the shared-memory
-     butterfly) bit for bit.  K5 on a wire that is a view at byte offset
-     1, 2 or 3 must equal K5 on the aligned wire bit for bit, and K6 must
-     refuse it (ValueError, no launch).  Each kernel is timed (device
-     time from the profiler, per-call time with CUDA events) beside its
-     bound and its plain version, and both routes of one training hop
-     (wire kernels vs block kernels + pack/unpack) are timed.  Phase 1c
+     must equal K4 on one peer bit for bit.  K5 and K6 on a wire that is a
+     view at byte offset 1, 2 or 3 must equal K5 and K6 on the aligned
+     wire bit for bit.  Each kernel is timed (device time from the
+     profiler, per-call time with CUDA events) beside its bound and its
+     plain version, K1, K3 and K4 also at the P = 4 stack a rank's
+     reduce-scatter receives at tp = 4 ("tp4 hop"), and both routes of
+     one training hop (wire kernels vs block kernels + pack/unpack) are
+     timed.  Phase 1c
      holds K7 (``compress_blocks_butterfly``, on no path) against its
      plain version at the serve and training shapes with B = 256 and at
      B = 64 and 512, and times it beside K1.  Phase 1d runs one hop of
@@ -356,7 +357,7 @@ def phase_blocks() -> dict:
     its wire form bit for bit, and both routes of a whole hop timed."""
     from repro_torch.core.codecs import pack_wire, unpack_wire
     from repro_torch.core.registry import codec_from_spec
-    from repro_torch.kernels import ash_decompress, ops, ref
+    from repro_torch.kernels import ops, ref
     gen = np.random.default_rng(1)
     dev = torch.device(DEVICE)
     rows, hops = {}, {}
@@ -392,9 +393,9 @@ def phase_blocks() -> dict:
         k3 = ops.decompress_blocks(qp, scale, alpha, cfg)
         err_d = ref.check_decoded_close(
             k3, ref.decompress_blocks_ref(qp, scale, alpha, cfg), cfg)
-        # K3's warp butterfly against K4's shared-memory one: under folded
-        # f32 metadata K4 on one peer does K3's arithmetic (its sum starts
-        # from +0, which torch.equal counts equal to -0)
+        # K3 against K4 on one peer: under folded f32 metadata K4 does K3's
+        # arithmetic (its sum starts from +0, which torch.equal counts equal
+        # to -0)
         if alpha is None and cfg.torch_compute_dtype == torch.float32 and \
                 not torch.equal(k3, ops.decompress_reduce(
                     qp[None], scale[None], None, cfg)):
@@ -434,23 +435,29 @@ def phase_blocks() -> dict:
               f"decompress_reduce={err_r:.2e}; block == wire bitwise")
         if not timed:
             return
+        # each call's own elements: K1 and K3 take all P peers' blocks
+        # (P n elements), K4 sums the P peers into n
         m = blocks.shape[0]
         groups = s.shape[-1]
         isz = x.element_size()
-        meta = 4 * m * groups + 4 * m                 # scales + alpha
+        pn = peers * n
+        # the P peers' scales, and their alpha: K1 writes it at every
+        # layout, K3 and K4 read it only under dual metadata
+        scales = 4 * m * groups
+        meta = scales + (0 if alpha is None else 4 * m)
         work = {
             "compress_blocks": (
                 lambda: ops.compress_blocks(blocks, cfg),
                 lambda: ref.compress_blocks_ref(blocks, cfg),
-                n * isz + n + meta, 16.0 * n, err_c),
+                pn * isz + pn + scales + 4 * m, 16.0 * pn, err_c),
             "decompress_blocks": (
                 lambda: ops.decompress_blocks(qp, scale, alpha, cfg),
                 lambda: ref.decompress_blocks_ref(qp, scale, alpha, cfg),
-                n + meta + 4 * n, 11.0 * n, err_d),
+                pn + meta + 4 * pn, 11.0 * pn, err_d),
             "decompress_reduce": (
                 lambda: ops.decompress_reduce(q3, s3, a3, cfg),
                 lambda: ref.decompress_reduce_ref(q3, s3, a3, cfg),
-                peers * n + meta + 4 * n, (2.0 * peers + 9) * n, err_r),
+                pn + meta + 4 * n, (2.0 * peers + 9) * n, err_r),
         }
         for name, (kern, plain, nbytes, nops, err) in work.items():
             (ms, events), plain_ms = kernel_ms(kern, KERNEL_FN[name]), \
@@ -489,13 +496,13 @@ def phase_blocks() -> dict:
                     "wire_bytes": total}
 
     def wire_views(spec, n, slots):
-        """K5 on a wire that is a view at byte offset 1, 2 and 3 of a
-        larger buffer equals K5 on the aligned wire bit for bit; K6 refuses
-        such a wire before it launches."""
+        """K5 and K6 on a wire that is a view at byte offset 1, 2 and 3 of
+        a larger buffer equal K5 and K6 on the aligned wire bit for bit."""
         cfg = codec_from_spec(spec).cfg
         x = tp_like(gen, (slots, n)).to(dev, torch.bfloat16)
         wire = ops.compress_wire(x, cfg)
-        want = ops.decompress_wire(wire, n, cfg)
+        want = {"K5": ops.decompress_wire(wire, n, cfg),
+                "K6": ops.decompress_reduce_wire(wire, n, cfg)}
         for off in (1, 2, 3):
             buf = torch.empty(wire.numel() + off, dtype=torch.uint8,
                               device=dev)
@@ -504,22 +511,15 @@ def phase_blocks() -> dict:
             if view.data_ptr() % 4 != off:
                 raise AssertionError(f"view at {view.data_ptr():#x}, want "
                                      f"{off} mod 4")
-            if not torch.equal(ops.decompress_wire(view, n, cfg), want):
-                raise AssertionError(f"{spec} n={n}: K5 on a view at byte "
-                                     f"offset {off} != K5 aligned")
-            launched = ash_decompress.decompress_reduce_wire.launches
-            try:
-                ops.decompress_reduce_wire(view, n, cfg)
-            except ValueError:
-                pass
-            else:
-                raise AssertionError(f"{spec} n={n}: K6 took a wire at byte "
-                                     f"offset {off}")
-            if ash_decompress.decompress_reduce_wire.launches != launched:
-                raise AssertionError("K6 launched on an unaligned wire")
+            got = {"K5": ops.decompress_wire(view, n, cfg),
+                   "K6": ops.decompress_reduce_wire(view, n, cfg)}
+            for k in want:
+                if not torch.equal(got[k], want[k]):
+                    raise AssertionError(f"{spec} n={n}: {k} on a view at "
+                                         f"byte offset {off} != {k} aligned")
         torch.cuda.synchronize()
         print(f"  wire view  {spec:16s} n={n:8d} slots={slots} byte offsets "
-              f"1-3: K5 == K5 aligned bitwise; K6 raises ValueError")
+              f"1-3: K5 == K5 aligned and K6 == K6 aligned bitwise")
 
     print("phase 1b: block kernels K1/K3/K4 vs plain versions (same rule), "
           "block form == wire form bit for bit, and K3 == K4 at P=1 under "
@@ -554,6 +554,8 @@ def phase_blocks() -> dict:
     case("taco", TRAIN_N, torch.bfloat16, 1, timed=True, label="train")
     case("taco:folded", TRAIN_N, torch.bfloat16, 1)
     case("taco", TRAIN_N, torch.bfloat16, 4)
+    # the P = 4 stack a rank's reduce-scatter receives at tp = 4
+    case("taco", TRAIN_N // 4, torch.bfloat16, 4, timed=True, label="tp4 hop")
     torch.cuda.empty_cache()
     return {"rows": rows, "hops": hops}
 

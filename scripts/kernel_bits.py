@@ -3,6 +3,7 @@ kernel before and after a redesign) to the same bits.
 
     python3 scripts/kernel_bits.py save OUT.pt [CHECKOUT]    # on a card
     python3 scripts/kernel_bits.py compare A.pt B.pt
+    python3 scripts/kernel_bits.py views                     # on a card
 
 ``save`` runs K1 to K6 of CHECKOUT (a checkout of the repo, built there
 by its own ``kernels/build.py``; by default the one the script lies in)
@@ -12,7 +13,10 @@ group sizes from 1 to 128) and saves their outputs.  It also prints how
 many payload codes K2 flips against the plain version on 4 Mi elements at
 B = 32, 64 and 256, the rate the parity rule of
 ``repro_torch.kernels.ref`` allows for.  ``compare`` holds two such files
-bit for bit, the sign of zero included.
+bit for bit, the sign of zero included.  ``views`` runs K5 and K6 of the
+checkout the script lies in on copies of each spec's wire that are views
+at byte offsets 1, 2 and 3 of a larger buffer, and fails unless each
+output equals the one on the aligned wire bit for bit.
 """
 from __future__ import annotations
 
@@ -27,22 +31,35 @@ SPECS = ([f"taco:b{b}{cd}{m}" for b in (32, 64, 128, 256, 512)
             "taco:g64:folded", "taco:int8:g128", "taco:e5m2:g16:folded"])
 
 
-def save(out_path: str, checkout: str | None = None) -> None:
+SLOTS, N = 3, 512 * 24
+
+
+def _use(checkout: str | None = None) -> None:
+    """Import the port from CHECKOUT (default: this one); needs a card."""
     root = pathlib.Path(checkout or pathlib.Path(__file__).resolve()
                         .parents[1]).resolve()
     sys.path.insert(0, str(root / "src"))
-    from repro_torch.core.registry import codec_from_spec
-    from repro_torch.kernels import ash_compress, ash_decompress, ref
     if not torch.cuda.is_available():
         sys.exit("kernel_bits: no CUDA device")
+
+
+def _input(i: int) -> torch.Tensor:
+    """Spec ``i``'s seeded input, (SLOTS, N) bf16 on the card."""
+    gen = torch.Generator().manual_seed(i)
+    x = torch.randn((SLOTS, N), generator=gen) * 0.02
+    x[:, ::97] *= 100                               # a long tail
+    return x.cuda().to(torch.bfloat16)
+
+
+def save(out_path: str, checkout: str | None = None) -> None:
+    _use(checkout)
+    from repro_torch.core.registry import codec_from_spec
+    from repro_torch.kernels import ash_compress, ash_decompress, ref
     out = {}
+    slots, n = SLOTS, N
     for i, spec in enumerate(SPECS):
         cfg = codec_from_spec(spec).cfg
-        gen = torch.Generator().manual_seed(i)
-        slots, n = 3, 512 * 24
-        x = torch.randn((slots, n), generator=gen) * 0.02
-        x[:, ::97] *= 100                           # a long tail
-        x = x.cuda().to(torch.bfloat16)
+        x = _input(i)
         out[f"K2 {spec}"] = ash_compress.compress_wire(x, cfg)
         blocks = x.reshape(-1, cfg.block_size)
         out[f"K1 {spec}"] = torch.cat([
@@ -77,6 +94,37 @@ def save(out_path: str, checkout: str | None = None) -> None:
               f"of the bytes), by at most {int(dq.max())}")
 
 
+def views() -> None:
+    _use()
+    from repro_torch.core.registry import codec_from_spec
+    from repro_torch.kernels import ash_decompress, ref
+    kernels = {"K5": ash_decompress.decompress_wire,
+               "K6": ash_decompress.decompress_reduce_wire}
+    differ, held = [], 0
+    for i, spec in enumerate(SPECS):
+        cfg = codec_from_spec(spec).cfg
+        wire = ref.compress_wire_ref(_input(i), cfg)
+        want = {k: fn(wire, N, cfg) for k, fn in kernels.items()}
+        for off in (1, 2, 3):
+            buf = torch.empty(wire.numel() + off, dtype=torch.uint8,
+                              device=wire.device)
+            view = buf[off:].view(wire.shape)
+            view.copy_(wire)
+            if view.data_ptr() % 4 != off:
+                sys.exit(f"kernel_bits: view at {view.data_ptr():#x}, want "
+                         f"{off} mod 4")
+            for k, fn in kernels.items():
+                held += 1
+                if not torch.equal(_bits(fn(view, N, cfg)), _bits(want[k])):
+                    differ.append(f"{k} {spec} offset {off}")
+    torch.cuda.synchronize()
+    print(f"kernel_bits: {held} outputs on wire views at byte offsets 1-3 "
+          f"held bit for bit against the aligned wire (sign of zero "
+          f"included): {held - len(differ)} equal, differ: {differ}")
+    if differ:
+        sys.exit(1)
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     t = t.contiguous()
     return t.view({1: torch.uint8, 2: torch.int16,
@@ -100,5 +148,7 @@ if __name__ == "__main__":
         save(*sys.argv[2:])
     elif len(sys.argv) == 4 and sys.argv[1] == "compare":
         compare(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:] == ["views"]:
+        views()
     else:
         sys.exit(__doc__)

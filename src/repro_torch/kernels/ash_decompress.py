@@ -4,20 +4,17 @@
 ``decompress_reduce_pallas`` and ``decompress_reduce_wire_pallas``
 (reduce-scatter receiver, block and wire form).
 
-The kernels (``csrc/ash_decompress.cu``) dequantize and rotate back.
-``decompress_blocks`` and ``decompress_wire`` take one warp per block row
-and rotate in registers and warp shuffles (the butterfly of the compress
-kernels); the reduce kernels take one thread block per row and a
-shared-memory butterfly, and sum the peers in the rotated domain first, so
-P peers cost ONE rotation.  The block forms read the payload, scales and
-alpha as separate arrays, the wire forms at their static
-``wire_layout(n)`` byte offsets; each pair shares one per-row body, so a
-block form on ``unpack_wire(w)`` equals its wire form on ``w`` bit for
-bit.  ``decompress_wire`` takes a wire view at any byte address;
-``decompress_reduce_wire`` needs a 4-byte aligned one.  They compute in
-f32 (rounding to bf16 where the plain version does under a bf16 compute
-dtype) and return the compute dtype; the codec casts to the hop's
-dtype.
+The kernels (``csrc/ash_decompress.cu``) dequantize and rotate back, one
+warp per block row, rotating in registers and warp shuffles (the
+butterfly of the compress kernels); the reduce kernels sum the peers in
+the rotated domain first, so P peers cost ONE rotation.  The block forms
+read the payload, scales and alpha as separate arrays, the wire forms at
+their static ``wire_layout(n)`` byte offsets; each pair shares one
+per-row body, so a block form on ``unpack_wire(w)`` equals its wire form
+on ``w`` bit for bit.  The wire forms take a wire view at any byte
+address.  They compute in f32 (rounding to bf16 where the plain version
+does under a bf16 compute dtype) and return the compute dtype; the codec
+casts to the hop's dtype.
 
 Each wrapper dispatches by the tensor's device: a CPU tensor takes the
 plain PyTorch version (``ref``), a CUDA tensor launches the kernel or
@@ -198,10 +195,6 @@ def decompress_reduce_wire(wire: torch.Tensor, n: int, cfg) -> torch.Tensor:
         return ref.decompress_reduce_wire_ref(wire, n, cfg)
     _device_check("decompress_reduce_wire", wire)
     mb, groups, total = _check_wire("decompress_reduce_wire", wire, n, cfg)
-    if wire.data_ptr() % 4:
-        # its kernel reads the f32 scales and alpha with 4-byte loads
-        raise ValueError(f"decompress_reduce_wire needs a 4-byte aligned "
-                         f"wire, got one at address {wire.data_ptr():#x}")
     peers = wire.shape[0]
     if peers == 0:
         raise ValueError("decompress_reduce_wire needs at least one peer row")

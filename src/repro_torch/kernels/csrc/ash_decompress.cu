@@ -14,30 +14,31 @@
 //     offsets that ash_compress.cu writes (the JAX package's _wire_fields
 //     bitcasts).
 // Each block form and its wire form call one shared body (decompress_row,
-// reduce_elem in ash_common.cuh), so K3 on unpack_wire(w) equals K5 on w, and
+// reduce_row in ash_common.cuh), so K3 on unpack_wire(w) equals K5 on w, and
 // K4 equals K6, bit for bit.  All four are built for B = 32 .. 512 and for an
 // f32 or a bf16 compute dtype (with_shape); they write f32.
 //
 // Bound on the H100: bytes.  Each output element costs ~1 payload byte per
 // peer read and 4 bytes written, against ~11 f32 operations (+2 per extra
 // peer), far below the f32 rate per byte moved.  So the design keeps loads in
-// flight and spends nothing on synchronisation.
-//   * K3 and K5: ONE WARP PER ROW, 8 rows per 256-thread block, as K1 and K2.
-//     Lane l reads its E = B/32 codes with the widest load the address allows
-//     (one 8-byte load at B = 256), its group's scale (E/gs scales when a
-//     group is smaller than E) and the row's alpha, rotates in registers by
-//     rotate_row (log2(E) stages in the lane, 5 across lanes by
-//     __shfl_xor_sync; compress_row's butterfly, with wht's stage order and
-//     pairing, so K3 on one peer equals K4 bit for bit under folded f32
-//     metadata), and writes
-//     its E f32 outputs with 16-byte stores: a warp reads and writes its row
-//     as one coalesced span.  No shared memory and no __syncthreads: a warp
-//     past the last row returns at once.  A wire view may start at any byte:
-//     the f32 fields are read bytewise where they are not 4-byte aligned.
-//   * K4 and K6: one B-thread block per row, one element per thread, the
-//     shared-memory butterfly wht; the peer loop accumulates in a register so
-//     P peers cost one rotation.  K6 reads its f32 fields with 4-byte loads,
-//     so its wrapper refuses a wire that is not 4-byte aligned.
+// flight and spends nothing on synchronisation.  All four take ONE WARP PER
+// ROW, 8 rows per 256-thread block, as K1 and K2: no shared memory and no
+// __syncthreads, and a warp past the last row returns at once.  Lane l
+// reads its E = B/32 codes with the widest load the address allows (one
+// 8-byte load at B = 256), its group's scale (E/gs scales when a group is
+// smaller than E) and the row's alpha, rotates in registers by rotate_row
+// (log2(E) stages in the lane, 5 across lanes by __shfl_xor_sync;
+// compress_row's butterfly), and writes its E f32 outputs with 16-byte
+// stores: a warp reads and writes its row as one coalesced span.  A wire
+// view may start at any byte: the f32 fields are read bytewise where they
+// are not 4-byte aligned.
+//   * K3 and K5 (decompress_row): q s per element, the rotation, then the
+//     division by alpha when the metadata is dual.
+//   * K4 and K6 (reduce_row): the P peers summed in a register per element
+//     in the rotated domain, so P peers cost one rotation; two peers' loads
+//     start before either is added, their codes kept as loaded words
+//     until then.  Under folded f32 metadata K4 on one peer equals K3 bit
+//     for bit.
 #include "ash_common.cuh"
 
 namespace taco {
@@ -61,21 +62,33 @@ decompress_blocks_kernel(const uint8_t* __restrict__ q,
       out + r * B, fmt, groups, inv_sqrt_b);
 }
 
-template <int B, bool BF>
-__global__ void __launch_bounds__(B)
+// K4 and K6 keep at most 64 registers a thread up to E = 8 (B = 256), so
+// that 4 blocks (32 warps) share an SM and keep more rows' loads in
+// flight: left to itself ptxas gave them 72-116 registers (2-3 blocks an
+// SM) and they ran slower at the training shapes; the cap spills 20-64
+// bytes (PERF.md, section 6).
+constexpr int reduce_min_blocks(int e) { return e <= 8 ? 4 : 1; }
+
+template <int E, bool BF>
+__global__ void __launch_bounds__(kRowsPerBlock * 32, reduce_min_blocks(E))
 decompress_reduce_kernel(const uint8_t* __restrict__ q,
                          const float* __restrict__ scale,
                          const float* __restrict__ alpha,
                          float* __restrict__ out, int peers, long long rows,
                          int fmt, int groups, float inv_sqrt_b) {
-  __shared__ float sh[B];
-  const int t = threadIdx.x;
-  const size_t row = blockIdx.x;
+  constexpr int B = 32 * E;
+  const long long row = static_cast<long long>(blockIdx.x) * kRowsPerBlock
+                        + (threadIdx.x >> 5);
+  if (row >= rows) return;                 // whole warps only
+  const size_t r = static_cast<size_t>(row);
   const size_t m = static_cast<size_t>(rows);
-  out[row * B + t] = reduce_elem<B, BF>(
-      peers, q + row * B + t, m * B,
-      scale + row * groups + t / (B / groups), m * groups,
-      alpha == nullptr ? nullptr : alpha + row, m, fmt, inv_sqrt_b, sh);
+  // peer p's row r sits one (rows, .) array further on per peer
+  reduce_row<E, BF>(
+      peers, q + r * B, m * B,
+      reinterpret_cast<const uint8_t*>(scale + r * groups), 4 * m * groups,
+      alpha == nullptr ? nullptr
+                       : reinterpret_cast<const uint8_t*>(alpha + r),
+      4 * m, out + r * B, fmt, groups, inv_sqrt_b);
 }
 
 template <int E, bool BF>
@@ -98,29 +111,24 @@ decompress_wire_kernel(const uint8_t* __restrict__ wire,
       out + slot * n + b * B, fmt, groups, inv_sqrt_b);
 }
 
-template <int B, bool BF>
-__global__ void __launch_bounds__(B)
+template <int E, bool BF>
+__global__ void __launch_bounds__(kRowsPerBlock * 32, reduce_min_blocks(E))
 decompress_reduce_wire_kernel(const uint8_t* __restrict__ wire,
                               float* __restrict__ out, int peers, int n,
                               long long total, int fmt, int groups,
                               int folded, float inv_sqrt_b) {
-  __shared__ float sh[B];
-  const int t = threadIdx.x;
-  const int blk = blockIdx.x;
+  constexpr int B = 32 * E;
   const int mb = n / B;
-  // wire rows are 4-byte multiples (n is a multiple of B >= 32), so each
-  // peer's f32 fields sit total / 4 floats after the previous peer's
-  const size_t fstride = static_cast<size_t>(total) / 4;
-  const float* scale = reinterpret_cast<const float*>(wire + n)
-                       + blk * groups + t / (B / groups);
-  const float* al =
-      folded ? nullptr
-             : reinterpret_cast<const float*>(wire + n + 4LL * mb * groups)
-                   + blk;
-  out[static_cast<size_t>(blk) * B + t] = reduce_elem<B, BF>(
-      peers, wire + static_cast<size_t>(blk) * B + t,
-      static_cast<size_t>(total), scale, fstride, al, fstride, fmt,
-      inv_sqrt_b, sh);
+  const int blk = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (blk >= mb) return;                   // whole warps only
+  const size_t b = static_cast<size_t>(blk);
+  const size_t stride = static_cast<size_t>(total);   // one peer's wire row
+  // payload [0, n), f32 scales [n, n + 4 mb G), f32 alpha after them (dual)
+  const uint8_t* meta = wire + n;
+  reduce_row<E, BF>(
+      peers, wire + b * B, stride, meta + 4 * b * groups, stride,
+      folded ? nullptr : meta + 4 * (static_cast<size_t>(mb) * groups + b),
+      stride, out + b * B, fmt, groups, inv_sqrt_b);
 }
 
 }  // namespace taco
@@ -153,18 +161,20 @@ extern "C" int taco_decompress_blocks(const void* q, const void* scale,
 }
 
 // q: (peers, rows, B) payload bytes; scale: (peers, rows, groups) f32;
-// alpha: (peers, rows) f32 or null (folded); out: (rows, B) f32.  One
-// B-thread block per row on grid.x.
+// alpha: (peers, rows) f32 or null (folded); out: (rows, B) f32.  One warp
+// per row, 8 rows per block on grid.x.
 extern "C" int taco_decompress_reduce(const void* q, const void* scale,
                                       const void* alpha, void* out, int peers,
                                       long long rows, int block,
                                       int bf16_compute, int fmt, int groups,
                                       float inv_sqrt_b, void* stream) {
-  return taco::with_shape(block, bf16_compute, [&](auto shape) {
+  using namespace taco;
+  const dim3 grid(static_cast<unsigned>(
+      (rows + kRowsPerBlock - 1) / kRowsPerBlock));
+  return with_shape(block, bf16_compute, [&](auto shape) {
     using S = decltype(shape);
-    taco::decompress_reduce_kernel<S::B, S::BF>
-        <<<static_cast<unsigned>(rows), S::B, 0,
-           static_cast<cudaStream_t>(stream)>>>(
+    decompress_reduce_kernel<S::B / 32, S::BF>
+        <<<grid, kRowsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
             static_cast<const uint8_t*>(q), static_cast<const float*>(scale),
             static_cast<const float*>(alpha), static_cast<float*>(out), peers,
             rows, fmt, groups, inv_sqrt_b);
@@ -192,17 +202,20 @@ extern "C" int taco_decompress_wire(const void* wire, void* out, int slots,
   });
 }
 
-// wire: (peers, total) uint8, 4-byte aligned; out: (n / B, B) f32.  One
-// B-thread block per row on grid.x.
+// wire: (peers, total) uint8 at any byte address; out: (n / B, B) f32.
+// One warp per block row, 8 rows per block on grid.x.
 extern "C" int taco_decompress_reduce_wire(const void* wire, void* out,
                                            int peers, int n, long long total,
                                            int block, int bf16_compute,
                                            int fmt, int groups, int folded,
                                            float inv_sqrt_b, void* stream) {
-  return taco::with_shape(block, bf16_compute, [&](auto shape) {
+  using namespace taco;
+  const int mb = n / block;
+  const dim3 grid((mb + kRowsPerBlock - 1) / kRowsPerBlock);
+  return with_shape(block, bf16_compute, [&](auto shape) {
     using S = decltype(shape);
-    taco::decompress_reduce_wire_kernel<S::B, S::BF>
-        <<<n / S::B, S::B, 0, static_cast<cudaStream_t>(stream)>>>(
+    decompress_reduce_wire_kernel<S::B / 32, S::BF>
+        <<<grid, kRowsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
             static_cast<const uint8_t*>(wire), static_cast<float*>(out),
             peers, n, total, fmt, groups, folded, inv_sqrt_b);
     return static_cast<int>(cudaGetLastError());

@@ -6,9 +6,10 @@ one).  Run on a machine with an H100:
 The six CUDA kernels are held against their plain PyTorch versions on the
 same inputs with the parity rule of ``repro_torch.kernels.ref``; each
 block form against its wire form bit for bit (they share one per-row
-body); K3 (one warp per row) against K4 on one peer (a shared-memory
-butterfly) bit for bit under folded f32 metadata; the card's taco decode
-and taco train step against the CPU's (plain versions).
+body); K3 against K4 on one peer bit for bit under folded f32 metadata;
+K5 and K6 on wire views at byte offsets 1-3 against the aligned wire bit
+for bit; the card's taco decode and taco train step against the CPU's
+(plain versions).
 """
 import numpy as np
 import pytest
@@ -505,8 +506,8 @@ def _k3_k5(wire, cfg, n):
 def _hold_k3_k5(wire, cfg, n):
     """K3(unpack) == K5 bit for bit, K5 within the decode tolerance of the
     plain version, and, under folded f32 metadata, K3 == K4 on one peer bit
-    for bit (K4 keeps the shared-memory butterfly; its sum starts from +0,
-    which torch.equal counts equal to -0)."""
+    for bit (K4's sum starts from +0, which torch.equal counts equal to
+    -0)."""
     k5, k3, (q, s, alpha) = _k3_k5(wire, cfg, n)
     assert torch.equal(k3, k5)
     ref.check_decoded_close(k5, ref.decompress_wire_ref(wire, n, cfg), cfg)
@@ -562,9 +563,8 @@ def test_decompress_blocks_ragged_row_counts(card, rows, rng):
 @pytest.mark.parametrize("offset", [1, 2, 3])
 def test_decompress_wire_views_at_byte_offsets(card, spec, offset, rng):
     """A wire that is a view at byte offset 1, 2 or 3 of a larger buffer:
-    K5 reads its f32 fields bytewise and its codes with narrower loads, and
-    equals K5 on the aligned wire bit for bit; K6 raises ValueError before
-    it launches."""
+    K5 and K6 read its f32 fields bytewise and its codes with narrower
+    loads, and each equals itself on the aligned wire bit for bit."""
     cfg = codec_from_spec(spec).cfg
     slots, n = 2, 3584
     x = torch.from_numpy(tp_like(rng, (slots, n))).to(card, torch.bfloat16)
@@ -573,12 +573,9 @@ def test_decompress_wire_views_at_byte_offsets(card, spec, offset, rng):
     view = buf[offset:].view(wire.shape)
     view.copy_(wire)
     assert view.is_contiguous() and view.data_ptr() % 4 == offset
-    assert torch.equal(ash_decompress.decompress_wire(view, n, cfg),
-                       ash_decompress.decompress_wire(wire, n, cfg))
-    before = ash_decompress.decompress_reduce_wire.launches
-    with pytest.raises(ValueError, match="4-byte aligned"):
-        ash_decompress.decompress_reduce_wire(view, n, cfg)
-    assert ash_decompress.decompress_reduce_wire.launches == before
+    for fn in (ash_decompress.decompress_wire,
+               ash_decompress.decompress_reduce_wire):
+        assert torch.equal(fn(view, n, cfg), fn(wire, n, cfg))
     torch.cuda.synchronize()
 
 
@@ -587,8 +584,39 @@ def test_decompress_launches_one_warp_per_row_and_count_once(card):
     wire = ash_compress.compress_wire(torch.zeros((3, 1792), device=card),
                                       cfg)
     counters = (ash_decompress.decompress_blocks,
-                ash_decompress.decompress_wire)
+                ash_decompress.decompress_wire,
+                ash_decompress.decompress_reduce,
+                ash_decompress.decompress_reduce_wire)
     before = [c.launches for c in counters]
     _k3_k5(wire, cfg, 1792)
+    _k4_k6(wire, cfg, 1792)
     torch.cuda.synchronize()
-    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1]
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 1]
+
+
+# --------------------------------------------------------------------------
+# K4 and K6: one warp per row, one shared row body
+# --------------------------------------------------------------------------
+
+def _k4_k6(wire, cfg, n):
+    """K6 on the peer stack ``wire`` (P, total) and K4 on its unpacked block
+    fields (q (P, M, B), s (P, M, G), alpha (P, M) | None), both (M, B)."""
+    q, s, alpha = ref._block_fields(wire, n, cfg)
+    return (ash_decompress.decompress_reduce_wire(wire, n, cfg),
+            ash_decompress.decompress_reduce(q, s, alpha, cfg))
+
+
+@pytest.mark.parametrize("rows", [1, 7, 9, 14, 4099])
+def test_decompress_reduce_ragged_row_counts(card, rows, rng):
+    """Row counts that are not a multiple of a block's 8 warps, 3 peers,
+    dual metadata: the warps past the last row return, every row before it
+    is written; K4(unpack) == K6 bit for bit, and K6 within the decode
+    tolerance of the plain version."""
+    cfg = codec_from_spec("taco").cfg
+    n = rows * 256
+    x = torch.from_numpy(tp_like(rng, (3, n))).to(card, torch.bfloat16)
+    wire = ref.compress_wire_ref(x, cfg)
+    k6, k4 = _k4_k6(wire, cfg, n)
+    assert k6.shape == (rows, 256) and torch.equal(k4, k6)
+    ref.check_decoded_close(k6, ref.decompress_reduce_wire_ref(wire, n, cfg),
+                            cfg)

@@ -61,9 +61,23 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      (as phase 3) and serving (as phase 2) run under that spec with the
      group passed: four times the block-kernel launches per step (one per
      ring chunk), four times the wire-kernel launches per tick, losses
-     within 5e-2 of phase 3's baseline.
+     within 5e-2 of phase 3's baseline;
+  6. data parallelism: 1-rank NCCL groups for pod, data and model
+     (``launch.mesh.init_mesh``), so that every hop of both fsdp stages
+     goes through ``torch.distributed``.  At smoke size under
+     ``tp=taco,grad_rs=sdp4bit`` every weight gather's backward runs the
+     SDP4bit codec at the pod and the data stage, the ring
+     ``grad_rs=sdp4bit:chunks=4`` (pipelined and serial) gives the
+     monolithic hop's loss and grads bit for bit, one train step on the
+     card agrees with the CPU (loss 1e-3, grad norm 5e-2), and the codec
+     at a full-width weight gradient holds the parity rule of
+     ``core/dp_compress.py`` against the CPU; then full-width training (as
+     phase 3) under that spec: the launches of phase 3's taco (the codec
+     launches no TACO kernel), losses within 5e-2 of phase 3's baseline,
+     and one step's weight-gradient hops replayed and profiled for the
+     codec's device time.
 
-Every training and serving run of phases 2, 3 and 5 must take only
+Every training and serving run of phases 2, 3, 5 and 6 must take only
 kernels: ``ops.plain_routes`` stays 0.  Nothing is caught: any failure
 exits non-zero.  The line before the last
 is the kernel table as JSON; the last is
@@ -104,6 +118,7 @@ KERNEL_FN = {"compress_wire": "compress_wire_kernel",
              "decompress_reduce": "decompress_reduce_kernel",
              "compress_blocks_butterfly": "compress_blocks_butterfly_kernel"}
 RING_SPEC = "tp=taco:folded:chunks=4"     # the paper's spec: the chunked ring
+DP_SPEC = "tp=taco,grad_rs=sdp4bit"       # TACO on TP, SDP4bit on the data axes
 TRAIN_SIZE = "--no-smoke"                 # full width and depth
 DEVICE = "cuda"                           # where phase 1b's tensors live
 
@@ -781,18 +796,25 @@ def nccl_calls():
 
 def phase_train(counters, runs) -> dict:
     """Full-width qwen2-0.5b training through the train launcher's entry
-    points, one run per ``(label, spec, group)``: per-step launches,
-    losses, wall and peak memory, and one profiled step each."""
+    points, one run per ``(label, spec, groups)`` (``groups``: a TP
+    process group, a ``launch.mesh.Mesh`` or None): per-step launches,
+    losses, wall and peak memory, and one profiled step each; under a
+    compressed ``grad_rs`` codec also the codec's device time a step
+    (:func:`grad_codec_profile`)."""
+    from repro_torch.core.codecs import IdentityCodec
     from repro_torch.kernels import ops
     from repro_torch.launch import train
+    from repro_torch.launch.mesh import Mesh
     names = list(counters)
     out = {}
-    for label, spec, group in runs:
+    for label, spec, groups in runs:
         args = train.parse_args([
             "--arch", "qwen2-0.5b", TRAIN_SIZE, "--comm-spec", spec,
             "--steps", str(TRAIN_STEPS), "--seq", str(TRAIN_SEQ), "--batch",
             str(TRAIN_BATCH), "--lr", "3e-4", "--seed", "0"])
-        trainer, cfg = train.build_trainer(args, group=group)
+        mesh = groups if isinstance(groups, Mesh) else None
+        group = None if mesh is not None else groups
+        trainer, cfg = train.build_trainer(args, group=group, mesh=mesh)
         per_step = []
         inner = trainer.step_fn_for
 
@@ -836,8 +858,8 @@ def phase_train(counters, runs) -> dict:
                   f"wall {h['ms']:.3f} ms tok/s {h['tok_per_s']:.1f}")
         timed = hist[TRAIN_WARM:]
         mean_ms = sum(h["ms"] for h in timed) / len(timed)
-        print(f"  {label:8s} ({spec}, tp group "
-              f"{'none' if group is None else trainer.ctx.tp_size}) "
+        print(f"  {label:8s} ({spec}, groups "
+              f"{'none' if groups is None else type(groups).__name__}) "
               f"{len(timed)} timed steps: mean wall {mean_ms:.3f}"
               f" ms/step, {TRAIN_BATCH * TRAIN_SEQ / mean_ms * 1e3:.1f} tok/s"
               f", peak memory {peak:.1f} MiB, launches/step "
@@ -869,11 +891,169 @@ def phase_train(counters, runs) -> dict:
                       "step_profile": {"wall_ms": wall, "device_ms": busy,
                                        "idle_share": 1 - busy / wall,
                                        "taco_kernels_ms": taco_ms}}
+        if trainer.ctx.plan.grad_rs != IdentityCodec():
+            out[label]["grad_codec"] = grad_codec_profile(trainer.ctx, one)
         trainer.step_fn_for = inner = counted = fn = None
         del trainer, params, opt, batch
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+def grad_codec_profile(ctx, one_step) -> dict:
+    """Device time a training step spends in its weight gradients' codec
+    hops (the ``grad_rs`` reduce-scatter of every weight gather's
+    backward, both fsdp stages): the hops of one step are captured (shape,
+    dim), then replayed on bf16 tensors of those shapes through the same
+    collective and profiled; the NCCL kernels of the moves are counted
+    apart from the codec's own ops."""
+    from repro_torch.core import collectives as cc
+    hops = []
+    impl = cc._rs_impl
+
+    def capture(x, group, dim, codec):
+        if group is ctx.fsdp_groups:
+            hops.append((tuple(x.shape), dim))
+        return impl(x, group, dim, codec)
+    cc._rs_impl = capture
+    try:
+        one_step()
+    finally:
+        cc._rs_impl = impl
+    torch.cuda.synchronize()
+    bufs = {shape: torch.randn(shape, device="cuda", dtype=torch.bfloat16)
+            for shape in {h[0] for h in hops}}
+
+    def replay():
+        for shape, dim in hops:
+            cc._rs_impl(bufs[shape], ctx.fsdp_groups, dim, ctx.plan.grad_rs)
+    prof = device_profile(replay, iters=1)
+    nccl = sum(v for k, v in prof.items() if "nccl" in k.lower())
+    codec = sum(prof.values()) - nccl
+    top = [(k[:60], round(v, 3)) for k, v in
+           sorted(prof.items(), key=lambda kv: -kv[1])[:6]]
+    elems = sum(int(np.prod(s)) for s, _ in hops)
+    print(f"    grad_rs codec a step: {len(hops)} weight-gradient hops of "
+          f"{elems} elements in all, each over {len(ctx.fsdp_groups)} "
+          f"stages; device {codec:.3f} ms in the codec's ops, {nccl:.3f} ms"
+          f" in NCCL; top {top}")
+    del bufs
+    torch.cuda.empty_cache()
+    return {"hops": len(hops), "elements": elems, "codec_ms": codec,
+            "nccl_ms": nccl, "top": top}
+
+
+def mesh_loss_grads(model, params, batch, ctx):
+    """The train step's loss and finalized grads, without the update."""
+    from repro_torch.core.collectives import psum_exact
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import dp_axes
+    flat = adamw.leaves(params)
+    for q in flat:
+        q.requires_grad_(True)
+    loss_sum, count, _ = model.loss_parts(params, batch, ctx)
+    dp = tuple(ctx.axis_group(a) for a in dp_axes(model))
+    loss = psum_exact(loss_sum, dp) / \
+        psum_exact(count.detach(), dp).clamp_min(1.0)
+    loss.backward()
+    grads = [torch.zeros_like(q) if q.grad is None else q.grad for q in flat]
+    for q in flat:
+        q.grad = None
+        q.requires_grad_(False)
+    grads = adamw.finalize_grads(grads, model, ctx.comm, ctx.fsdp_groups)
+    return loss.detach(), grads
+
+
+def phase_dp_parity(mesh) -> None:
+    """Smoke size through the mesh's 1-rank NCCL groups (pod, data,
+    model): under ``DP_SPEC`` every weight gather's backward crosses the
+    codec at both fsdp stages (2 x 16 hops); the ring ``chunks=4``
+    (pipelined and serial) gives the monolithic hop's loss and grads bit
+    for bit; one train step on the card agrees with the CPU (no groups,
+    the plain path; loss 1e-3, grad norm 5e-2 relative); and the codec at
+    one full-width weight gradient (the MLP's w1, 896 x 4864, bf16) on the
+    card holds the parity rule of ``core/dp_compress.py`` against the
+    CPU."""
+    from repro_torch.configs import get_config, make_plan, smoke_config
+    from repro_torch.core import collectives as cc
+    from repro_torch.core import dp_compress
+    from repro_torch.core.codecs import Sdp4BitCodec
+    from repro_torch.core.parallel import ParallelCtx
+    from repro_torch.core.registry import from_spec
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import build_train_step
+    cfg = smoke_config(get_config("qwen2-0.5b"))
+    plan = make_plan(cfg, 1, 1)
+    cpu, gpu = Model(cfg, plan, device="cpu"), Model(cfg, plan)
+    init = cpu.init(0)
+    host = SyntheticLM(DataConfig(cfg.vocab_size, 64, 2)).batch(0)
+    batch = SyntheticLM.place(host, gpu.device)
+    hops = []
+    one = cc._rs_one
+
+    def counted(x, group, dim, codec):
+        if isinstance(codec, Sdp4BitCodec):
+            hops.append(group)
+        return one(x, group, dim, codec)
+    cc._rs_one = counted
+    try:
+        with nccl_calls() as calls:
+            mono = mesh_loss_grads(gpu, tree_map(lambda a: a.cuda(), init),
+                                   batch, mesh.parallel_ctx(from_spec(DP_SPEC)))
+    finally:
+        cc._rs_one = one
+    if hops != list(mesh.fsdp_groups) * 16:
+        raise AssertionError(f"{len(hops)} grad_rs codec hops, want 2 x 16 "
+                             "(pod, then data)")
+    for spec in (DP_SPEC + ":chunks=4", DP_SPEC + ":chunks=4:schedule=serial"):
+        loss, grads = mesh_loss_grads(gpu, tree_map(lambda a: a.cuda(), init),
+                                      batch, mesh.parallel_ctx(from_spec(spec)))
+        if not torch.equal(loss, mono[0]) or \
+                not all(torch.equal(a, b) for a, b in zip(grads, mono[1])):
+            raise AssertionError(f"{spec}: loss or grads differ from the "
+                                 "monolithic hop")
+    print(f"  smoke {DP_SPEC} through the 1-rank pod / data / model groups: "
+          f"{len(hops)} grad_rs codec hops (pod, data per weight gather); "
+          f"chunks=4 (pipelined, serial) == monolithic bit for bit (loss "
+          f"{float(mono[0]):.6f}, {len(mono[1])} grads); torch.distributed "
+          f"calls {({k: v for k, v in calls.items() if v})}")
+    oc = adamw.OptConfig(lr_max=1e-3, lr_min=1e-4, warmup_steps=2,
+                         total_steps=10)
+    res = {}
+    for where, model, ctx, b in (
+            ("cpu", cpu, ParallelCtx(plan=from_spec(DP_SPEC)), host),
+            ("card", gpu, mesh.parallel_ctx(from_spec(DP_SPEC)), batch)):
+        params = tree_map(lambda a: a.to(model.device).clone(), init)
+        _, _, m = build_train_step(model, ctx, oc)(
+            params, adamw.init_opt_state(params), b)
+        res[where] = (float(m["loss"]), float(m["grad_norm"]))
+    (lc, gc_), (lg, gg) = res["cpu"], res["card"]
+    rl, rg = abs(lg - lc) / lc, abs(gg - gc_) / gc_
+    if not (np.isfinite(lg) and np.isfinite(gg)) or rl > 1e-3 or rg > 5e-2:
+        raise AssertionError(f"{DP_SPEC} train step: card vs CPU loss "
+                             f"{rl:.3e}, grad norm {rg:.3e} relative")
+    print(f"  smoke {DP_SPEC} train step: card (groups) vs CPU (none) loss "
+          f"{rl:.3e}, grad norm {rg:.3e} relative")
+    codec = Sdp4BitCodec()
+    x = tp_like(np.random.default_rng(6), (896, 4864)).bfloat16()
+    n = x.numel()
+    row = x.reshape(1, n)
+    got = codec.encode_wire(row.cuda())
+    want = codec.encode_wire(row)
+    par = dp_compress.check_wire_parity(got, want, n, codec.block,
+                                        x=row.float())
+    exact = dp_compress.check_wire_parity(want, want, n, codec.block)
+    worst = dp_compress.check_decoded(
+        codec.decode_sum_wire(want.cuda(), n, torch.float32),
+        codec.decode_sum_wire(want, n, torch.float32), exact["bound"],
+        codec.block)
+    print(f"  sdp4bit at a full-width w1 gradient (n = {n}): card vs CPU "
+          f"{par['flipped']} of {par['codes']} codes differ ({par['at_ties']}"
+          f" at ties), scales rel err {par['scale_rel_err']:.3e}; decode of "
+          f"one wire {worst:.3e} of its bound")
 
 
 def check_losses(base: dict, other: dict, label: str) -> float:
@@ -1074,6 +1254,7 @@ def main() -> None:
     import torch.distributed as dist
 
     from repro_torch.core.parallel import init_tp_group
+    from repro_torch.launch.mesh import init_mesh
     from repro_torch.kernels import (ash_compress, ash_decompress, build,
                                      fwht_butterfly)
     t_start = t0 = time.monotonic()
@@ -1122,6 +1303,23 @@ def main() -> None:
     ring_train = phase_train(kernels, [("ring", RING_SPEC, group)])["ring"]
     check_losses(trained["baseline"], ring_train, "ring")
     ring_serve = phase_serve(kernels, [("ring", RING_SPEC, group)])["ring"]
+    print(f"phase 6: 1-rank NCCL groups for pod, data and model on the card, "
+          f"{DP_SPEC}")
+    mesh = init_mesh((1, 1, 1), "cuda")
+    phase_dp_parity(mesh)
+    dp_train = phase_train(kernels, [("dp", DP_SPEC, mesh)])["dp"]
+    check_losses(trained["baseline"], dp_train, "dp")
+    taco_prof = trained["taco"]["step_profile"]
+    dp_prof = dp_train["step_profile"]
+    print(f"  one profiled step: taco (phase 3) device busy "
+          f"{taco_prof['device_ms']:.3f} ms, TACO kernels "
+          f"{taco_prof['taco_kernels_ms']:.3f} ms; dp device busy "
+          f"{dp_prof['device_ms']:.3f} ms, TACO kernels "
+          f"{dp_prof['taco_kernels_ms']:.3f} ms, grad_rs codec "
+          f"{dp_train['grad_codec']['codec_ms']:.3f} ms (+ NCCL "
+          f"{dp_train['grad_codec']['nccl_ms']:.3f} ms); peak "
+          f"{dp_train['peak_mib']:.1f} MiB (taco "
+          f"{trained['taco']['peak_mib']:.1f})")
     dist.destroy_process_group()
     meta = {
         "compress_blocks": ("src/repro_torch/kernels/csrc/ash_compress.cu",
@@ -1150,6 +1348,7 @@ def main() -> None:
         "serve taco": dict(zip(wire_names, served["taco"]["launches"])),
         "train taco": trained["taco"]["launches"],
         "train ring": ring_train["launches"],
+        "train dp": dp_train["launches"],
         "serve ring": dict(zip(wire_names, ring_serve["launches"]))}
     launches = dict(by_path["serve taco"])
     launches.update({k: by_path["train taco"][k]

@@ -21,6 +21,7 @@ __all__ = [
     "block_partition",
     "block_unpartition",
     "ash_forward",
+    "ash_inverse",
 ]
 
 
@@ -108,3 +109,11 @@ def ash_forward(blocks: torch.Tensor, *, tau: float = 1.0, eps: float = 1e-12,
     h = hadamard_matrix(b, compute_dtype, g.device)
     z = _rotate(alpha * g, h)
     return z, alpha[..., 0]
+
+
+def ash_inverse(z: torch.Tensor, alpha: torch.Tensor, *,
+                compute_dtype=torch.float32) -> torch.Tensor:
+    """Paper Eq. 12-13: inverse rotation then undo the adaptive rescale."""
+    b = z.shape[-1]
+    h = hadamard_matrix(b, compute_dtype, z.device)
+    return _rotate(z.to(compute_dtype), h) / alpha[..., None]

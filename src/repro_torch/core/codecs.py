@@ -1,5 +1,6 @@
 """Wire codecs ported so far: ``IdentityCodec`` (the uncompressed
-baseline) and ``TacoCodec`` (the paper's compressor on the TP path).
+baseline), ``TacoCodec`` (the paper's compressor on the TP path) and
+``Sdp4BitCodec`` (SDP4bit's int4 gradient codec on the DP / fsdp path).
 
 Codecs operate on 2-D ``(slots, n)`` tensors with ``n`` a multiple of
 ``granule``.  ``encode`` returns the tuple of wire components,
@@ -17,7 +18,9 @@ pack/unpack composed with encode/decode and defines the format, while
 fused wire kernels and a larger one (a training hop) to the block kernels
 composed with pack/unpack — the JAX package's route.  Either way each
 operator runs its plain version on the CPU and its CUDA kernel on the
-card.
+card.  ``Sdp4BitCodec`` is the generic composition over the plain
+PyTorch of ``core/dp_compress.py`` on either device: the JAX package has
+no Pallas kernel for it.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import dp_compress
 from repro_torch.core import taco as taco_mod
 # the ring's stage orders (the ``schedule=`` spec token of chunked codecs)
 from repro_torch.core.overlap import PIPELINED, SCHEDULES
@@ -33,9 +37,10 @@ from repro_torch.core.taco import TacoConfig
 from repro_torch.kernels import ops as kops
 
 __all__ = [
-    "IdentityCodec", "TacoCodec", "WireComponent", "WireLayout",
-    "make_wire_layout", "pack_wire", "unpack_wire", "WireFastPath",
-    "PIPELINED", "SCHEDULES",
+    "IdentityCodec", "TacoCodec", "Sdp4BitCodec", "WireComponent",
+    "WireLayout", "make_wire_layout", "achieved_wire_bytes", "pack_wire",
+    "unpack_wire", "WireFastPath", "wire_bytes_per_element", "PIPELINED",
+    "SCHEDULES",
 ]
 
 
@@ -86,6 +91,17 @@ def make_wire_layout(*comps) -> WireLayout:
         out.append(c)
         off += c.nbytes
     return WireLayout(tuple(out))
+
+
+def achieved_wire_bytes(wire: torch.Tensor,
+                        layout: WireLayout) -> torch.Tensor:
+    """Per-slot achieved bytes of a packed wire buffer ``(...,
+    total_bytes)``: a ``(...,)`` uint32 tensor.  Every layout the port has
+    is static, so every slot achieves its full ``total_bytes`` (the JAX
+    package's variable layouts, with a length header, come with its
+    lossless tier)."""
+    return torch.full(wire.shape[:-1], layout.total_bytes,
+                      dtype=torch.uint32, device=wire.device)
 
 
 def _to_bytes(a: torch.Tensor) -> torch.Tensor:
@@ -263,3 +279,43 @@ class TacoCodec(WireFastPath):
             out = kops.decompress_reduce_wire(wire, n, self.cfg)
             return out.reshape(-1)[:n].to(dtype)
         return super().decode_sum_wire(wire, n, dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sdp4BitCodec(WireFastPath):
+    """SDP4bit: Hadamard-rotated per-block int4 + one f32 scale per block
+    (``core/dp_compress.py``); wire ``payload`` uint8 n/2, then ``scale``
+    f32 n/block."""
+
+    block: int = 128
+    rotate: bool = True
+    chunks: int = 1
+    schedule: str = PIPELINED
+
+    @property
+    def granule(self) -> int:
+        return self.block
+
+    def wire_layout(self, n):
+        return make_wire_layout(("payload", "uint8", n // 2),
+                                ("scale", "float32", n // self.block))
+
+    def encode(self, x):
+        return dp_compress.compress_int4(x, self.block, self.rotate)
+
+    def decode(self, enc, n, dtype):
+        packed, s = enc
+        return dp_compress.decompress_int4(packed, s, n, self.block,
+                                           self.rotate, dtype)
+
+    def decode_sum(self, enc, n, dtype):
+        packed, s = enc
+        return dp_compress.decompress_sum_int4(
+            packed, s, n, self.block, self.rotate, dtype).reshape(-1)[:n]
+
+    def bytes_per_element(self, in_dtype=torch.bfloat16) -> float:
+        return 0.5 + 4.0 / self.block
+
+
+def wire_bytes_per_element(codec, in_dtype=torch.bfloat16) -> float:
+    return codec.bytes_per_element(in_dtype)

@@ -15,9 +15,9 @@ operator on the receiver: the fused wire kernels for a slot inside the
 codec's wire budget (decode hops), the block kernels for a larger one
 (training hops).
 
-The move goes through ``torch.distributed`` on the TP process group —
-NCCL on the cards, gloo on the CPU — with one implementation for both
-backends:
+The move goes through ``torch.distributed`` on the hop's process group
+(the TP group, or a group of the fsdp axes) — NCCL on the cards, gloo on
+the CPU — with one implementation for both backends:
 
   all-gather      : ``(1, total)`` uint8 rows -> ``all_gather_into_tensor``
                     -> ``(P, total)``, peer j's row at index j
@@ -38,6 +38,13 @@ identity on the wire — as JAX's size-1 ``all_to_all`` / ``all_gather``
 is — and encode and decode still run.  The identity codec takes the plain
 collectives of the same meaning (``all_gather_into_tensor``,
 ``reduce_scatter_tensor``, ``all_reduce``).
+
+A tuple of groups, outermost first, is the JAX package's tuple of mesh
+axes (the fsdp axes ``("pod", "data")``): an all-gather walks it innermost
+first and a reduce-scatter outermost first, one hop per group, so that
+rank ``pod * data_size + data`` holds the shard of that index.  The codec
+runs at every stage, a stage of one rank included, as in the JAX package:
+under ``grad_rs=sdp4bit`` a weight gradient is quantized once per stage.
 
 Every collective takes a forward and a backward codec and is a
 ``torch.autograd.Function`` whose backward routes the cotangent through
@@ -62,6 +69,11 @@ from repro_torch.core import overlap
 from repro_torch.core.codecs import IdentityCodec
 
 Identity = IdentityCodec()
+
+
+def _groups(group) -> tuple:
+    """A group, or a tuple of groups (outermost first), as a tuple."""
+    return group if isinstance(group, tuple) else (group,)
 
 
 def group_size(group) -> int:
@@ -326,27 +338,37 @@ def _rs_one(x, group, dim, codec):
 
 
 def _ag_impl(x, group, dim, codec):
-    """All-gather over the TP group (one axis in the port; the JAX
-    package's tuple axes gather innermost first)."""
-    return _ag_one(x, group, dim, codec)
+    """Hierarchical all-gather over a group or a tuple of groups, innermost
+    first (the JAX package's major-to-minor concatenation order)."""
+    for g in reversed(_groups(group)):
+        x = _ag_one(x, g, dim, codec)
+    return x
 
 
 def _rs_impl(x, group, dim, codec):
-    """Reduce-scatter over the TP group (the conjugate of
-    :func:`_ag_impl`)."""
-    return _rs_one(x, group, dim, codec)
+    """Hierarchical reduce-scatter, outermost first (the conjugate of
+    :func:`_ag_impl`'s order)."""
+    for g in _groups(group):
+        x = _rs_one(x, g, dim, codec)
+    return x
 
 
 def _ar_impl(x, group, codec):
     """Compressed two-shot AllReduce = ReduceScatter ∘ AllGather over the
-    flattened tensor; identity codecs take the plain ``all_reduce``."""
+    flattened tensor; identity codecs take the plain ``all_reduce`` (one
+    per group of a tuple)."""
+    groups = _groups(group)
     if isinstance(codec, IdentityCodec):
-        if not moves(group):
+        if not any(moves(g) for g in groups):
             return x
         out = x.detach().clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=group)
+        for g in groups:
+            if moves(g):
+                dist.all_reduce(out, group=g)
         return out
-    p = group_size(group)
+    p = 1
+    for g in groups:
+        p *= group_size(g)
     flat, n = _pad_to(x.reshape(1, -1), p * codec.granule)
     rs = _rs_impl(flat[0], group, 0, codec)
     ag = _ag_impl(rs, group, 0, codec)
@@ -372,7 +394,8 @@ class _Collective(torch.autograd.Function):
 def _apply(x, impl, bwd, static):
     """``impl(x, *static)``, recorded for autograd when a gradient flows
     through ``x`` (the decode path runs without an autograd node)."""
-    group_size(static[0])                  # a bare size > 1 raises here
+    for g in _groups(static[0]):           # a bare size > 1 raises here
+        group_size(g)
     if torch.is_grad_enabled() and x.requires_grad:
         return _Collective.apply(x, impl, bwd, static)
     return impl(x, *static)
@@ -416,9 +439,10 @@ def copy_f(x, group, fwd_codec, bwd_codec):
 
 
 def psum_exact(x, group):
-    """Sum over the group (a plain ``all_reduce``) whose backward passes the
-    (replicated) cotangent through unchanged — for scalars every consumer
-    of which is replicated (losses, softmax statistics)."""
+    """Sum over the group, or over each group of a tuple (plain
+    ``all_reduce``s), whose backward passes the (replicated) cotangent
+    through unchanged — for scalars every consumer of which is replicated
+    (losses, softmax statistics)."""
     return allreduce_g(x, group, Identity, Identity)
 
 

@@ -1,5 +1,5 @@
-"""Parallelism context: the TP process group + the declarative per-path
-codec plan.
+"""Parallelism context: the mesh's process groups + the declarative
+per-path codec plan.
 
 Models never move tensors between devices themselves; they go through a
 ``ParallelCtx`` so that every communication site is a named, compressible
@@ -16,6 +16,11 @@ port runs both TP modes over a ``torch.distributed`` process group (NCCL
 on the cards, gloo on the CPU; :func:`init_tp_group` builds it), or on
 this process alone: Megatron-SP (``sp_gather`` / ``sp_scatter``, the
 training path) and AllReduce (``tp_g`` / ``tp_f``, the decode path).
+Weights are fsdp-sharded over the ``(pod, data)`` groups
+(``launch/mesh.py`` builds them): ``weight_gather`` all-gathers a weight
+at each use through the ``weight_ag`` codec, and its backward — the
+reduce-scatter of the weight gradient over the data axes — goes through
+the ``grad_rs`` codec (ZeRO falls out of the chain rule).
 ``CommPlan.at_step`` resolves the warmup schedule per optimizer step,
 outside the step function, as the JAX trainer does.
 """
@@ -34,6 +39,10 @@ from repro_torch.core.codecs import IdentityCodec
 Identity = IdentityCodec()
 
 PATHS = ("tp_fwd", "tp_bwd", "grad_rs", "weight_ag", "pp", "sp")
+#: the mesh axes that shard weights and the batch, outermost first, and
+#: the tensor-parallel axis (``launch/mesh.py``)
+FSDP_AXES = ("pod", "data")
+TP_AXIS = "model"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,30 +108,64 @@ class CommPlan:
         return {path: float(getattr(self, path).bytes_per_element())
                 for path in PATHS}
 
+    def wire_chunks(self) -> dict:
+        """Per-path ring chunk counts (1 = monolithic transport)."""
+        return {path: int(getattr(getattr(self, path), "chunks", 1))
+                for path in PATHS}
+
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
-    """TP group + codec plan, passed through the model stack.
+    """The mesh's groups + codec plan, passed through the model stack.
 
     ``group`` is the tensor-parallel ``torch.distributed`` process group of
     this process, or ``None`` for this process alone; ``tp_size`` /
     ``tp_rank`` are derived from it (without a group they may be set by
-    hand, for code that only slices shards).  ``tp_mode`` is the training
-    forward's TP mode: ``"sp"`` (Megatron-SP: the residual stream is
-    sequence-sharded, every block enters through an all-gather and exits
-    through a reduce-scatter) or ``"allreduce"`` (f/g).  The decode path
-    always takes the f/g pair."""
+    hand, for code that only slices shards).  ``fsdp_groups`` are this
+    process's groups along the fsdp axes ``("pod", "data")``, outermost
+    first (``None``: a group of one, this process alone).  ``tp_mode`` is
+    the training forward's TP mode: ``"sp"`` (Megatron-SP: the residual
+    stream is sequence-sharded, every block enters through an all-gather
+    and exits through a reduce-scatter) or ``"allreduce"`` (f/g).  The
+    decode path always takes the f/g pair."""
 
     tp_size: int = 1
     tp_rank: int = 0
     plan: CommPlan = CommPlan()
     tp_mode: str = "sp"
     group: object = None
+    fsdp_groups: tuple = (None, None)
 
     def __post_init__(self):
         if self.group is not None:
             object.__setattr__(self, "tp_size", cc.group_size(self.group))
             object.__setattr__(self, "tp_rank", cc.group_rank(self.group))
+        if len(self.fsdp_groups) != len(FSDP_AXES):
+            raise ValueError(f"fsdp_groups: one group per axis of "
+                             f"{FSDP_AXES}, got {self.fsdp_groups!r}")
+
+    @property
+    def fsdp_size(self) -> int:
+        """Ranks an fsdp-sharded weight (and the batch) is split over."""
+        n = 1
+        for g in self.fsdp_groups:
+            n *= cc.group_size(g)
+        return n
+
+    @property
+    def fsdp_rank(self) -> int:
+        """This rank's fsdp index, pod-major: its weight shard and batch
+        rows."""
+        r = 0
+        for g in self.fsdp_groups:
+            r = r * cc.group_size(g) + cc.group_rank(g)
+        return r
+
+    def axis_group(self, axis: str):
+        """What the collectives move over along a mesh axis name."""
+        if axis == TP_AXIS:
+            return self.comm
+        return self.fsdp_groups[FSDP_AXES.index(axis)]
 
     @property
     def comm(self):
@@ -162,9 +205,17 @@ class ParallelCtx:
         return cc.copy_f(x, self.comm, self.plan.tp_fwd, self.plan.tp_bwd)
 
     def weight_gather(self, w, dim: int = 0):
-        """fsdp weight gather: identity, since this slice runs unsharded
-        weights."""
-        return w
+        """fsdp weight gather along ``dim`` over the fsdp groups (data
+        first, then pod) through the ``weight_ag`` codec; its backward is
+        the weight gradient's reduce-scatter through the ``grad_rs`` codec,
+        at both stages, a stage of one rank included.  With identity
+        codecs and no group that moves, the gather is ``w`` itself."""
+        if self.plan.weight_ag == Identity and \
+                self.plan.grad_rs == Identity and \
+                not any(cc.moves(g) for g in self.fsdp_groups):
+            return w
+        return cc.all_gather_c(w, self.fsdp_groups, dim,
+                               self.plan.weight_ag, self.plan.grad_rs)
 
 
 def init_tp_group(device, *, init_method: str = "env://",
@@ -203,19 +254,6 @@ def init_tp_group(device, *, init_method: str = "env://",
         raise ValueError(f"the process group runs {dist.get_backend()}, "
                          f"but a {dev.type} device needs {backend}")
     return dist.group.WORLD
-
-
-def mesh_tp(mesh: str) -> int:
-    """The model-axis size of a ``pod,data,model`` mesh string; the port
-    has no pod or data axis yet, so either > 1 raises."""
-    shape = tuple(int(v) for v in mesh.split(","))
-    if len(shape) != 3 or min(shape) < 1:
-        raise ValueError(f"mesh {mesh!r}: want pod,data,model sizes")
-    if shape[0] != 1 or shape[1] != 1:
-        raise NotImplementedError(
-            f"mesh {mesh}: pod and data axes (DP / fsdp) are not ported; "
-            "the port runs tensor parallelism only (--mesh 1,1,P)")
-    return shape[2]
 
 
 def iter_layer_spans(ctx: ParallelCtx, start: int, count: int, total: int,

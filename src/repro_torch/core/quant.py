@@ -22,6 +22,11 @@ class FormatSpec:
     qmax: float            # largest representable magnitude
     is_float: bool
 
+    @property
+    def wire_dtype(self) -> torch.dtype:
+        """dtype actually placed on the wire (uint8 bits for fp8)."""
+        return torch.uint8 if self.is_float else torch.int8
+
 
 FORMATS: dict[str, FormatSpec] = {
     "int8": FormatSpec("int8", torch.int8, 127.0, False),

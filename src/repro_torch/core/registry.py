@@ -10,23 +10,24 @@ strings (``from_spec`` / ``to_spec``) for the codecs it has ported::
     knob   := "skip_first" | "skip_last" | "warmup"
     codec  := name (":" arg)*
 
-Ported codecs: ``none`` and ``taco``.  ``taco`` takes e4m3|e5m2|int8,
-b<N>, g<N>, dual|folded, ash|hadamard|notransform, blockscale|tensorscale,
-auto, cd<dtype>, tau<f>, eps<f>, seps<f>, disabled, chunks=<N> and
-schedule=pipelined|serial.  Aliases: ``baseline``, ``identity``, ``taco``,
-``taco_folded``.
+Ported codecs: ``none``, ``taco`` and ``sdp4bit``.  ``taco`` takes
+e4m3|e5m2|int8, b<N>, g<N>, dual|folded, ash|hadamard|notransform,
+blockscale|tensorscale, auto, cd<dtype>, tau<f>, eps<f>, seps<f>,
+disabled, chunks=<N> and schedule=pipelined|serial.  ``sdp4bit`` takes
+b<N>, norot, chunks=<N> and schedule=pipelined|serial.  Aliases:
+``baseline``, ``identity``, ``taco``, ``taco_folded``.
 
 What the port does not have yet is rejected with a :class:`CommSpecError`
-that says so: the other codecs (sdp4bit, tahquant, int8, the taco3d
-alias), ``+stage`` lossless stacks, and the ``escalate=`` / ``hold=``
-policy tokens.  The implementation tokens ``jnp``, ``pallas`` and
+that says so: the other codecs (tahquant, int8, the taco3d alias),
+``+stage`` lossless stacks, and the ``escalate=`` / ``hold=`` policy
+tokens.  The implementation tokens ``jnp``, ``pallas`` and
 ``pallas_interpret`` name TPU implementations and are rejected: the port
 chooses the CUDA kernel or the plain version by the tensor's device.
 """
 from __future__ import annotations
 
 from repro_torch.core.codecs import (PIPELINED, SCHEDULES, IdentityCodec,
-                                     TacoCodec)
+                                     Sdp4BitCodec, TacoCodec)
 from repro_torch.core.parallel import PATHS, CommPlan
 from repro_torch.core.taco import TacoConfig
 
@@ -34,7 +35,7 @@ __all__ = ["CommSpecError", "codec_from_spec", "codec_to_spec", "from_spec",
            "to_spec", "list_codecs"]
 
 #: codecs and aliases of the JAX grammar that later slices port
-NOT_PORTED = ("sdp4bit", "tahquant", "int8", "taco3d")
+NOT_PORTED = ("tahquant", "int8", "taco3d")
 _TPU_IMPLS = ("jnp", "pallas", "pallas_interpret")
 
 
@@ -172,8 +173,40 @@ def _unparse_taco(codec):
     return tuple(out)
 
 
+def _parse_sdp4bit(args):
+    kw = {}
+    for tok in args:
+        if tok.startswith("chunks="):
+            kw["chunks"] = _chunks_val(tok)
+        elif tok.startswith("schedule="):
+            kw["schedule"] = _schedule_val(tok)
+        elif tok.startswith(("escalate=", "hold=")):
+            raise _not_ported(f"the error-escalation policy ({tok!r})")
+        elif tok.startswith("b") and tok[1:].isdigit():
+            kw["block"] = _pos_int(tok, "b")
+        elif tok == "norot":
+            kw["rotate"] = False
+        else:
+            raise CommSpecError(f"unknown sdp4bit arg {tok!r}")
+    return Sdp4BitCodec(**kw)
+
+
+def _unparse_sdp4bit(codec):
+    out = []
+    if codec.block != Sdp4BitCodec().block:
+        out.append(f"b{codec.block}")
+    if not codec.rotate:
+        out.append("norot")
+    if codec.chunks != 1:
+        out.append(f"chunks={codec.chunks}")
+    if codec.schedule != PIPELINED:
+        out.append(f"schedule={codec.schedule}")
+    return tuple(out)
+
+
 _CODECS = {"none": (IdentityCodec, _parse_identity, lambda c: ()),
-           "taco": (TacoCodec, _parse_taco, _unparse_taco)}
+           "taco": (TacoCodec, _parse_taco, _unparse_taco),
+           "sdp4bit": (Sdp4BitCodec, _parse_sdp4bit, _unparse_sdp4bit)}
 _ALIASES = {"identity": "baseline", "baseline": "", "taco": "tp=taco",
             "taco_folded": "tp=taco:folded"}
 

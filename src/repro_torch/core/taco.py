@@ -16,13 +16,15 @@ tensor (``repro_torch.kernels.ops``), not by a global backend, so
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal
+from typing import Literal, NamedTuple
 
 import torch
 
+from repro_torch.core import ash as ash_mod
 from repro_torch.core import quant as quant_mod
 
-__all__ = ["TacoConfig", "wire_components"]
+__all__ = ["TacoConfig", "Compressed", "compress", "decompress",
+           "wire_components", "wire_bytes", "raw_bytes"]
 
 #: ``TacoConfig.compute_dtype`` names and the torch dtypes they denote.
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -74,6 +76,14 @@ class TacoConfig:
         return _DTYPES[self.compute_dtype]
 
 
+class Compressed(NamedTuple):
+    """Wire representation. ``alpha`` is None in folded-metadata mode."""
+
+    payload: torch.Tensor         # (M, B) wire dtype (uint8 bits of fp8 / int8)
+    scale: torch.Tensor           # (M, groups) f32: s_k (dual) or s_k/alpha_k
+    alpha: torch.Tensor | None    # (M,) f32, dual mode only
+
+
 def _storage_to_wire(q: torch.Tensor,
                      fmt: quant_mod.FormatSpec) -> torch.Tensor:
     return q.view(torch.uint8) if fmt.is_float else q
@@ -82,6 +92,34 @@ def _storage_to_wire(q: torch.Tensor,
 def _wire_to_storage(p: torch.Tensor,
                      fmt: quant_mod.FormatSpec) -> torch.Tensor:
     return p.view(fmt.dtype) if fmt.is_float else p
+
+
+def compress(x: torch.Tensor, cfg: TacoConfig) -> Compressed:
+    """Alg. 1 sender side on a local tensor of any shape: the compress
+    operator of ``repro_torch.kernels.ops`` (K1 on a CUDA tensor)."""
+    from repro_torch.kernels import ops  # the kernels layer sits above core
+
+    blocks, _ = ash_mod.block_partition(x, cfg.block_size)
+    q, alpha, s = ops.compress_blocks(blocks, cfg)
+    payload = _storage_to_wire(q, cfg.format_spec)
+    if cfg.metadata == "folded":
+        return Compressed(payload, s / alpha[:, None], None)
+    return Compressed(payload, s, alpha)
+
+
+def decompress(c: Compressed, cfg: TacoConfig, *, shape,
+               dtype) -> torch.Tensor:
+    """Alg. 1 receiver side -> tensor of ``shape`` / ``dtype`` (K3 on a
+    CUDA tensor)."""
+    from repro_torch.kernels import ops
+
+    q = _wire_to_storage(c.payload, cfg.format_spec)
+    alpha = None if cfg.metadata == "folded" else c.alpha
+    blocks = ops.decompress_blocks(q, c.scale, alpha, cfg)
+    size = 1
+    for d in shape:
+        size *= d
+    return ash_mod.block_unpartition(blocks, size, shape).to(dtype)
 
 
 def wire_components(cfg: TacoConfig, n: int) -> tuple:
@@ -99,3 +137,16 @@ def wire_components(cfg: TacoConfig, n: int) -> tuple:
     if cfg.metadata != "folded":
         comps.append(("alpha", "float32", mb))
     return tuple(comps)
+
+
+def wire_bytes(c: Compressed) -> int:
+    """Bytes actually transmitted for a Compressed value (static)."""
+    total = c.payload.numel() * c.payload.element_size()
+    total += c.scale.numel() * c.scale.element_size()
+    if c.alpha is not None:
+        total += c.alpha.numel() * c.alpha.element_size()
+    return total
+
+
+def raw_bytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()

@@ -1,12 +1,35 @@
-"""Observability for the serving engine: the event/counter
+"""Observability: the trainer's per-step ``comm/*`` wire accounting
+(:func:`comm_metrics`), and for the serving engine the event/counter
 :class:`Reporter` and the nearest-rank :func:`percentile` (copies of the
-JAX package's ``core/telemetry.py`` pieces the serve path uses)."""
+JAX package's ``core/telemetry.py`` pieces the port's paths use)."""
 from __future__ import annotations
 
 import collections
 import logging
 import math
 import time
+
+
+def comm_metrics(plan, *, spec: str | None = None,
+                 warmup_active: bool | None = None) -> dict:
+    """Per-path wire telemetry for the plan that ran a step (static, no
+    device work): ``comm/spec``, ``comm/warmup_active``,
+    ``comm/<path>_bytes_per_elem`` for every path and
+    ``comm/<path>_chunks`` for every path whose codec runs the chunked
+    ring — the JAX package's key set for the codecs the port has (its
+    variable-layout, ``slot=auto`` and escalation families need codecs
+    the port's plans cannot carry yet)."""
+    m: dict = {}
+    if spec is not None:
+        m["comm/spec"] = spec
+    if warmup_active is not None:
+        m["comm/warmup_active"] = 1.0 if warmup_active else 0.0
+    for path, bpe in plan.wire_bytes_per_element().items():
+        m[f"comm/{path}_bytes_per_elem"] = bpe
+    for path, nc in plan.wire_chunks().items():
+        if nc != 1:
+            m[f"comm/{path}_chunks"] = nc
+    return m
 
 
 class Reporter:

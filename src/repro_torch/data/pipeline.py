@@ -5,7 +5,8 @@ the same token stream from the same seed.
 Token streams have LEARNABLE structure (a fixed random bigram/Markov chain
 over the vocabulary plus 10% random jumps), so losses genuinely decrease.
 Batches are a pure function of (seed, step): a run resumed at step k
-replays the exact stream.  ``batch`` returns host tensors; ``place`` moves
+replays the exact stream.  ``batch`` returns the global batch as host
+tensors; ``dp_rows`` cuts a data rank's rows from it; ``place`` moves
 them to the run's device.
 """
 from __future__ import annotations
@@ -23,6 +24,23 @@ class DataConfig:
     global_batch: int
     seed: int = 1234
     markov_states: int = 64
+
+
+def dp_rows(batch: dict, index: int, count: int) -> dict:
+    """Rows ``[index * B/count, (index + 1) * B/count)`` of every array of
+    a global batch: the shard of data rank ``index`` of ``count``, in the
+    order the JAX package shards the batch's dim 0 over ``("pod",
+    "data")``."""
+    if count == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % count:
+            raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not "
+                             f"split over {count} data ranks")
+        rows = v.shape[0] // count
+        out[k] = v[index * rows:(index + 1) * rows]
+    return out
 
 
 class SyntheticLM:

@@ -33,8 +33,8 @@ from repro_torch.kernels import build, ref
 FMT_CODE = {"e4m3": 0, "e5m2": 1, "int8": 2}
 #: grid.y limit: the wire forms put one slot per grid row
 MAX_SLOTS = 65535
-#: grid.x limit: compress_blocks and decompress_blocks run 8 rows per block
-#: (one warp each), decompress_reduce one row per block, on the x axis
+#: grid.x limit: compress_blocks, decompress_blocks and decompress_reduce
+#: each run 8 rows per block (one warp each) on the x axis
 MAX_ROWS = 2**31 - 1
 #: the block sizes B the CUDA kernels are built for (``with_shape`` in
 #: csrc/ash_common.cuh): the paper's sweep

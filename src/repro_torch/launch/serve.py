@@ -31,7 +31,8 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config, make_plan, smoke_config
 from repro_torch.core import collectives as cc
-from repro_torch.core.parallel import ParallelCtx, init_tp_group, mesh_tp
+from repro_torch.core.parallel import ParallelCtx, init_tp_group
+from repro_torch.launch.mesh import parse_mesh
 from repro_torch.core.registry import from_spec, to_spec
 from repro_torch.models.model import Model
 from repro_torch.serve.engine import ServeEngine
@@ -88,7 +89,12 @@ def build_engine(args, group=None):
     when given (its size must be the mesh's model axis), else joined from
     the ``torchrun`` environment when the mesh's model axis is > 1, else
     none."""
-    tp = mesh_tp(args.mesh)
+    pod, data, tp = parse_mesh(args.mesh)
+    if pod * data != 1:
+        raise NotImplementedError(
+            f"mesh {args.mesh}: serving over pod and data axes (the "
+            "engine's dp batch split) is not ported; the port serves tensor "
+            "parallel only (--mesh 1,1,P)")
     if args.ckpt:
         raise NotImplementedError("checkpoint restore (ckpt/checkpoint.py) "
                                   "is ported in a later slice")

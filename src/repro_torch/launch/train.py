@@ -4,10 +4,14 @@ through the compressed collectives selected by ``--comm-spec``.  Runs on
 the card unless ``--device cpu``.  Prints one line per step and a summary
 (rank 0 only).
 
-``--mesh 1,1,P`` runs tensor-parallel over P processes, one per rank,
-started by ``torchrun`` (rank and world size from its environment): NCCL
-with one card per rank, or gloo with ``--device cpu``.  Every rank draws
-the same weights and the same batches and keeps its shards.
+``--mesh pod,data,model`` runs over pod x data x model processes, one per
+rank, started by ``torchrun --nproc-per-node pod*data*model`` (rank and
+world size from its environment): NCCL with one card per rank, or gloo
+with ``--device cpu``.  The model axis is tensor parallelism; weights are
+fsdp-sharded over pod x data and the batch is split over it, and every
+weight gradient crosses the data axes through the ``grad_rs=`` codec
+(``launch/mesh.py``).  Every rank draws the same weights and the same
+global batches and keeps its shards.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
         --no-smoke --steps 8 --seq 2048 --batch 4 --comm-spec taco
@@ -18,6 +22,10 @@ the same weights and the same batches and keeps its shards.
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --device cpu --smoke --mesh 1,1,2 --steps 3 --seq 32 --batch 2 \
         --comm-spec tp=taco:folded:chunks=4
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --device cpu --smoke --mesh 1,2,2 --steps 3 --seq 32 --batch 4 \
+        --comm-spec tp=taco,grad_rs=sdp4bit
 """
 from __future__ import annotations
 
@@ -27,9 +35,10 @@ import statistics
 import torch.distributed as dist
 
 from repro_torch.configs import get_config, make_plan, smoke_config
-from repro_torch.core.parallel import ParallelCtx, init_tp_group, mesh_tp
+from repro_torch.core.parallel import ParallelCtx
 from repro_torch.core.registry import from_spec, to_spec
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.launch.mesh import init_mesh, parse_mesh
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -54,29 +63,37 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--mesh", default="1,1,1",
-                    help="pod,data,model; 1,1,P runs TP over P processes "
-                         "(torchrun)")
+                    help="pod,data,model; more than one rank runs under "
+                         "torchrun with pod*data*model processes")
     return ap.parse_args(argv)
 
 
-def build_trainer(args, group=None):
+def build_trainer(args, group=None, mesh=None):
     """(trainer, cfg) for parsed launcher args; the optimizer schedule is
-    the JAX launcher's (lr_min = lr/10, warmup max(steps/20, 5)).  The TP
-    group is ``group`` when given (its size must be the mesh's model
-    axis), else joined from the ``torchrun`` environment when the mesh's
-    model axis is > 1, else none."""
-    tp = mesh_tp(args.mesh)
-    if group is None and tp > 1:
-        group = init_tp_group(args.device or "cuda")
-    ctx = ParallelCtx(plan=from_spec(args.comm_spec), group=group)
-    if ctx.tp_size != tp:
-        raise ValueError(f"mesh {args.mesh} wants a TP group of {tp}, the "
-                         f"process group has {ctx.tp_size} ranks")
+    the JAX launcher's (lr_min = lr/10, warmup max(steps/20, 5)).  The
+    process groups are ``mesh``'s when given (a ``launch.mesh.Mesh``), or
+    ``group`` as the TP group of a ``1,1,P`` mesh, else joined from the
+    ``torchrun`` environment when the mesh has more than one rank, else
+    none (this process alone).  The groups must match ``--mesh``."""
+    shape = parse_mesh(args.mesh)
+    plan = from_spec(args.comm_spec)
+    if mesh is None and group is None and shape[0] * shape[1] * shape[2] > 1:
+        mesh = init_mesh(shape, args.device or "cuda")
+    if mesh is not None:
+        ctx = mesh.parallel_ctx(plan)
+    else:
+        ctx = ParallelCtx(plan=plan, group=group)
+    if (ctx.fsdp_size, ctx.tp_size) != (shape[0] * shape[1], shape[2]):
+        raise ValueError(
+            f"mesh {args.mesh} wants {shape[0] * shape[1]} fsdp x "
+            f"{shape[2]} TP ranks, the process groups have "
+            f"{ctx.fsdp_size} x {ctx.tp_size}")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
-    model = Model(cfg, make_plan(cfg, tp, 1), device=args.device,
-                  tp_rank=ctx.tp_rank)
+    model = Model(cfg, make_plan(cfg, ctx.tp_size, ctx.fsdp_size),
+                  device=args.device, tp_rank=ctx.tp_rank,
+                  fsdp_rank=ctx.fsdp_rank)
     seq = args.seq or (64 if args.smoke else 4096)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                   global_batch=args.batch), cfg)
@@ -90,12 +107,13 @@ def build_trainer(args, group=None):
 def main(argv=None):
     args = parse_args(argv)
     trainer, cfg = build_trainer(args)
+    rank = dist.get_rank() if dist.is_initialized() else 0
     try:
         _, _, hist = trainer.run()
     finally:
-        if trainer.ctx.group is not None:
+        if dist.is_initialized():
             dist.destroy_process_group()
-    if trainer.ctx.tp_rank != 0:
+    if rank != 0:
         return
     for h in hist:
         print(f"step {h['step']} loss {h['loss']:.4f} "
@@ -104,7 +122,7 @@ def main(argv=None):
     warm = hist[1:] or hist
     print(f"{cfg.name}: loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f} "
           f"({len(hist)} steps, comm_spec={to_spec(trainer.ctx.plan)}, "
-          f"device={trainer.model.device}, tp={trainer.ctx.tp_size}); after "
+          f"device={trainer.model.device}, mesh={args.mesh}); after "
           f"the first step: "
           f"{statistics.mean(h['ms'] for h in warm):.1f} ms/step, "
           f"{statistics.mean(h['tok_per_s'] for h in warm):.1f} tok/s")

@@ -2,16 +2,20 @@
 the training loss and the batch shapes.
 
 ``Model`` binds (ArchConfig, RunPlan) to a device and to one rank of the
-plan's TP group.  It runs on CUDA unless the caller passes
-``device="cpu"``; without a card and without that request it raises —
-nothing falls back to the CPU.
+plan's mesh: its TP rank and its fsdp rank.  It runs on CUDA unless the
+caller passes ``device="cpu"``; without a card and without that request
+it raises — nothing falls back to the CPU.
 
 Parameters are this rank's shards: every global (padded) parameter is
 made in full and cut along its spec's ``tp_dim`` into ``plan.tp`` equal
-slices, of which rank r keeps slice r (the rule of the JAX package's
-multi-device check, ``tests/multidev/check_tp_model.py``).  So tp = 1 and
-tp = P start from the same weights wherever their padded global shapes
-agree.
+slices, of which TP rank r keeps slice r (the rule of the JAX package's
+multi-device check, ``tests/multidev/check_tp_model.py``), then along its
+``fsdp_dim`` into ``plan.fsdp`` slices, of which fsdp rank f (pod-major:
+``pod * data + data_index``) keeps slice f, as the JAX package's
+``partition_spec`` shards over ``("pod", "data")``.  So every mesh starts
+from the same weights wherever the padded global shapes agree.  The batch
+is split the same way: fsdp rank f takes rows ``[f * B/F, (f + 1) * B/F)``
+of the global batch (``batch_slice``).
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, RunPlan
+from repro_torch.core.parallel import FSDP_AXES, TP_AXIS
+from repro_torch.data import pipeline as data_pipeline
 from repro_torch.models import transformer
 from repro_torch.models.layers import (COMPUTE_DTYPE, ParamSpec,
                                        init_params, tree_map)
@@ -48,17 +54,20 @@ class Model:
     """(ArchConfig, RunPlan) on a device; parameters are a nested dict in
     the JAX package's tree layout."""
 
+    fsdp_axes = FSDP_AXES
+    tp_axis = TP_AXIS
+
     def __init__(self, cfg: ArchConfig, plan: RunPlan, *, device=None,
-                 tp_rank: int = 0):
+                 tp_rank: int = 0, fsdp_rank: int = 0):
         transformer.check_family(cfg)
-        if plan.fsdp != 1:
-            raise NotImplementedError(
-                f"fsdp={plan.fsdp}: sharded weights over a data axis are not "
-                "ported; the port runs tensor parallelism only")
         if not 0 <= tp_rank < plan.tp:
             raise ValueError(f"tp_rank {tp_rank} outside the plan's tp "
                              f"{plan.tp}")
-        self.cfg, self.plan, self.tp_rank = cfg, plan, tp_rank
+        if not 0 <= fsdp_rank < plan.fsdp:
+            raise ValueError(f"fsdp_rank {fsdp_rank} outside the plan's "
+                             f"fsdp {plan.fsdp}")
+        self.cfg, self.plan = cfg, plan
+        self.tp_rank, self.fsdp_rank = tp_rank, fsdp_rank
         self.device = resolve_device(device)
 
     def specs(self):
@@ -66,12 +75,31 @@ class Model:
         return transformer.model_specs(self.cfg, self.plan)
 
     def shard(self, spec: ParamSpec, full: torch.Tensor) -> torch.Tensor:
-        """This rank's slice of a global parameter along ``spec.tp_dim``."""
-        if spec.tp_dim is None or self.plan.tp == 1:
-            return full
-        width = spec.shape[spec.tp_dim] // self.plan.tp
-        return full.narrow(spec.tp_dim, self.tp_rank * width,
-                           width).contiguous()
+        """This rank's slice of a global parameter: along ``spec.tp_dim``
+        by the TP rank, then along ``spec.fsdp_dim`` by the fsdp rank."""
+        out = full
+        for dim, n, r in ((spec.tp_dim, self.plan.tp, self.tp_rank),
+                          (spec.fsdp_dim, self.plan.fsdp, self.fsdp_rank)):
+            if dim is None or n == 1:
+                continue
+            if out.shape[dim] % n:
+                raise ValueError(f"param dim {dim} of {spec.shape} does not "
+                                 f"split into {n} shards")
+            width = out.shape[dim] // n
+            out = out.narrow(dim, r * width, width)
+        return out if out is full else out.contiguous()
+
+    def replicated_grad_axes(self, spec: ParamSpec) -> tuple:
+        """Mesh axes over which this param's grads are summed after the
+        backward (params replicated over an axis but used divergently:
+        norm scales and replicated kv weights over the model axis;
+        params with no ``fsdp_dim`` over the fsdp axes as well)."""
+        axes = []
+        if spec.tp_dim is None:
+            axes.append(self.tp_axis)
+        if spec.fsdp_dim is None:
+            axes.extend(self.fsdp_axes)
+        return tuple(axes)
 
     def init(self, seed: int = 0, dtype=COMPUTE_DTYPE):
         """Random parameters from a ``torch.Generator`` seeded with
@@ -84,7 +112,8 @@ class Model:
         """Carry JAX parameters across: ``tree`` is the JAX param pytree of
         GLOBAL (padded) arrays with numpy leaves (``jax.device_get``); bf16
         leaves keep their bits.  Shapes are checked against this model's
-        specs, then each leaf is cut to this rank's shard."""
+        specs, then each leaf is cut to this rank's shard (TP, then
+        fsdp)."""
         def conv(spec: ParamSpec, a):
             t = _to_tensor(a, self.device)
             if tuple(t.shape) != spec.shape:
@@ -94,6 +123,13 @@ class Model:
         return tree_map(conv, self.specs(), tree)
 
     # ---- training ---------------------------------------------------------
+    def batch_slice(self, batch: dict) -> dict:
+        """This rank's rows of a global batch: the batch is sharded over
+        the fsdp axes on dim 0, pod-major (the JAX package's
+        ``batch_pspecs``); every TP rank of a data rank takes the same
+        rows."""
+        return data_pipeline.dp_rows(batch, self.fsdp_rank, self.plan.fsdp)
+
     def batch_shape(self, seq_len: int, global_batch: int) -> dict:
         """Train-batch ``(shape, dtype)`` by key, as the data pipeline
         emits them (token ids in torch's index dtype)."""

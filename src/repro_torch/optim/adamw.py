@@ -9,12 +9,17 @@ the JAX package, whose arrays are immutable, the update writes the
 masters, the moments and the bf16 parameters IN PLACE, so a step
 allocates no second copy of the optimizer state.
 
-Every rank of the TP group holds its shards of the parameters and of the
-state.  ``finalize_grads`` sums, over the group, the grads of parameters
-that are replicated but used divergently (norm scales on the
-sequence-sharded residual, replicated kv heads); ``global_grad_norm`` sums
-the squares of the sharded parameters over the group and counts the
-replicated ones once, as the JAX package.  There is no data axis yet.
+Every rank of the mesh holds its shards of the parameters and of the
+state (ZeRO-1: the state is sharded as the parameters are).
+``finalize_grads`` sums the grads of parameters that are replicated over
+an axis but used divergently (norm scales on the sequence-sharded
+residual and replicated kv heads over the TP group; every parameter with
+no ``fsdp_dim`` over the fsdp groups, whose ranks saw other rows of the
+batch): the JAX package's ``replicated_grad_axes``.  The fsdp-sharded
+grads arrive summed already: they are the output of the weight gather's
+backward, the ``grad_rs`` reduce-scatter.  ``global_grad_norm`` sums the
+squares of each sharding class over the groups it is sharded on and
+counts the replicated ones once, as the JAX package.
 """
 from __future__ import annotations
 
@@ -74,59 +79,71 @@ def init_opt_state(params) -> dict:
             "step": 0}
 
 
-def finalize_grads(grads, model, group=None):
-    """Sum the grads of replicated-but-divergently-used parameters (no
-    ``tp_dim``) over the TP ``group``: per-rank autograd covers only this
-    rank's use of them (the JAX package's ``replicated_grad_axes``).  The
-    sums run in f32, in one ``all_reduce`` of the concatenated grads, and
-    the summed grads stay f32."""
-    if model.plan.fsdp != 1:
-        raise NotImplementedError("gradient sums over an fsdp axis are not "
-                                  "ported")
-    if not cc.moves(group):
-        return grads
-    flat, specs = leaves(grads), leaves(model.specs())
-    rep = [i for i, s in enumerate(specs) if s.tp_dim is None]
-    if not rep:
-        return grads
-    buf = torch.cat([flat[i].float().reshape(-1) for i in rep])
-    buf = cc.psum_exact(buf, group)
-    out, off = list(flat), 0
-    for i in rep:
-        n = flat[i].numel()
-        out[i] = buf[off:off + n].reshape(flat[i].shape)
-        off += n
-    it = iter(out)
+def _axis_groups(group, fsdp_groups) -> dict:
+    """Mesh axis name -> what the collectives move over along it."""
+    from repro_torch.core.parallel import FSDP_AXES, TP_AXIS
+    fsdp = tuple(fsdp_groups) or (None,) * len(FSDP_AXES)
+    return {TP_AXIS: group, **dict(zip(FSDP_AXES, fsdp))}
+
+
+def finalize_grads(grads, model, group=None, fsdp_groups=()):
+    """Sum the grads of replicated-but-divergently-used parameters over the
+    mesh axes they are replicated on (``model.replicated_grad_axes``):
+    over the TP ``group`` and the ``fsdp_groups`` (pod, data).  Per-rank
+    autograd covers only this rank's use of them.  The sums run in f32, in
+    one ``all_reduce`` per group of the concatenated grads of the
+    parameters that need it, and the summed grads stay f32."""
+    by_axis = _axis_groups(group, fsdp_groups)
+    flat, specs = list(leaves(grads)), leaves(model.specs())
+    for axis, g in by_axis.items():
+        if not cc.moves(g):
+            continue
+        rep = [i for i, s in enumerate(specs)
+               if axis in model.replicated_grad_axes(s)]
+        if not rep:
+            continue
+        buf = cc.psum_exact(torch.cat([flat[i].float().reshape(-1)
+                                       for i in rep]), g)
+        off = 0
+        for i in rep:
+            n = flat[i].numel()
+            flat[i] = buf[off:off + n].reshape(flat[i].shape)
+            off += n
+    it = iter(flat)
     return tree_map(lambda _: next(it), grads)
 
 
-def global_grad_norm(grads, model, group=None) -> torch.Tensor:
+def global_grad_norm(grads, model, group=None, fsdp_groups=()) -> torch.Tensor:
     """Global L2 norm (f32), summed per sharding class of the spec in the
-    JAX package's order: the TP-sharded classes' sums of squares are summed
-    over ``group``, the replicated ones are counted once."""
+    JAX package's order: each class's sum of squares is summed over the
+    groups it is sharded on (the fsdp groups for an ``fsdp_dim``, the TP
+    ``group`` for a ``tp_dim``), the replicated class is counted once."""
+    by_axis = _axis_groups(group, fsdp_groups)
     terms: dict = {}
     for g, s in zip(leaves(grads), leaves(model.specs())):
-        key = (s.fsdp_dim is not None, s.tp_dim is not None)
-        terms.setdefault(key, []).append(torch.sum(g.float() ** 2))
-    totals = {k: sum(ts) for k, ts in terms.items()}
-    sharded = [k for k in totals if k[1]]
-    if sharded:
-        summed = cc.psum_exact(torch.stack([totals[k] for k in sharded]),
-                               group)
-        totals.update(zip(sharded, summed))
-    return torch.sqrt(sum(totals.values()))
+        axes = (model.fsdp_axes if s.fsdp_dim is not None else ()) + \
+            ((model.tp_axis,) if s.tp_dim is not None else ())
+        terms.setdefault(axes, []).append(torch.sum(g.float() ** 2))
+    keys = list(terms)
+    totals = torch.stack([sum(terms[k]) for k in keys])
+    for axis, g in by_axis.items():
+        mask = torch.tensor([axis in k for k in keys], device=totals.device)
+        if cc.moves(g) and bool(mask.any()):
+            summed = cc.psum_exact(torch.where(mask, totals, 0.0), g)
+            totals = torch.where(mask, summed, totals)
+    return torch.sqrt(totals.sum())
 
 
 @torch.no_grad()
 def adamw_update(params, grads, opt_state, oc: OptConfig, model,
-                 group=None) -> dict:
+                 group=None, fsdp_groups=()) -> dict:
     """One AdamW step from finalized grads, in place on ``params`` (bf16),
-    ``opt_state['master' | 'mu' | 'nu']`` and the step count; ``group`` is
-    the TP group the grad norm sums over.  Returns the metrics
-    ``{"grad_norm": tensor, "lr": float}``."""
+    ``opt_state['master' | 'mu' | 'nu']`` and the step count; ``group`` and
+    ``fsdp_groups`` are the TP and fsdp groups the grad norm sums over.
+    Returns the metrics ``{"grad_norm": tensor, "lr": float}``."""
     step = opt_state["step"] + 1
     lr = schedule(step, oc)
-    gnorm = global_grad_norm(grads, model, group)
+    gnorm = global_grad_norm(grads, model, group, fsdp_groups)
     scale = torch.clamp(oc.clip_norm / torch.clamp_min(gnorm, 1e-12),
                         max=1.0)
     b1, b2 = oc.b1, oc.b2

@@ -1,21 +1,31 @@
 """The training step: loss, backward through the compressed collectives,
 AdamW — the JAX package's ``repro/train/train_step.py`` on one rank of the
-TP group.
+mesh.
 
 Every TP hop of the forward is a compressed collective whose backward is
 its conjugate (``core/collectives.py``), so the backward moves compressed
-cotangents through the ``tp_bwd`` codec.  Every rank of the group takes
-the same batch; the loss is the group's (the cross-entropy's softmax
-statistics are summed over the group, so every rank holds the same value)
-and so is the grad norm.  There is no data axis yet, so the JAX step's
-psums of the loss and the token count over the dp axes are the identity.
+cotangents through the ``tp_bwd`` codec.  Every weight use is an fsdp
+gather whose backward reduce-scatters the weight gradient over the data
+axes through the ``grad_rs`` codec (SDP4bit's int4 under
+``grad_rs=sdp4bit``).  Each data rank takes its rows of the global batch;
+the loss sum and the token count are summed over the dp axes
+(:func:`dp_axes`), so every rank holds the global loss, and the summed
+loss's backward passes the cotangent through unchanged (``psum_exact``):
+each rank's gradient is its own rows' share of the global mean.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.collectives import psum_exact
 from repro_torch.models.layers import tree_map
 from repro_torch.optim import adamw
+
+
+def dp_axes(model) -> tuple:
+    """Mesh axes the scalar loss and token count are summed over: the fsdp
+    data axes (the batch is sharded over them)."""
+    return model.fsdp_axes
 
 
 def build_train_step(model, ctx, oc: adamw.OptConfig):
@@ -30,16 +40,19 @@ def build_train_step(model, ctx, oc: adamw.OptConfig):
         for p in flat:
             p.requires_grad_(True)
         loss_sum, count, _ = model.loss_parts(params, batch, ctx)
-        loss = loss_sum / torch.clamp_min(count.detach(), 1.0)
+        dp = tuple(ctx.axis_group(a) for a in dp_axes(model))
+        loss_sum = psum_exact(loss_sum, dp)
+        count = psum_exact(count.detach(), dp)
+        loss = loss_sum / torch.clamp_min(count, 1.0)
         loss.backward()
         # a parameter the loss does not reach gets a zero grad, as in JAX
         grads = adamw.finalize_grads(tree_map(
             lambda p: torch.zeros_like(p) if p.grad is None else p.grad,
-            params), model, ctx.comm)
+            params), model, ctx.comm, ctx.fsdp_groups)
         for p in flat:
             p.grad = None
         metrics = adamw.adamw_update(params, grads, opt_state, oc, model,
-                                     ctx.comm)
+                                     ctx.comm, ctx.fsdp_groups)
         metrics["loss"] = loss.detach()
         return params, opt_state, metrics
 

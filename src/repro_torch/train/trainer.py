@@ -3,8 +3,10 @@ its restart machinery.
 
 Each step resolves the plan that runs it (``ctx.plan.at_step``: the
 identity plan during ``warmup=``, the steady plan after), takes the step
-function built for that plan (one per plan, cached), runs it on the step's
-batch and records the step's metrics.  Checkpoint / restart, fault
+function built for that plan (one per plan, cached), runs it on this
+data rank's rows of the step's global batch and records the step's
+metrics, the plan's ``comm/*`` wire accounting among them
+(``core/telemetry.py``).  Checkpoint / restart, fault
 injection and the ``PolicyEngine`` controllers (``slot=auto``,
 ``escalate=``) are not in this slice: asking for any of them raises.
 """
@@ -16,6 +18,7 @@ import time
 
 import torch
 
+from repro_torch.core import telemetry
 from repro_torch.core.registry import to_spec
 from repro_torch.optim import adamw
 from repro_torch.train.train_step import build_train_step
@@ -77,13 +80,14 @@ class Trainer:
     def run(self, steps: int | None = None, params=None):
         """Run ``steps`` optimizer steps (default ``tc.total_steps``) from
         step 0.  Returns ``(params, opt_state, history)``; each history row
-        holds the step's loss, grad_norm, lr, wall ms, tokens/s and plan
-        spec."""
+        holds the step's loss, grad_norm, lr, wall ms, tokens/s of the
+        global batch, plan spec and ``comm/*`` keys."""
         steps = self.tc.total_steps if steps is None else steps
         params, opt_state, start = self.init_state(params)
         dev = self.model.device
         for step in range(start, start + steps):
-            batch = self.data.place(self.data.batch(step), dev)
+            glob = self.data.batch(step)
+            batch = self.data.place(self.model.batch_slice(glob), dev)
             fn = self.step_fn_for(step)
             t0 = time.perf_counter()
             params, opt_state, metrics = fn(params, opt_state, batch)
@@ -91,11 +95,15 @@ class Trainer:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             dt = time.perf_counter() - t0
+            plan = self.ctx.plan.at_step(step)
             row = {"step": step, "loss": loss,
                    "grad_norm": float(metrics["grad_norm"]),
                    "lr": metrics["lr"], "ms": dt * 1e3,
-                   "tok_per_s": batch["mask"].numel() / dt,
-                   "plan": to_spec(self.ctx.plan.at_step(step))}
+                   "tok_per_s": glob["mask"].numel() / dt,
+                   "plan": to_spec(plan)}
+            row.update(telemetry.comm_metrics(
+                plan, spec=self.comm_spec,
+                warmup_active=plan != self.ctx.plan.steady()))
             self.history.append(row)
             if step % self.tc.log_every == 0:
                 log.info("step %d loss %.4f gnorm %.3f lr %.2e (%.1f ms)",

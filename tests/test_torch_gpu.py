@@ -620,3 +620,69 @@ def test_decompress_reduce_ragged_row_counts(card, rows, rng):
     assert k6.shape == (rows, 256) and torch.equal(k4, k6)
     ref.check_decoded_close(k6, ref.decompress_reduce_wire_ref(wire, n, cfg),
                             cfg)
+
+
+# --------------------------------------------------------------------------
+# the numerics API and SDP4bit on the card (each draws from a generator of
+# its own, so the tests above draw as before)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("spec", ["taco", "taco:folded", "taco:int8",
+                                  "taco:b64"])
+def test_taco_compress_decompress_launch_k1_k3(card, spec):
+    """``core.taco.compress`` / ``decompress`` on a CUDA tensor launch K1
+    and K3 once each, and agree with the plain versions on the CPU (the
+    parity rule of ``repro_torch.kernels.ref``)."""
+    from repro_torch.core import taco
+    cfg = codec_from_spec(spec).cfg
+    gen = np.random.default_rng(19)
+    x = torch.from_numpy(tp_like(gen, (4, 50, 130)))
+    counters = (ash_compress.compress_blocks, ash_decompress.decompress_blocks)
+    before = [c.launches for c in counters]
+    c = taco.compress(x.to(card), cfg)
+    out = taco.decompress(c, cfg, shape=x.shape, dtype=torch.float32)
+    assert [k.launches - b for k, b in zip(counters, before)] == [1, 1]
+    cp = taco.compress(x, cfg)
+    assert taco.wire_bytes(c) == taco.wire_bytes(cp)
+    n = c.payload.numel()
+    layout = ref._layout(cfg, n)
+
+    def row(cc):
+        fields = (cc.payload, cc.scale) + (() if cc.alpha is None
+                                           else (cc.alpha,))
+        return pack_wire(tuple(f.reshape(1, -1) for f in fields), layout)
+    ref.check_wire_parity(row(c), row(cp), n, cfg)
+    same = taco.Compressed(cp.payload.to(card), cp.scale.to(card),
+                           None if cp.alpha is None else cp.alpha.to(card))
+    ref.check_decoded_close(
+        taco.decompress(same, cfg, shape=x.shape, dtype=torch.float32),
+        taco.decompress(cp, cfg, shape=x.shape, dtype=torch.float32))
+    assert out.shape == x.shape and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("spec", ["sdp4bit", "sdp4bit:b64", "sdp4bit:norot"])
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
+def test_sdp4bit_codec_on_card_matches_cpu(card, spec, in_dtype):
+    """The SDP4bit codec on the card (plain PyTorch, f64 rotation, TF32
+    off) against the CPU on the same input: the wire to the parity rule of
+    ``core/dp_compress.py``; decode and the peer-summed decode of one wire
+    within 1e-6 of each block's norm."""
+    from repro_torch.core import dp_compress
+    codec = codec_from_spec(spec)
+    gen = np.random.default_rng(20)
+    n = 64 * 1024
+    x = torch.from_numpy(tp_like(gen, (3, n))).to(in_dtype)
+    wire = codec.encode_wire(x.to(card))
+    want = codec.encode_wire(x)
+    dp_compress.check_wire_parity(wire, want, n, codec.block, x=x.float(),
+                                  rotate=codec.rotate)
+    exact = dp_compress.check_wire_parity(want, want, n, codec.block)
+    dp_compress.check_decoded(
+        codec.decode_wire(want.to(card), n, torch.float32),
+        codec.decode_wire(want, n, torch.float32), exact["bound"],
+        codec.block)
+    dp_compress.check_decoded(
+        codec.decode_sum_wire(want.to(card), n, torch.float32),
+        codec.decode_sum_wire(want, n, torch.float32),
+        exact["bound"].sum(dim=0), codec.block)
+    assert codec.decode_wire(wire, n, in_dtype).dtype == in_dtype

@@ -1,7 +1,8 @@
-"""The port's spec grammar: the supported subset round-trips to the same
-normalized strings as the JAX registry; what is not ported yet (other
-codecs, lossless stages, the escalation policy) and the TPU
-implementation tokens are rejected with a clear error."""
+"""The port's spec grammar: the supported subset (the ``none``, ``taco``
+and ``sdp4bit`` codecs) round-trips to the same normalized strings as the
+JAX registry; what is not ported yet (other codecs, lossless stages, the
+escalation policy) and the TPU implementation tokens are rejected with a
+clear error."""
 import pytest
 
 from repro.core import registry as jreg
@@ -19,6 +20,10 @@ SUPPORTED = [
     "tp=taco,skip_first=2,skip_last=1,warmup=100",
     "tp=taco,sp=taco:folded", "pp=taco,weight_ag=none",
     " tp = taco:folded , warmup=3 ",
+    "tp=taco,grad_rs=sdp4bit", "grad_rs=sdp4bit:b64", "grad_rs=sdp4bit:norot",
+    "tp=taco:folded:chunks=4,grad_rs=sdp4bit:chunks=4:schedule=serial",
+    "weight_ag=sdp4bit:b256:norot,grad_rs=sdp4bit", "tp=sdp4bit",
+    "tp=taco,grad_rs=sdp4bit,skip_first=2,warmup=100",
 ]
 
 
@@ -32,8 +37,9 @@ def test_round_trip_matches_jax(spec):
 
 
 @pytest.mark.parametrize("spec", [
-    "tp=sdp4bit", "grad_rs=sdp4bit", "pp=tahquant", "weight_ag=int8",
-    "taco3d", "tp=taco+zle", "tp=taco+zle:slot=auto",
+    "grad_rs=sdp4bit:escalate=bf16@0.08",
+    "grad_rs=sdp4bit:escalate=int8@0.1:hold=5", "pp=tahquant",
+    "weight_ag=int8", "taco3d", "tp=taco+zle", "tp=taco+zle:slot=auto",
     "tp=taco:escalate=bf16@0.08", "tp=taco:escalate=int8@0.1:hold=5"])
 def test_not_ported_yet_is_rejected(spec):
     jreg.from_spec(spec)                     # valid in the JAX grammar

@@ -75,9 +75,23 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      phase 3) under that spec: the launches of phase 3's taco (the codec
      launches no TACO kernel), losses within 5e-2 of phase 3's baseline,
      and one step's weight-gradient hops replayed and profiled for the
-     codec's device time.
+     codec's device time;
+  7. the pipeline step (``train/pipeline_parallel.py``, 3D): 1-rank NCCL
+     groups for pipe, data and model (``launch.mesh.init_mesh`` with
+     ``PIPE_AXES``).  At smoke size (gpt-2.7b cut to 4 layers, d 256) the
+     pipeline step at pipe = 1 over 4 microbatches equals the plain step
+     (loss 1e-3, grad norm 5e-2) and makes no ``torch.distributed`` call
+     for its boundary hops (no peer at pipe = 1), and the card equals the
+     CPU under ``taco3d`` and ``weight_ag=int8``; then full-width
+     gpt-2.7b (32 layers, d 2560, vocab 51200), batch 4 x seq 2048 in 4
+     microbatches, 2 warm + 6 timed steps, under ``baseline`` and
+     ``taco3d``: launches 4 x phase 3's per-microbatch counts (1424 K1,
+     776 K3, 648 K4), losses within 5e-2 of baseline's, and one step's
+     boundary hops (TahQuant) and weight gathers (``Int8Codec``) replayed
+     at full width, card against CPU (codes apart from ties, scales bit
+     for bit) and profiled.
 
-Every training and serving run of phases 2, 3, 5 and 6 must take only
+Every training and serving run of phases 2, 3, 5, 6 and 7 must take only
 kernels: ``ops.plain_routes`` stays 0.  Nothing is caught: any failure
 exits non-zero.  The line before the last
 is the kernel table as JSON; the last is
@@ -119,6 +133,10 @@ KERNEL_FN = {"compress_wire": "compress_wire_kernel",
              "compress_blocks_butterfly": "compress_blocks_butterfly_kernel"}
 RING_SPEC = "tp=taco:folded:chunks=4"     # the paper's spec: the chunked ring
 DP_SPEC = "tp=taco,grad_rs=sdp4bit"       # TACO on TP, SDP4bit on the data axes
+PIPE_SPEC = "taco3d"                      # + TahQuant at the stage boundaries
+PIPE_ARCH, PIPE_MICRO = "gpt-2.7b", 4     # phase 7: full width, 4 microbatches
+#: one TP hop of phase 7's step: a microbatch (batch / M rows) x d 2560
+PIPE_N = TRAIN_BATCH // PIPE_MICRO * TRAIN_SEQ * 2560
 TRAIN_SIZE = "--no-smoke"                 # full width and depth
 DEVICE = "cuda"                           # where phase 1b's tensors live
 
@@ -155,23 +173,30 @@ def call_ms(fn, iters: int = 50) -> float:
 
 def _traced(fn, iters: int) -> list:
     """The device activities (kernels, copies, fills) of ``iters`` calls
-    of ``fn``, from one profiler session."""
+    of ``fn``, from one profiler session that traces the device only.
+    Every device time of this script is a sum of these.  A host-and-device
+    trace would add the ``nccl:*`` range of each ``torch.distributed``
+    call, drawn on the device's timeline over the copy it encloses, and so
+    count that copy twice (``scripts/trace_definitions.py``); it also
+    costs minutes on a training step's ~10^5 ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-def device_profile(fn, iters: int = 20, sessions: int = 3) -> dict:
-    """Mean device time per call of ``fn`` by activity name, in ms.  The
-    profiler's trace now and then drops a launch, which can only
-    lower a name's total, so each name keeps its largest total over
-    ``sessions`` profiler sessions.  Raises if no device time is traced."""
-    fn()
+def device_profile(fn, iters: int = 20, sessions: int = 3,
+                   warm: bool = True) -> dict:
+    """Mean device time per call of ``fn`` by activity name, in ms, after
+    one warm-up call (``warm``).  The profiler's trace now and then drops
+    a launch, which can only lower a name's total, so each name keeps its
+    largest total over ``sessions`` profiler sessions.  Raises if no
+    device time is traced."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     best: dict = {}
     for _ in range(sessions):
@@ -367,6 +392,56 @@ def wire_budget(elems: int):
         ops.WIRE_FUSED_MAX_SLOT_ELEMS = old
 
 
+def hold_blocks(x, cfg, peers: int, n: int, where: str) -> dict:
+    """K1, K3 and K4 against their plain versions on ``x`` (``peers`` rows
+    of ``n`` elements, on the card): K1 under the wire parity rule, K3 and
+    K4 on the plain version's blocks within the decode tolerance, and K3
+    == K4 at P = 1 under folded f32 metadata bit for bit.  Returns the
+    parity stats, each kernel's max abs error, and the operands a timing
+    of the three takes."""
+    from repro_torch.kernels import ops, ref
+    b = cfg.block_size
+    blocks = x.reshape(-1, b)
+    mb = n // b
+    # K1 against its plain version, under the wire parity rule
+    q, a, s = ops.compress_blocks(blocks, cfg)
+    qp, ap, sp = ref.compress_blocks_ref(blocks, cfg)
+    torch.cuda.synchronize()
+    w_k = ref.blocks_to_wire(q, a, s, cfg, peers, n)
+    w_p = ref.blocks_to_wire(qp, ap, sp, cfg, peers, n)
+    stats = ref.check_wire_parity(w_k, w_p, n, cfg)
+    dec_k = ref.decompress_wire_ref(w_k, n, cfg)
+    dec_p = ref.decompress_wire_ref(w_p, n, cfg)
+    if stats["flipped"] == 0:      # a flipped code moves its whole block
+        ref.check_decoded_close(dec_k, dec_p, cfg)
+    err_c = float((dec_k - dec_p).abs().max())
+    del dec_k, dec_p, w_k, w_p
+    # K3 and K4 on the plain version's blocks
+    alpha = None if cfg.metadata == "folded" else ap
+    scale = sp / ap[:, None] if alpha is None else sp
+    k3 = ops.decompress_blocks(qp, scale, alpha, cfg)
+    err_d = ref.check_decoded_close(
+        k3, ref.decompress_blocks_ref(qp, scale, alpha, cfg), cfg)
+    # K3 against K4 on one peer: under folded f32 metadata K4 does K3's
+    # arithmetic (its sum starts from +0, which torch.equal counts equal
+    # to -0)
+    if alpha is None and cfg.torch_compute_dtype == torch.float32 and \
+            not torch.equal(k3, ops.decompress_reduce(
+                qp[None], scale[None], None, cfg)):
+        raise AssertionError(f"{where}: K3 != K4 at P=1")
+    del k3
+    q3 = qp.reshape(peers, mb, b)
+    s3 = scale.reshape(peers, mb, -1)
+    a3 = None if alpha is None else alpha.reshape(peers, mb)
+    err_r = ref.check_decoded_close(
+        ops.decompress_reduce(q3, s3, a3, cfg),
+        ref.decompress_reduce_ref(q3, s3, a3, cfg), cfg)
+    return {"stats": stats, "compress_blocks": err_c,
+            "decompress_blocks": err_d, "decompress_reduce": err_r,
+            "blocks": blocks, "s": s, "qp": qp, "alpha": alpha,
+            "scale": scale, "q3": q3, "s3": s3, "a3": a3}
+
+
 def phase_blocks() -> dict:
     """K1, K3, K4 against their plain versions, each block form against
     its wire form bit for bit, and both routes of a whole hop timed."""
@@ -386,42 +461,11 @@ def phase_blocks() -> dict:
             # into its storage, so its loads are not 16-byte aligned
             x = tp_like(gen, (peers * n + offset,)).to(dev, in_dtype)[
                 offset:].view(peers, n)
-        b = cfg.block_size
-        blocks = x.reshape(-1, b)
-        mb = n // b
-        # K1 against its plain version, under the wire parity rule
-        q, a, s = ops.compress_blocks(blocks, cfg)
-        qp, ap, sp = ref.compress_blocks_ref(blocks, cfg)
-        torch.cuda.synchronize()
-        w_k = ref.blocks_to_wire(q, a, s, cfg, peers, n)
-        w_p = ref.blocks_to_wire(qp, ap, sp, cfg, peers, n)
-        stats = ref.check_wire_parity(w_k, w_p, n, cfg)
-        dec_k = ref.decompress_wire_ref(w_k, n, cfg)
-        dec_p = ref.decompress_wire_ref(w_p, n, cfg)
-        if stats["flipped"] == 0:
-            ref.check_decoded_close(dec_k, dec_p, cfg)
-        err_c = float((dec_k - dec_p).abs().max())
-        del dec_k, dec_p
-        # K3 and K4 on the plain version's blocks
-        alpha = None if cfg.metadata == "folded" else ap
-        scale = sp / ap[:, None] if alpha is None else sp
-        k3 = ops.decompress_blocks(qp, scale, alpha, cfg)
-        err_d = ref.check_decoded_close(
-            k3, ref.decompress_blocks_ref(qp, scale, alpha, cfg), cfg)
-        # K3 against K4 on one peer: under folded f32 metadata K4 does K3's
-        # arithmetic (its sum starts from +0, which torch.equal counts equal
-        # to -0)
-        if alpha is None and cfg.torch_compute_dtype == torch.float32 and \
-                not torch.equal(k3, ops.decompress_reduce(
-                    qp[None], scale[None], None, cfg)):
-            raise AssertionError(f"{spec} n={n}: K3 != K4 at P=1")
-        del k3
-        q3 = qp.reshape(peers, mb, b)
-        s3 = scale.reshape(peers, mb, -1)
-        a3 = None if alpha is None else alpha.reshape(peers, mb)
-        err_r = ref.check_decoded_close(
-            ops.decompress_reduce(q3, s3, a3, cfg),
-            ref.decompress_reduce_ref(q3, s3, a3, cfg), cfg)
+        h = hold_blocks(x, cfg, peers, n, f"{spec} n={n}")
+        stats, err_c, err_d, err_r = h["stats"], h["compress_blocks"], \
+            h["decompress_blocks"], h["decompress_reduce"]
+        blocks, s, qp, alpha, scale, q3, s3, a3 = (h[k] for k in (
+            "blocks", "s", "qp", "alpha", "scale", "q3", "s3", "a3"))
         # route identity, bit for bit: pack(K1) == K2, K3(unpack) == K5,
         # K4(unpack) == K6
         wire = ops.compress_wire(x, cfg)
@@ -571,6 +615,8 @@ def phase_blocks() -> dict:
     case("taco", TRAIN_N, torch.bfloat16, 4)
     # the P = 4 stack a rank's reduce-scatter receives at tp = 4
     case("taco", TRAIN_N // 4, torch.bfloat16, 4, timed=True, label="tp4 hop")
+    # a TP hop of phase 7's gpt-2.7b pipeline step (tp=taco of taco3d)
+    case("taco", PIPE_N, torch.bfloat16, 1, timed=True, label="pipe hop")
     torch.cuda.empty_cache()
     return {"rows": rows, "hops": hops}
 
@@ -751,11 +797,15 @@ def phase_group_parity(group) -> None:
               f"{({k: v for k, v in calls.items() if v})}")
 
 
-def want_per_step(cfg, model_plan, comm_plan) -> dict:
+def want_per_step(cfg, model_plan, comm_plan, ticks: int = 1) -> dict:
     """Block-kernel launches per training step, derived from the code: each
     compressed hop of ``models.transformer.tp_hops_per_step`` runs one
     compress and one decompress (all-gather) or decompress-reduce
-    (reduce-scatter) per ring chunk (``chunks=1``: the monolithic hop)."""
+    (reduce-scatter) per ring chunk (``chunks=1``: the monolithic hop).
+    The pipeline step (``train/pipeline_parallel.py``) runs the whole
+    model's hops of its stage once a tick: ``ticks`` = M + P - 1 (at
+    pipe = 1 each tick is one microbatch's step).  An identity TP plan
+    launches none."""
     from repro_torch.core import collectives as cc
     from repro_torch.models import transformer
     hops = transformer.tp_hops_per_step(cfg, model_plan, comm_plan)
@@ -763,7 +813,7 @@ def want_per_step(cfg, model_plan, comm_plan) -> dict:
     if len(chunks) != 1:
         raise AssertionError(f"forward and backward codecs chunk apart: "
                              f"{chunks}")
-    k = chunks.pop()
+    k = chunks.pop() * ticks * (not comm_plan.tp_identity)
     ag, rs = hops["all_gather"] * k, hops["reduce_scatter"] * k
     return {"compress_blocks": ag + rs, "decompress_blocks": ag,
             "decompress_reduce": rs, "compress_wire": 0, "decompress_wire": 0,
@@ -794,27 +844,37 @@ def nccl_calls():
             setattr(dist, n, fn)
 
 
-def phase_train(counters, runs) -> dict:
-    """Full-width qwen2-0.5b training through the train launcher's entry
-    points, one run per ``(label, spec, groups)`` (``groups``: a TP
-    process group, a ``launch.mesh.Mesh`` or None): per-step launches,
-    losses, wall and peak memory, and one profiled step each; under a
-    compressed ``grad_rs`` codec also the codec's device time a step
-    (:func:`grad_codec_profile`)."""
-    from repro_torch.core.codecs import IdentityCodec
-    from repro_torch.kernels import ops
+def launcher_trainer(spec, groups):
+    """Full-width qwen2-0.5b through the train launcher's entry points
+    (``groups``: a TP process group, a ``launch.mesh.Mesh`` or None):
+    (trainer, launches a step as derived)."""
     from repro_torch.launch import train
     from repro_torch.launch.mesh import Mesh
+    args = train.parse_args([
+        "--arch", "qwen2-0.5b", TRAIN_SIZE, "--comm-spec", spec,
+        "--steps", str(TRAIN_STEPS), "--seq", str(TRAIN_SEQ), "--batch",
+        str(TRAIN_BATCH), "--lr", "3e-4", "--seed", "0"])
+    mesh = groups if isinstance(groups, Mesh) else None
+    group = None if mesh is not None else groups
+    trainer, cfg = train.build_trainer(args, group=group, mesh=mesh)
+    return trainer, want_per_step(cfg, trainer.model.plan, trainer.ctx.plan)
+
+
+def phase_train(counters, runs, make=launcher_trainer,
+                sessions: int = 3, replay=None) -> dict:
+    """Training runs, one per ``(label, spec, groups)``, each built by
+    ``make(spec, groups) -> (trainer, launches a step)`` (default: the
+    train launcher on full-width qwen2-0.5b): per-step launches, losses,
+    wall and peak memory, and one step profiled ``sessions`` times; under
+    a compressed ``grad_rs`` codec also the codec's device time a step
+    (:func:`grad_codec_profile`), and ``replay(ctx, one_step)`` when
+    given (its dict under ``"replay"``)."""
+    from repro_torch.core.codecs import IdentityCodec
+    from repro_torch.kernels import ops
     names = list(counters)
     out = {}
     for label, spec, groups in runs:
-        args = train.parse_args([
-            "--arch", "qwen2-0.5b", TRAIN_SIZE, "--comm-spec", spec,
-            "--steps", str(TRAIN_STEPS), "--seq", str(TRAIN_SEQ), "--batch",
-            str(TRAIN_BATCH), "--lr", "3e-4", "--seed", "0"])
-        mesh = groups if isinstance(groups, Mesh) else None
-        group = None if mesh is not None else groups
-        trainer, cfg = train.build_trainer(args, group=group, mesh=mesh)
+        trainer, want = make(spec, groups)
         per_step = []
         inner = trainer.step_fn_for
 
@@ -840,9 +900,6 @@ def phase_train(counters, runs) -> dict:
         launches = dict(zip(names, (counters[k].launches for k in names)))
         no_plain_routes(f"train {label}")
         peak = torch.cuda.max_memory_allocated() / 2**20
-        want = want_per_step(cfg, trainer.model.plan, trainer.ctx.plan)
-        if trainer.ctx.plan.tp_identity:
-            want = dict.fromkeys(want, 0)
         want_row = [want[k] for k in names]
         if any(row != want_row for row in per_step):
             raise AssertionError(f"{label}: per-step launches {per_step}, "
@@ -859,7 +916,8 @@ def phase_train(counters, runs) -> dict:
         timed = hist[TRAIN_WARM:]
         mean_ms = sum(h["ms"] for h in timed) / len(timed)
         print(f"  {label:8s} ({spec}, groups "
-              f"{'none' if groups is None else type(groups).__name__}) "
+              f"{'none' if groups is None else type(groups).__name__}, "
+              f"{trainer.model.cfg.name}) "
               f"{len(timed)} timed steps: mean wall {mean_ms:.3f}"
               f" ms/step, {TRAIN_BATCH * TRAIN_SEQ / mean_ms * 1e3:.1f} tok/s"
               f", peak memory {peak:.1f} MiB, launches/step "
@@ -878,7 +936,7 @@ def phase_train(counters, runs) -> dict:
         one()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-        prof = device_profile(one, iters=1)      # three profiled steps
+        prof = device_profile(one, iters=1, sessions=sessions, warm=False)
         busy = sum(prof.values())
         taco_ms = sum(v for k, v in prof.items() if "compress" in k)
         top = [(k[:50], round(v, 3))
@@ -888,11 +946,14 @@ def phase_train(counters, runs) -> dict:
               f"{taco_ms:.3f} ms; top {top}")
         out[label] = {"hist": hist, "launches": launches, "per_step": want_row,
                       "peak_mib": peak, "mean_ms": mean_ms,
+                      "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / mean_ms * 1e3,
                       "step_profile": {"wall_ms": wall, "device_ms": busy,
                                        "idle_share": 1 - busy / wall,
                                        "taco_kernels_ms": taco_ms}}
         if trainer.ctx.plan.grad_rs != IdentityCodec():
             out[label]["grad_codec"] = grad_codec_profile(trainer.ctx, one)
+        if replay is not None:
+            out[label]["replay"] = replay(trainer.ctx, one)
         trainer.step_fn_for = inner = counted = fn = None
         del trainer, params, opt, batch
         gc.collect()
@@ -905,8 +966,8 @@ def grad_codec_profile(ctx, one_step) -> dict:
     hops (the ``grad_rs`` reduce-scatter of every weight gather's
     backward, both fsdp stages): the hops of one step are captured (shape,
     dim), then replayed on bf16 tensors of those shapes through the same
-    collective and profiled; the NCCL kernels of the moves are counted
-    apart from the codec's own ops."""
+    collective and profiled: all the device activity of the replay, the
+    codec's ops and whatever the collectives launch."""
     from repro_torch.core import collectives as cc
     hops = []
     impl = cc._rs_impl
@@ -928,19 +989,17 @@ def grad_codec_profile(ctx, one_step) -> dict:
         for shape, dim in hops:
             cc._rs_impl(bufs[shape], ctx.fsdp_groups, dim, ctx.plan.grad_rs)
     prof = device_profile(replay, iters=1)
-    nccl = sum(v for k, v in prof.items() if "nccl" in k.lower())
-    codec = sum(prof.values()) - nccl
+    codec = sum(prof.values())
     top = [(k[:60], round(v, 3)) for k, v in
            sorted(prof.items(), key=lambda kv: -kv[1])[:6]]
     elems = sum(int(np.prod(s)) for s, _ in hops)
     print(f"    grad_rs codec a step: {len(hops)} weight-gradient hops of "
           f"{elems} elements in all, each over {len(ctx.fsdp_groups)} "
-          f"stages; device {codec:.3f} ms in the codec's ops, {nccl:.3f} ms"
-          f" in NCCL; top {top}")
+          f"stages; device {codec:.3f} ms; top {top}")
     del bufs
     torch.cuda.empty_cache()
     return {"hops": len(hops), "elements": elems, "codec_ms": codec,
-            "nccl_ms": nccl, "top": top}
+            "top": top}
 
 
 def mesh_loss_grads(model, params, batch, ctx):
@@ -1054,6 +1113,287 @@ def phase_dp_parity(mesh) -> None:
           f"{par['flipped']} of {par['codes']} codes differ ({par['at_ties']}"
           f" at ties), scales rel err {par['scale_rel_err']:.3e}; decode of "
           f"one wire {worst:.3e} of its bound")
+
+
+# --------------------------------------------------------------------------
+# phase 7: the pipeline step (3D: TACO on TP, SDP4bit on data, TahQuant at
+# the stage boundaries) on full-width gpt-2.7b
+# --------------------------------------------------------------------------
+
+def pipe_trainer(mesh):
+    """``make`` of :func:`phase_train` for the pipeline step: full-width
+    gpt-2.7b (32 layers, d 2560, 32 heads of 80, d_ff 10240, vocab 51200,
+    learned positions, layernorm, gelu) through
+    ``train.pipeline_parallel.build_pipeline_train_step`` on the pipe
+    mesh, ``PIPE_MICRO`` microbatches, per-layer recompute, weights from
+    seed 0, synthetic tokens (seed 1234), the train launcher's schedule
+    (lr 3e-4 -> 3e-5)."""
+    def make(spec, groups):
+        from repro_torch.configs import get_config, make_plan
+        from repro_torch.core.registry import from_spec
+        from repro_torch.data.pipeline import DataConfig, SyntheticLM
+        from repro_torch.models.model import Model
+        from repro_torch.optim.adamw import OptConfig
+        from repro_torch.train import pipeline_parallel as ppl
+        from repro_torch.train.trainer import Trainer, TrainerConfig
+        cfg = get_config(PIPE_ARCH)
+        ctx = mesh.parallel_ctx(from_spec(spec))
+        model = Model(cfg, make_plan(cfg, ctx.tp_size, ctx.fsdp_size),
+                      **mesh.model_kwargs())
+        pc = ppl.PipeConfig(stages=mesh.size("pipe"),
+                            microbatches=PIPE_MICRO)
+        data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ,
+                                      TRAIN_BATCH), cfg)
+        oc = OptConfig(lr_max=3e-4, lr_min=3e-5,
+                       warmup_steps=max(TRAIN_STEPS // 20, 5),
+                       total_steps=TRAIN_STEPS)
+        trainer = Trainer(
+            model, ctx, oc, TrainerConfig(total_steps=TRAIN_STEPS, seed=0),
+            data, build_step=lambda m, c, o: ppl.build_pipeline_train_step(
+                m, c, o, pc))
+        return trainer, want_per_step(cfg, model.plan, ctx.plan,
+                                      ticks=PIPE_MICRO + pc.stages - 1)
+    return make
+
+
+def _int8_parity(codec, x, where: str) -> dict:
+    """``x`` (a card tensor) as one hop row through ``codec`` (a per-group
+    int8 codec: encode -> pack -> unpack -> decode) on the card and on the
+    CPU: the codes must match apart from ties (``z / s`` within 1e-6 of
+    k + 1/2 in f64), the scales bit for bit, and the decode of one wire
+    bit for bit."""
+    row = x.detach().reshape(1, -1)
+    n = row.shape[-1]
+    row = torch.nn.functional.pad(row, (0, (-n) % codec.group))
+    pn = row.shape[-1]
+    card = codec.encode_wire(row).cpu()
+    host_row = row.cpu()
+    host = codec.encode_wire(host_row)
+    q, jq = card[0, :pn].view(torch.int8), host[0, :pn].view(torch.int8)
+    s, js = card[0, pn:].view(torch.float32), host[0, pn:].view(torch.float32)
+    if not torch.equal(s, js):
+        raise AssertionError(f"{where}: scales differ card vs CPU")
+    flipped = int((q != jq).sum())
+    ties = 0
+    if flipped:
+        z = host_row.double().reshape(-1, codec.group) / \
+            js.double()[:, None]
+        frac = (z - torch.floor(z) - 0.5).abs().reshape(-1)
+        diff = (q != jq)
+        ties = int((diff & (frac < 1e-6)).sum())
+        if ties != flipped:
+            raise AssertionError(f"{where}: {flipped - ties} codes differ "
+                                 "card vs CPU away from a tie")
+    dec = codec.decode_wire(host.to(x.device), pn, x.dtype).cpu()
+    if not torch.equal(dec, codec.decode_wire(host, pn, x.dtype)):
+        raise AssertionError(f"{where}: decode differs card vs CPU")
+    return {"codes": pn, "flipped": flipped, "at_ties": ties}
+
+
+def pipe_replay(ctx, one_step) -> dict:
+    """One taco3d step of the pipeline's hops, held and replayed at full
+    width.  The hop inputs are captured: each boundary hop's activation or
+    cotangent (1 x 2048 x 2560 bf16), each fsdp weight gather's shard, and
+    the step's first TP all-gather and reduce-scatter input.  K1, K3 and
+    K4 are held against their plain versions on the two TP inputs
+    (:func:`hold_blocks`).  The boundary hops and weight gathers run
+    through ``TahQuantCodec`` and ``Int8Codec`` (``weight_ag=int8``) on the
+    card against the CPU (:func:`_int8_parity`, every distinct gathered
+    weight once), and are replayed on the card through the same
+    collectives for their device time a step (all the replay's device
+    activity)."""
+    from repro_torch.core import collectives as cc
+    from repro_torch.core.codecs import Int8Codec, TacoCodec, TahQuantCodec
+    pp_hops, gathers, tp_in = [], [], {}
+    impls = {n: getattr(cc, n) for n in ("_pp_impl", "_ag_impl", "_rs_impl")}
+
+    def pp_capture(x, group, perm, codec):
+        pp_hops.append((x.detach().clone(), group, perm))
+        return impls["_pp_impl"](x, group, perm, codec)
+
+    def ag_capture(x, group, dim, codec):
+        if group is ctx.fsdp_groups:
+            gathers.append((x.detach(), dim))
+        if isinstance(codec, TacoCodec):
+            tp_in.setdefault("all-gather", (x.detach().clone(), codec))
+        return impls["_ag_impl"](x, group, dim, codec)
+
+    def rs_capture(x, group, dim, codec):
+        if isinstance(codec, TacoCodec):
+            tp_in.setdefault("reduce-scatter", (x.detach().clone(), codec))
+        return impls["_rs_impl"](x, group, dim, codec)
+    cc._pp_impl, cc._ag_impl, cc._rs_impl = pp_capture, ag_capture, rs_capture
+    try:
+        one_step()
+    finally:
+        for n, fn in impls.items():
+            setattr(cc, n, fn)
+    torch.cuda.synchronize()
+    holds = {}
+    for kind, (x, codec) in tp_in.items():
+        h = hold_blocks(x.reshape(1, -1), codec.cfg, 1, x.numel(),
+                        f"3d step TP {kind}")
+        holds[kind] = {"shape": list(x.shape), "flipped": h["stats"]["flipped"],
+                       **{k: h[k] for k in ("compress_blocks",
+                                            "decompress_blocks",
+                                            "decompress_reduce")}}
+        print(f"    TP {kind} input of the step {list(x.shape)} "
+              f"{str(x.dtype)[6:]}: K1 vs plain flipped "
+              f"{h['stats']['flipped']}, max abs err K1 "
+              f"{h['compress_blocks']:.2e} K3 {h['decompress_blocks']:.2e} "
+              f"K4 {h['decompress_reduce']:.2e}")
+    if sorted(holds) != ["all-gather", "reduce-scatter"]:
+        raise AssertionError(f"TP hops of the 3d step held: {sorted(holds)}")
+    tq, i8 = TahQuantCodec(), Int8Codec()
+    tally = {"tahquant": dict(codes=0, flipped=0, at_ties=0),
+             "int8": dict(codes=0, flipped=0, at_ties=0)}
+    t0 = time.monotonic()
+    for i, (x, _, _) in enumerate(pp_hops):
+        for k, v in _int8_parity(tq, x, f"boundary hop {i}").items():
+            tally["tahquant"][k] += v
+    distinct = {}
+    for x, _ in gathers:
+        distinct.setdefault((x.data_ptr(), tuple(x.shape)), x)
+    for key, x in distinct.items():
+        for k, v in _int8_parity(i8, x, f"weight {tuple(x.shape)}").items():
+            tally["int8"][k] += v
+    parity_s = time.monotonic() - t0
+
+    def replay_pp():
+        for x, group, perm in pp_hops:
+            cc._pp_impl(x, group, ((0, 0),) if not perm else perm, tq)
+
+    def replay_ag():
+        for x, dim in gathers:
+            cc._ag_impl(x, ctx.fsdp_groups, dim, i8)
+    pp_ms = sum(device_profile(replay_pp, iters=1, sessions=1).values())
+    ag_ms = sum(device_profile(replay_ag, iters=1, sessions=1).values())
+    out = {"boundary_hops": len(pp_hops),
+           "boundary_shape": list(pp_hops[0][0].shape) if pp_hops else [],
+           "weight_gathers": len(gathers), "distinct_weights": len(distinct),
+           "gathered_elements": sum(x.numel() for x, _ in gathers),
+           "tahquant": tally["tahquant"], "int8": tally["int8"],
+           "tahquant_ms": pp_ms, "int8_ms": ag_ms, "tp_holds": holds,
+           "parity_s": parity_s}
+    print(f"    replay: {len(pp_hops)} boundary hops of "
+          f"{out['boundary_shape']} (no peer at pipe = 1: each is sent to "
+          f"itself here) through tahquant, card vs CPU "
+          f"{tally['tahquant']['flipped']} of {tally['tahquant']['codes']} "
+          f"codes differ ({tally['tahquant']['at_ties']} at ties), scales "
+          f"bit for bit; device {pp_ms:.3f} ms a step")
+    print(f"    replay: {len(gathers)} weight gathers ({len(distinct)} "
+          f"distinct weights, {out['gathered_elements']} elements) through "
+          f"int8, card vs CPU {tally['int8']['flipped']} of "
+          f"{tally['int8']['codes']} codes differ ({tally['int8']['at_ties']}"
+          f" at ties), scales bit for bit; device {ag_ms:.3f} ms a step; "
+          f"parity on the CPU {parity_s:.1f} s")
+    del pp_hops, gathers, distinct, tp_in
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_pipe_parity(mesh) -> None:
+    """Smoke size (gpt-2.7b cut to 4 layers, d 256) through the pipe
+    mesh's 1-rank NCCL groups (pipe, data, model): the pipeline step at
+    pipe = 1, ``PIPE_MICRO`` microbatches, under ``baseline`` equals
+    ``build_train_step`` on the same batch (loss 1e-3, grad norm 5e-2
+    relative: the microbatches sum the loss in another order, in bf16);
+    under ``PIPE_SPEC`` and ``weight_ag=int8`` the card (groups) equals
+    the CPU (no groups; loss 1e-3, grad norm 5e-2, as phase 4).  The
+    boundary hop has no peer at pipe = 1: it makes no ``torch.distributed``
+    call; every weight gather under ``weight_ag=int8`` runs the codec at
+    the data stage."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, make_plan, smoke_config
+    from repro_torch.core import collectives as cc
+    from repro_torch.core.codecs import Int8Codec
+    from repro_torch.core.parallel import ParallelCtx
+    from repro_torch.core.registry import from_spec
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train import pipeline_parallel as ppl
+    from repro_torch.train.train_step import build_train_step
+    cfg = dataclasses.replace(smoke_config(get_config(PIPE_ARCH)),
+                              n_layers=4, d_model=256, n_heads=16,
+                              n_kv_heads=16, d_ff=1024)
+    plan = make_plan(cfg, 1, 1)
+    kw = mesh.model_kwargs()
+    cpu, gpu = Model(cfg, plan, device="cpu", **kw), Model(cfg, plan, **kw)
+    init = cpu.init(0)
+    host = SyntheticLM(DataConfig(cfg.vocab_size, 64, 8), cfg).batch(0)
+    batch = SyntheticLM.place(host, gpu.device)
+    oc = adamw.OptConfig(lr_max=1e-3, lr_min=1e-4, warmup_steps=2,
+                         total_steps=10)
+    pc = ppl.PipeConfig(stages=1, microbatches=PIPE_MICRO)
+
+    def pipe(model, ctx, oc):
+        return ppl.build_pipeline_train_step(model, ctx, oc, pc)
+
+    def run(build, model, ctx, b):
+        params = tree_map(lambda a: a.to(model.device).clone(), init)
+        _, _, m = build(model, ctx, oc)(params,
+                                        adamw.init_opt_state(params), b)
+        return float(m["loss"]), float(m["grad_norm"])
+
+    def close(a, b, label):
+        rl, rg = abs(a[0] - b[0]) / b[0], abs(a[1] - b[1]) / b[1]
+        if not (np.isfinite(a[0]) and np.isfinite(a[1])) or rl > 1e-3 or \
+                rg > 5e-2:
+            raise AssertionError(f"{label}: loss {rl:.3e}, grad norm "
+                                 f"{rg:.3e} relative")
+        return rl, rg
+    hops, gathers = [], []
+    pp_impl, ag_one = cc._pp_impl, cc._ag_one
+
+    def pp_count(x, group, perm, codec):
+        hops.append(perm)
+        return pp_impl(x, group, perm, codec)
+
+    def ag_count(x, group, dim, codec):
+        if isinstance(codec, Int8Codec):
+            gathers.append(group)
+        return ag_one(x, group, dim, codec)
+    base = mesh.parallel_ctx(from_spec("baseline"))
+    with nccl_calls() as calls:
+        cc._pp_impl = pp_count
+        try:
+            piped = run(pipe, gpu, base, batch)
+        finally:
+            cc._pp_impl = pp_impl
+    plain = run(build_train_step, gpu, base, batch)
+    rl, rg = close(piped, plain, "pipeline vs plain step")
+    want = sum(ppl.boundary_hops_per_step(pc).values())
+    if hops != [()] * want or calls["batch_isend_irecv"]:
+        raise AssertionError(f"boundary hops {hops}, batch_isend_irecv "
+                             f"{calls['batch_isend_irecv']}")
+    print(f"  smoke {cfg.name} (4 layers, d 256), {PIPE_MICRO} microbatches "
+          f"at pipe = 1: pipeline vs plain step loss {rl:.3e}, grad norm "
+          f"{rg:.3e} relative; {len(hops)} boundary hops, none with a peer "
+          f"(no torch.distributed call); torch.distributed calls "
+          f"{({k: v for k, v in calls.items() if v})}")
+    for spec in (PIPE_SPEC, "weight_ag=int8"):
+        plan_ = from_spec(spec)
+        cc._ag_one = ag_count
+        try:
+            card = run(pipe, gpu, mesh.parallel_ctx(plan_), batch)
+        finally:
+            cc._ag_one = ag_one
+        host_res = run(pipe, cpu, ParallelCtx(plan=plan_,
+                                              fsdp_axes=mesh.fsdp_axes), host)
+        rl, rg = close(card, host_res, f"{spec} card vs CPU")
+        n_int8 = len(gathers)
+        if spec == "weight_ag=int8" and (
+                not n_int8 or set(map(id, gathers)) !=
+                {id(mesh.groups["data"])}):
+            raise AssertionError(f"{n_int8} int8 weight gathers")
+        gathers.clear()
+        print(f"  smoke {spec} pipeline step: card (groups) vs CPU (none) "
+              f"loss {rl:.3e}, grad norm {rg:.3e} relative"
+              + (f"; {n_int8} int8 weight gathers at the data stage"
+                 if n_int8 else ""))
 
 
 def check_losses(base: dict, other: dict, label: str) -> float:
@@ -1254,7 +1594,7 @@ def main() -> None:
     import torch.distributed as dist
 
     from repro_torch.core.parallel import init_tp_group
-    from repro_torch.launch.mesh import init_mesh
+    from repro_torch.launch.mesh import PIPE_AXES, init_mesh
     from repro_torch.kernels import (ash_compress, ash_decompress, build,
                                      fwht_butterfly)
     t_start = t0 = time.monotonic()
@@ -1283,19 +1623,23 @@ def main() -> None:
           "(kernels, or the plain versions by the route of kernels.ops) vs "
           "the CPU")
     phase_f1(kernels)
-    print("phase 2: serving full-width qwen2-0.5b")
+    print(f"phase 2 ({time.monotonic() - t_start:.0f} s): serving "
+          "full-width qwen2-0.5b")
     served = phase_serve(kernels, [("baseline", "baseline", None),
                                    ("taco", "taco", None)])
-    print(f"phase 3: training full-width qwen2-0.5b, batch {TRAIN_BATCH} x "
+    print(f"phase 3 ({time.monotonic() - t_start:.0f} s): training "
+          f"full-width qwen2-0.5b, batch {TRAIN_BATCH} x "
           f"seq {TRAIN_SEQ}, {TRAIN_WARM} warm + "
           f"{TRAIN_STEPS - TRAIN_WARM} timed steps")
     trained = phase_train(kernels, [("baseline", "baseline", None),
                                     ("taco", "taco", None)])
     check_losses(trained["baseline"], trained["taco"], "taco")
-    print("phase 4: reference checks at smoke size")
+    print(f"phase 4 ({time.monotonic() - t_start:.0f} s): reference "
+          "checks at smoke size")
     phase_reference()
     phase_reference_train()
-    print(f"phase 5: a 1-rank NCCL process group on the card, {RING_SPEC}")
+    print(f"phase 5 ({time.monotonic() - t_start:.0f} s): a 1-rank NCCL "
+          f"process group on the card, {RING_SPEC}")
     group = init_tp_group("cuda",
                           init_method=f"tcp://127.0.0.1:{free_port()}",
                           world_size=1, rank=0, timeout_s=300)
@@ -1303,7 +1647,8 @@ def main() -> None:
     ring_train = phase_train(kernels, [("ring", RING_SPEC, group)])["ring"]
     check_losses(trained["baseline"], ring_train, "ring")
     ring_serve = phase_serve(kernels, [("ring", RING_SPEC, group)])["ring"]
-    print(f"phase 6: 1-rank NCCL groups for pod, data and model on the card, "
+    print(f"phase 6 ({time.monotonic() - t_start:.0f} s): 1-rank NCCL "
+          f"groups for pod, data and model on the card, "
           f"{DP_SPEC}")
     mesh = init_mesh((1, 1, 1), "cuda")
     phase_dp_parity(mesh)
@@ -1316,10 +1661,34 @@ def main() -> None:
           f"{taco_prof['taco_kernels_ms']:.3f} ms; dp device busy "
           f"{dp_prof['device_ms']:.3f} ms, TACO kernels "
           f"{dp_prof['taco_kernels_ms']:.3f} ms, grad_rs codec "
-          f"{dp_train['grad_codec']['codec_ms']:.3f} ms (+ NCCL "
-          f"{dp_train['grad_codec']['nccl_ms']:.3f} ms); peak "
+          f"{dp_train['grad_codec']['codec_ms']:.3f} ms; peak "
           f"{dp_train['peak_mib']:.1f} MiB (taco "
           f"{trained['taco']['peak_mib']:.1f})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 7 ({time.monotonic() - t_start:.0f} s): the pipeline step "
+          f"on 1-rank NCCL groups for pipe, data and model, {PIPE_ARCH} at "
+          f"full width, {PIPE_MICRO} microbatches, baseline and "
+          f"{PIPE_SPEC}; at pipe = 1 the boundary hop has no peer (torch "
+          "refuses a send to its own rank and NCCL two ranks on one card),"
+          " so TahQuant and int8 are held card vs CPU on a replay of one "
+          "step's hops")
+    pipe_mesh = init_mesh((1, 1, 1), "cuda", axes=PIPE_AXES)
+    phase_pipe_parity(pipe_mesh)
+    threed = phase_train(kernels, [("pp base", "baseline", pipe_mesh)],
+                         make=pipe_trainer(pipe_mesh), sessions=1)
+    threed.update(phase_train(kernels, [("3d", PIPE_SPEC, pipe_mesh)],
+                              make=pipe_trainer(pipe_mesh), sessions=1,
+                              replay=pipe_replay))
+    check_losses(threed["pp base"], threed["3d"], "3d")
+    for label, r in threed.items():
+        prof = r["step_profile"]
+        print(f"  {label}: {r['mean_ms']:.3f} ms/step, {r['tok_per_s']:.1f} "
+              f"tok/s, device busy {prof['device_ms']:.3f} ms, idle share "
+              f"{prof['idle_share']:.3f}, TACO kernels "
+              f"{prof['taco_kernels_ms']:.3f} ms, peak {r['peak_mib']:.1f} "
+              "MiB" + (f", grad_rs codec {r['grad_codec']['codec_ms']:.3f} "
+                       f"ms" if "grad_codec" in r else ""))
     dist.destroy_process_group()
     meta = {
         "compress_blocks": ("src/repro_torch/kernels/csrc/ash_compress.cu",
@@ -1349,6 +1718,7 @@ def main() -> None:
         "train taco": trained["taco"]["launches"],
         "train ring": ring_train["launches"],
         "train dp": dp_train["launches"],
+        "train 3d": threed["3d"]["launches"],
         "serve ring": dict(zip(wire_names, ring_serve["launches"]))}
     launches = dict(by_path["serve taco"])
     launches.update({k: by_path["train taco"][k]

@@ -1,6 +1,8 @@
 """Wire codecs ported so far: ``IdentityCodec`` (the uncompressed
-baseline), ``TacoCodec`` (the paper's compressor on the TP path) and
-``Sdp4BitCodec`` (SDP4bit's int4 gradient codec on the DP / fsdp path).
+baseline), ``TacoCodec`` (the paper's compressor on the TP path),
+``Sdp4BitCodec`` (SDP4bit's int4 gradient codec on the DP / fsdp path),
+``TahQuantCodec`` (per-group int8 at the pipeline stage boundaries) and
+``Int8Codec`` (per-group int8 for the fsdp weight gather).
 
 Codecs operate on 2-D ``(slots, n)`` tensors with ``n`` a multiple of
 ``granule``.  ``encode`` returns the tuple of wire components,
@@ -18,9 +20,10 @@ pack/unpack composed with encode/decode and defines the format, while
 fused wire kernels and a larger one (a training hop) to the block kernels
 composed with pack/unpack — the JAX package's route.  Either way each
 operator runs its plain version on the CPU and its CUDA kernel on the
-card.  ``Sdp4BitCodec`` is the generic composition over the plain
-PyTorch of ``core/dp_compress.py`` on either device: the JAX package has
-no Pallas kernel for it.
+card.  ``Sdp4BitCodec``, ``TahQuantCodec`` and ``Int8Codec`` are the
+generic composition over the plain PyTorch of ``core/dp_compress.py`` and
+``core/pp_compress.py`` on either device: the JAX package has no Pallas
+kernel for them.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core import dp_compress
+from repro_torch.core import dp_compress, pp_compress
 from repro_torch.core import taco as taco_mod
 # the ring's stage orders (the ``schedule=`` spec token of chunked codecs)
 from repro_torch.core.overlap import PIPELINED, SCHEDULES
@@ -37,7 +40,8 @@ from repro_torch.core.taco import TacoConfig
 from repro_torch.kernels import ops as kops
 
 __all__ = [
-    "IdentityCodec", "TacoCodec", "Sdp4BitCodec", "WireComponent",
+    "IdentityCodec", "TacoCodec", "Sdp4BitCodec", "TahQuantCodec",
+    "Int8Codec", "WireComponent",
     "WireLayout", "make_wire_layout", "achieved_wire_bytes", "pack_wire",
     "unpack_wire", "WireFastPath", "wire_bytes_per_element", "PIPELINED",
     "SCHEDULES",
@@ -315,6 +319,55 @@ class Sdp4BitCodec(WireFastPath):
 
     def bytes_per_element(self, in_dtype=torch.bfloat16) -> float:
         return 0.5 + 4.0 / self.block
+
+
+class _GroupInt8(WireFastPath):
+    """Per-group symmetric int8 + one f32 scale a group
+    (``core/pp_compress.py``); wire ``payload`` int8 n, then ``scale`` f32
+    n/group."""
+
+    @property
+    def granule(self) -> int:
+        return self.group
+
+    def wire_layout(self, n):
+        return make_wire_layout(("payload", "int8", n),
+                                ("scale", "float32", n // self.group))
+
+    def encode(self, x):
+        return pp_compress.compress_int8_group(x, self.group)
+
+    def decode(self, enc, n, dtype):
+        q, s = enc
+        return pp_compress.decompress_int8_group(q, s, n, self.group, dtype)
+
+    def decode_sum(self, enc, n, dtype):
+        q, s = enc
+        return pp_compress.decompress_sum_int8_group(
+            q, s, n, self.group, dtype).reshape(-1)[:n]
+
+    def bytes_per_element(self, in_dtype=torch.bfloat16) -> float:
+        return 1.0 + 4.0 / self.group
+
+
+@dataclasses.dataclass(frozen=True)
+class TahQuantCodec(_GroupInt8):
+    """TahQuant's fine-grained activation int8 (group 64) at the pipeline
+    stage boundaries (``pp=tahquant``)."""
+
+    group: int = 64
+    chunks: int = 1
+    schedule: str = PIPELINED
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8Codec(_GroupInt8):
+    """Per-group int8 (group 128) for the fsdp weight all-gather
+    (``weight_ag=int8``)."""
+
+    group: int = 128
+    chunks: int = 1
+    schedule: str = PIPELINED
 
 
 def wire_bytes_per_element(codec, in_dtype=torch.bfloat16) -> float:

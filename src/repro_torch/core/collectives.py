@@ -24,6 +24,10 @@ the CPU — with one implementation for both backends:
   reduce-scatter  : ``(P, total)`` rows, row j for peer j ->
                     ``all_to_all_single`` -> ``(P, total)``, peer j's
                     contribution at index j
+  permute         : ``(1, total)`` -> ``batch_isend_irecv`` to the rank's
+                    destination and from its source (``ppermute_c``, the
+                    pipeline boundary; ``chunks=`` is ignored, as in the
+                    JAX package: one send has nothing to ring over)
 
 A codec with ``chunks > 1`` takes the chunked ring instead (the JAX
 package's ``_ag_one_ring`` / ``_rs_one_ring``): each chunk is encoded,
@@ -55,6 +59,8 @@ the quantizer is not differentiated):
   Megatron-SP : ``all_gather_c`` fwd / ``psum_scatter_c`` bwd, and back
   AllReduce   : ``allreduce_g`` (fwd AR, bwd id) / ``copy_f`` (fwd id,
                 bwd AR)
+  Pipeline    : ``ppermute_c`` fwd / ``ppermute_c`` over the inverted
+                pairs bwd
 
 Every rank must issue the same collectives in the same order.  The model
 guarantees it: all ranks run the same layers on same-shaped shards, and
@@ -337,6 +343,63 @@ def _rs_one(x, group, dim, codec):
     return torch.movedim(out, 0, dim) if dim != 0 else out
 
 
+def _pairs(group, perm):
+    """(source, destination) of this rank under ``perm``, a tuple of
+    ``(src, dst)`` group-rank pairs as ``lax.ppermute`` takes them (each
+    rank a source at most once and a destination at most once); ``None``
+    where no pair names this rank."""
+    p, me = group_size(group), group_rank(group)
+    srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts) or \
+            any(not 0 <= r < p for r in srcs + dsts):
+        raise ValueError(f"permutation {perm!r} is not one over a group "
+                         f"of {p}")
+    src = next((s for s, d in perm if d == me), None)
+    dst = next((d for s, d in perm if s == me), None)
+    return src, dst
+
+
+def _permute(buf, group, src, dst, shape, dtype, device):
+    """Send ``buf`` to ``dst`` and receive a ``shape`` / ``dtype`` tensor on
+    ``device`` from ``src`` (group ranks; ``None``: no send, no receive),
+    as one batch; returns what arrived, or ``None``.  A pair of this rank
+    with itself is a copy, with no ``torch.distributed`` call."""
+    me = group_rank(group)
+    got = None
+    if src is not None:
+        got = buf.clone() if src == me else \
+            torch.empty(shape, dtype=dtype, device=device)
+    sends = [(dst, buf)] if dst not in (None, me) else []
+    recvs = [(src, got)] if src not in (None, me) else []
+    if sends or recvs:
+        for w in _exchange(sends, recvs, group):
+            w.wait()
+    return got
+
+
+def _pp_impl(x, group, perm, codec):
+    """Point-to-point permute over ``group`` (the JAX package's
+    ``_pp_impl``): the identity codec moves the tensor; any other codec
+    encodes it into ONE packed uint8 wire buffer, sends it and decodes
+    what arrives.  A rank that no pair sends to gets zeros, as
+    ``lax.ppermute`` gives; a rank that sends nothing encodes nothing."""
+    src, dst = _pairs(group, perm)
+    if isinstance(codec, IdentityCodec):
+        send, shape, dtype = x.contiguous(), x.shape, x.dtype
+    else:
+        flat, n = _pad_to(x.reshape(1, -1), codec.granule)
+        pn = flat.shape[-1]
+        shape = (1, codec.wire_layout(pn).total_bytes)
+        send = None if dst is None else codec.encode_wire(flat)
+        dtype = torch.uint8
+    got = _permute(send, group, src, dst, shape, dtype, x.device)
+    if got is None:
+        return torch.zeros_like(x)
+    if isinstance(codec, IdentityCodec):
+        return got
+    return codec.decode_wire(got, pn, x.dtype)[..., :n].reshape(x.shape)
+
+
 def _ag_impl(x, group, dim, codec):
     """Hierarchical all-gather over a group or a tuple of groups, innermost
     first (the JAX package's major-to-minor concatenation order)."""
@@ -436,6 +499,18 @@ def copy_f(x, group, fwd_codec, bwd_codec):
         x, lambda a, g, fc, bc: a,
         lambda ct, g, fc, bc: _ar_impl(ct, g, bc),
         (group, fwd_codec, bwd_codec))
+
+
+def ppermute_c(x, group, perm, fwd_codec, bwd_codec):
+    """Compressed point-to-point send over ``group`` (the pipeline
+    boundary; the TahQuant site).  ``perm`` is a tuple of ``(src, dst)``
+    group-rank pairs, as ``lax.ppermute`` takes; the backward sends the
+    cotangent over the inverted pairs through the backward codec."""
+    return _apply(
+        x, lambda a, g, pm, fc, bc: _pp_impl(a, g, pm, fc),
+        lambda ct, g, pm, fc, bc: ppermute_c(
+            ct, g, tuple((d, s) for s, d in pm), bc, fc),
+        (group, tuple(perm), fwd_codec, bwd_codec))
 
 
 def psum_exact(x, group):

@@ -16,11 +16,14 @@ port runs both TP modes over a ``torch.distributed`` process group (NCCL
 on the cards, gloo on the CPU; :func:`init_tp_group` builds it), or on
 this process alone: Megatron-SP (``sp_gather`` / ``sp_scatter``, the
 training path) and AllReduce (``tp_g`` / ``tp_f``, the decode path).
-Weights are fsdp-sharded over the ``(pod, data)`` groups
-(``launch/mesh.py`` builds them): ``weight_gather`` all-gathers a weight
+Weights are fsdp-sharded over the groups of the fsdp axes — ``(pod,
+data)`` on the pod mesh, ``(data,)`` on the pipe mesh (``launch/mesh.py``
+builds them): ``weight_gather`` all-gathers a weight
 at each use through the ``weight_ag`` codec, and its backward — the
 reduce-scatter of the weight gradient over the data axes — goes through
-the ``grad_rs`` codec (ZeRO falls out of the chain rule).
+the ``grad_rs`` codec (ZeRO falls out of the chain rule).  On the pipe
+mesh, ``pipe_group`` carries the stage boundaries' sends through the
+``pp`` codec (``train/pipeline_parallel.py``).
 ``CommPlan.at_step`` resolves the warmup schedule per optimizer step,
 outside the step function, as the JAX trainer does.
 """
@@ -39,10 +42,12 @@ from repro_torch.core.codecs import IdentityCodec
 Identity = IdentityCodec()
 
 PATHS = ("tp_fwd", "tp_bwd", "grad_rs", "weight_ag", "pp", "sp")
-#: the mesh axes that shard weights and the batch, outermost first, and
-#: the tensor-parallel axis (``launch/mesh.py``)
+#: the mesh axes that shard weights and the batch on the pod mesh,
+#: outermost first, the tensor-parallel axis and the pipeline axis
+#: (``launch/mesh.py``)
 FSDP_AXES = ("pod", "data")
 TP_AXIS = "model"
+PIPE_AXIS = "pipe"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,22 +132,30 @@ class ParallelCtx:
     the training forward's TP mode: ``"sp"`` (Megatron-SP: the residual
     stream is sequence-sharded, every block enters through an all-gather
     and exits through a reduce-scatter) or ``"allreduce"`` (f/g).  The
-    decode path always takes the f/g pair."""
+    decode path always takes the f/g pair.  ``fsdp_axes`` names the fsdp
+    axes, one per group of ``fsdp_groups`` (``None``: one group of one
+    rank per axis); ``pipe_group`` is this process's group along the
+    pipeline axis (``None``: one stage)."""
 
     tp_size: int = 1
     tp_rank: int = 0
     plan: CommPlan = CommPlan()
     tp_mode: str = "sp"
     group: object = None
-    fsdp_groups: tuple = (None, None)
+    fsdp_groups: tuple | None = None
+    fsdp_axes: tuple = FSDP_AXES
+    pipe_group: object = None
 
     def __post_init__(self):
         if self.group is not None:
             object.__setattr__(self, "tp_size", cc.group_size(self.group))
             object.__setattr__(self, "tp_rank", cc.group_rank(self.group))
-        if len(self.fsdp_groups) != len(FSDP_AXES):
+        if self.fsdp_groups is None:
+            object.__setattr__(self, "fsdp_groups",
+                               (None,) * len(self.fsdp_axes))
+        if len(self.fsdp_groups) != len(self.fsdp_axes):
             raise ValueError(f"fsdp_groups: one group per axis of "
-                             f"{FSDP_AXES}, got {self.fsdp_groups!r}")
+                             f"{self.fsdp_axes}, got {self.fsdp_groups!r}")
 
     @property
     def fsdp_size(self) -> int:
@@ -165,7 +178,9 @@ class ParallelCtx:
         """What the collectives move over along a mesh axis name."""
         if axis == TP_AXIS:
             return self.comm
-        return self.fsdp_groups[FSDP_AXES.index(axis)]
+        if axis == PIPE_AXIS:
+            return self.pipe_group
+        return self.fsdp_groups[self.fsdp_axes.index(axis)]
 
     @property
     def comm(self):
@@ -205,10 +220,10 @@ class ParallelCtx:
         return cc.copy_f(x, self.comm, self.plan.tp_fwd, self.plan.tp_bwd)
 
     def weight_gather(self, w, dim: int = 0):
-        """fsdp weight gather along ``dim`` over the fsdp groups (data
-        first, then pod) through the ``weight_ag`` codec; its backward is
-        the weight gradient's reduce-scatter through the ``grad_rs`` codec,
-        at both stages, a stage of one rank included.  With identity
+        """fsdp weight gather along ``dim`` over the fsdp groups
+        (innermost first: data, then pod) through the ``weight_ag`` codec;
+        its backward is the weight gradient's reduce-scatter through the
+        ``grad_rs`` codec, at every stage, a stage of one rank included.  With identity
         codecs and no group that moves, the gather is ``w`` itself."""
         if self.plan.weight_ag == Identity and \
                 self.plan.grad_rs == Identity and \

@@ -10,32 +10,32 @@ strings (``from_spec`` / ``to_spec``) for the codecs it has ported::
     knob   := "skip_first" | "skip_last" | "warmup"
     codec  := name (":" arg)*
 
-Ported codecs: ``none``, ``taco`` and ``sdp4bit``.  ``taco`` takes
-e4m3|e5m2|int8, b<N>, g<N>, dual|folded, ash|hadamard|notransform,
-blockscale|tensorscale, auto, cd<dtype>, tau<f>, eps<f>, seps<f>,
-disabled, chunks=<N> and schedule=pipelined|serial.  ``sdp4bit`` takes
-b<N>, norot, chunks=<N> and schedule=pipelined|serial.  Aliases:
-``baseline``, ``identity``, ``taco``, ``taco_folded``.
+Ported codecs: ``none``, ``taco``, ``sdp4bit``, ``tahquant`` and
+``int8``.  ``taco`` takes e4m3|e5m2|int8, b<N>, g<N>, dual|folded,
+ash|hadamard|notransform, blockscale|tensorscale, auto, cd<dtype>, tau<f>,
+eps<f>, seps<f>, disabled, chunks=<N> and schedule=pipelined|serial.
+``sdp4bit`` takes b<N>, norot, chunks=<N> and schedule=pipelined|serial.
+``tahquant`` and ``int8`` take g<N>, chunks=<N> and
+schedule=pipelined|serial.  Aliases: ``baseline``, ``identity``, ``taco``,
+``taco_folded``, ``taco3d``.
 
 What the port does not have yet is rejected with a :class:`CommSpecError`
-that says so: the other codecs (tahquant, int8, the taco3d alias),
-``+stage`` lossless stacks, and the ``escalate=`` / ``hold=`` policy
-tokens.  The implementation tokens ``jnp``, ``pallas`` and
-``pallas_interpret`` name TPU implementations and are rejected: the port
-chooses the CUDA kernel or the plain version by the tensor's device.
+that says so: ``+stage`` lossless stacks and the ``escalate=`` /
+``hold=`` policy tokens.  The implementation tokens ``jnp``, ``pallas``
+and ``pallas_interpret`` name TPU implementations and are rejected: the
+port chooses the CUDA kernel or the plain version by the tensor's device.
 """
 from __future__ import annotations
 
 from repro_torch.core.codecs import (PIPELINED, SCHEDULES, IdentityCodec,
-                                     Sdp4BitCodec, TacoCodec)
+                                     Int8Codec, Sdp4BitCodec,
+                                     TahQuantCodec, TacoCodec)
 from repro_torch.core.parallel import PATHS, CommPlan
 from repro_torch.core.taco import TacoConfig
 
 __all__ = ["CommSpecError", "codec_from_spec", "codec_to_spec", "from_spec",
            "to_spec", "list_codecs"]
 
-#: codecs and aliases of the JAX grammar that later slices port
-NOT_PORTED = ("tahquant", "int8", "taco3d")
 _TPU_IMPLS = ("jnp", "pallas", "pallas_interpret")
 
 
@@ -204,11 +204,45 @@ def _unparse_sdp4bit(codec):
     return tuple(out)
 
 
+def _group_codec(cls, name):
+    """(parse, unparse) of a per-group int8 codec: g<N>, chunks=<N>,
+    schedule=."""
+    def parse(args):
+        kw = {}
+        for tok in args:
+            if tok.startswith("chunks="):
+                kw["chunks"] = _chunks_val(tok)
+            elif tok.startswith("schedule="):
+                kw["schedule"] = _schedule_val(tok)
+            elif tok.startswith(("escalate=", "hold=")):
+                raise _not_ported(f"the error-escalation policy ({tok!r})")
+            elif tok.startswith("g") and tok[1:].isdigit():
+                kw["group"] = _pos_int(tok, "g")
+            else:
+                raise CommSpecError(f"unknown {name} arg {tok!r}")
+        return cls(**kw)
+
+    def unparse(codec):
+        out = []
+        if codec.group != cls().group:
+            out.append(f"g{codec.group}")
+        if codec.chunks != 1:
+            out.append(f"chunks={codec.chunks}")
+        if codec.schedule != PIPELINED:
+            out.append(f"schedule={codec.schedule}")
+        return tuple(out)
+
+    return cls, parse, unparse
+
+
 _CODECS = {"none": (IdentityCodec, _parse_identity, lambda c: ()),
            "taco": (TacoCodec, _parse_taco, _unparse_taco),
-           "sdp4bit": (Sdp4BitCodec, _parse_sdp4bit, _unparse_sdp4bit)}
+           "sdp4bit": (Sdp4BitCodec, _parse_sdp4bit, _unparse_sdp4bit),
+           "tahquant": _group_codec(TahQuantCodec, "tahquant"),
+           "int8": _group_codec(Int8Codec, "int8")}
 _ALIASES = {"identity": "baseline", "baseline": "", "taco": "tp=taco",
-            "taco_folded": "tp=taco:folded"}
+            "taco_folded": "tp=taco:folded",
+            "taco3d": "tp=taco,grad_rs=sdp4bit,pp=tahquant"}
 
 
 def list_codecs() -> list[str]:
@@ -222,8 +256,6 @@ def codec_from_spec(spec: str):
     name, *stages = head.split("+")
     if stages:
         raise _not_ported(f"the lossless stage stack {head!r}")
-    if name in NOT_PORTED:
-        raise _not_ported(f"codec {name!r}")
     if name not in _CODECS:
         raise CommSpecError(
             f"unknown codec {name!r}; registered: {list_codecs()}")
@@ -254,8 +286,6 @@ def from_spec(spec: str) -> CommPlan:
     if not isinstance(spec, str):
         raise CommSpecError(f"spec must be a string, got {type(spec)}")
     s = spec.strip()
-    if s in NOT_PORTED:
-        raise _not_ported(f"alias {s!r}")
     seen = set()
     while s in _ALIASES:
         if s in seen:

@@ -12,10 +12,15 @@ slices, of which TP rank r keeps slice r (the rule of the JAX package's
 multi-device check, ``tests/multidev/check_tp_model.py``), then along its
 ``fsdp_dim`` into ``plan.fsdp`` slices, of which fsdp rank f (pod-major:
 ``pod * data + data_index``) keeps slice f, as the JAX package's
-``partition_spec`` shards over ``("pod", "data")``.  So every mesh starts
-from the same weights wherever the padded global shapes agree.  The batch
-is split the same way: fsdp rank f takes rows ``[f * B/F, (f + 1) * B/F)``
-of the global batch (``batch_slice``).
+``partition_spec`` shards over ``("pod", "data")`` (or over the model's
+``fsdp_axes``: ``("data",)`` on the pipe mesh).  On a pipe mesh of
+``pipe`` stages, every leaf of a layer stack is cut last along its
+leading (layer) dim, and stage s keeps layers ``[s * L/pipe, (s + 1) *
+L/pipe)`` — the JAX package's ``pipe_partition_specs``; the embedding,
+the positions, the final norm and the head stay whole on every stage.  So
+every mesh starts from the same weights wherever the padded global shapes
+agree.  The batch is split the same way: fsdp rank f takes rows ``[f *
+B/F, (f + 1) * B/F)`` of the global batch (``batch_slice``).
 """
 from __future__ import annotations
 
@@ -50,16 +55,28 @@ def _to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
+def _stacked_ids(specs) -> set:
+    """The ids of the specs of ``specs`` that are leaves of a layer stack
+    (``specs["segments"]``)."""
+    ids: set = set()
+    tree_map(lambda s: ids.add(id(s)), specs["segments"])
+    return ids
+
+
 class Model:
     """(ArchConfig, RunPlan) on a device; parameters are a nested dict in
     the JAX package's tree layout."""
 
-    fsdp_axes = FSDP_AXES
     tp_axis = TP_AXIS
 
     def __init__(self, cfg: ArchConfig, plan: RunPlan, *, device=None,
-                 tp_rank: int = 0, fsdp_rank: int = 0):
+                 tp_rank: int = 0, fsdp_rank: int = 0,
+                 fsdp_axes: tuple = FSDP_AXES, pipe: int = 1,
+                 pipe_rank: int = 0):
         transformer.check_family(cfg)
+        if cfg.n_layers % pipe or not 0 <= pipe_rank < pipe:
+            raise ValueError(f"pipe rank {pipe_rank} of {pipe} stages: "
+                             f"{cfg.n_layers} layers must split evenly")
         if not 0 <= tp_rank < plan.tp:
             raise ValueError(f"tp_rank {tp_rank} outside the plan's tp "
                              f"{plan.tp}")
@@ -68,18 +85,24 @@ class Model:
                              f"fsdp {plan.fsdp}")
         self.cfg, self.plan = cfg, plan
         self.tp_rank, self.fsdp_rank = tp_rank, fsdp_rank
+        self.fsdp_axes = tuple(fsdp_axes)
+        self.pipe, self.pipe_rank = pipe, pipe_rank
         self.device = resolve_device(device)
 
     def specs(self):
         """Global (padded) parameter specs, the JAX package's."""
         return transformer.model_specs(self.cfg, self.plan)
 
-    def shard(self, spec: ParamSpec, full: torch.Tensor) -> torch.Tensor:
+    def shard(self, spec: ParamSpec, full: torch.Tensor,
+              stacked: bool = False) -> torch.Tensor:
         """This rank's slice of a global parameter: along ``spec.tp_dim``
-        by the TP rank, then along ``spec.fsdp_dim`` by the fsdp rank."""
+        by the TP rank, then along ``spec.fsdp_dim`` by the fsdp rank, then
+        (a leaf of a layer stack) along dim 0 by the pipe rank."""
         out = full
         for dim, n, r in ((spec.tp_dim, self.plan.tp, self.tp_rank),
-                          (spec.fsdp_dim, self.plan.fsdp, self.fsdp_rank)):
+                          (spec.fsdp_dim, self.plan.fsdp, self.fsdp_rank),
+                          (0 if stacked else None, self.pipe,
+                           self.pipe_rank)):
             if dim is None or n == 1:
                 continue
             if out.shape[dim] % n:
@@ -105,22 +128,28 @@ class Model:
         """Random parameters from a ``torch.Generator`` seeded with
         ``seed``, made on the model's device: every rank draws the same
         global parameters and keeps its shard."""
-        return init_params(self.specs(), seed, self.device, dtype,
-                           cut=self.shard)
+        specs = self.specs()
+        stacked = _stacked_ids(specs)
+        return init_params(specs, seed, self.device, dtype,
+                           cut=lambda s, a: self.shard(s, a,
+                                                       id(s) in stacked))
 
     def from_jax_params(self, tree):
         """Carry JAX parameters across: ``tree`` is the JAX param pytree of
         GLOBAL (padded) arrays with numpy leaves (``jax.device_get``); bf16
         leaves keep their bits.  Shapes are checked against this model's
-        specs, then each leaf is cut to this rank's shard (TP, then
-        fsdp)."""
+        specs, then each leaf is cut to this rank's shard (TP, fsdp, then
+        the stage's layers)."""
+        specs = self.specs()
+        stacked = _stacked_ids(specs)
+
         def conv(spec: ParamSpec, a):
             t = _to_tensor(a, self.device)
             if tuple(t.shape) != spec.shape:
                 raise ValueError(f"param shape {tuple(t.shape)} != spec "
                                  f"{spec.shape}")
-            return self.shard(spec, t)
-        return tree_map(conv, self.specs(), tree)
+            return self.shard(spec, t, id(spec) in stacked)
+        return tree_map(conv, specs, tree)
 
     # ---- training ---------------------------------------------------------
     def batch_slice(self, batch: dict) -> dict:

@@ -79,21 +79,23 @@ def init_opt_state(params) -> dict:
             "step": 0}
 
 
-def _axis_groups(group, fsdp_groups) -> dict:
-    """Mesh axis name -> what the collectives move over along it."""
-    from repro_torch.core.parallel import FSDP_AXES, TP_AXIS
-    fsdp = tuple(fsdp_groups) or (None,) * len(FSDP_AXES)
-    return {TP_AXIS: group, **dict(zip(FSDP_AXES, fsdp))}
+def _axis_groups(model, group, fsdp_groups) -> dict:
+    """Mesh axis name -> what the collectives move over along it (the
+    model's fsdp axes, one group each)."""
+    fsdp = tuple(fsdp_groups) or (None,) * len(model.fsdp_axes)
+    return {model.tp_axis: group,
+            **dict(zip(model.fsdp_axes, fsdp, strict=True))}
 
 
 def finalize_grads(grads, model, group=None, fsdp_groups=()):
     """Sum the grads of replicated-but-divergently-used parameters over the
     mesh axes they are replicated on (``model.replicated_grad_axes``):
-    over the TP ``group`` and the ``fsdp_groups`` (pod, data).  Per-rank
+    over the TP ``group`` and the ``fsdp_groups`` (one per axis of
+    ``model.fsdp_axes``).  Per-rank
     autograd covers only this rank's use of them.  The sums run in f32, in
     one ``all_reduce`` per group of the concatenated grads of the
     parameters that need it, and the summed grads stay f32."""
-    by_axis = _axis_groups(group, fsdp_groups)
+    by_axis = _axis_groups(model, group, fsdp_groups)
     flat, specs = list(leaves(grads)), leaves(model.specs())
     for axis, g in by_axis.items():
         if not cc.moves(g):
@@ -118,7 +120,7 @@ def global_grad_norm(grads, model, group=None, fsdp_groups=()) -> torch.Tensor:
     JAX package's order: each class's sum of squares is summed over the
     groups it is sharded on (the fsdp groups for an ``fsdp_dim``, the TP
     ``group`` for a ``tp_dim``), the replicated class is counted once."""
-    by_axis = _axis_groups(group, fsdp_groups)
+    by_axis = _axis_groups(model, group, fsdp_groups)
     terms: dict = {}
     for g, s in zip(leaves(grads), leaves(model.specs())):
         axes = (model.fsdp_axes if s.fsdp_dim is not None else ()) + \

@@ -28,12 +28,23 @@ def dp_axes(model) -> tuple:
     return model.fsdp_axes
 
 
+def check_fsdp_axes(model, ctx) -> None:
+    """The model's fsdp axes (how its weights are cut) must be the ctx's
+    (the groups its collectives run over): the optimizer pairs them one to
+    one."""
+    if tuple(model.fsdp_axes) != tuple(ctx.fsdp_axes):
+        raise ValueError(f"the model is cut over the fsdp axes "
+                         f"{model.fsdp_axes}, the ctx's groups are over "
+                         f"{ctx.fsdp_axes}")
+
+
 def build_train_step(model, ctx, oc: adamw.OptConfig):
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
     metrics)``.  ``params`` are the model's bf16 leaf tensors; the step
     marks them as requiring grad, runs ``backward()`` and updates them and
     ``opt_state`` in place.  metrics: ``loss`` and ``grad_norm`` (0-d f32
     tensors on the device) and ``lr`` (float)."""
+    check_fsdp_axes(model, ctx)
 
     def step(params, opt_state, batch):
         flat = adamw.leaves(params)

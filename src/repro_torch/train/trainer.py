@@ -41,16 +41,18 @@ class TrainerConfig:
 
 class Trainer:
     """``Trainer(model, ctx, oc, tc, data).run(steps)``; the parameters
-    live on ``model.device``."""
+    live on ``model.device``.  ``build_step(model, ctx, oc)`` builds the
+    step function of a plan: ``train_step.build_train_step`` by default, or
+    a pipeline step (``train/pipeline_parallel.py``)."""
 
     def __init__(self, model, ctx, oc: adamw.OptConfig, tc: TrainerConfig,
-                 data, injector=None):
+                 data, injector=None, build_step=build_train_step):
         if injector is not None:
             raise NotImplementedError(f"fault injection {NOT_IN_SLICE}")
         if tc.ckpt_dir is not None or tc.ckpt_every is not None:
             raise NotImplementedError(f"checkpoint/restart {NOT_IN_SLICE}")
         self.model, self.ctx, self.oc, self.tc = model, ctx, oc, tc
-        self.data = data
+        self.data, self.build_step = data, build_step
         self.comm_spec = to_spec(ctx.plan)
         self.history: list[dict] = []
         self._steps: dict = {}
@@ -65,7 +67,7 @@ class Trainer:
         resolved here, outside the step)."""
         plan = self.ctx.plan.at_step(step)
         if plan not in self._steps:
-            self._steps[plan] = build_train_step(
+            self._steps[plan] = self.build_step(
                 self.model, dataclasses.replace(self.ctx, plan=plan),
                 self.oc)
         return self._steps[plan]

@@ -352,16 +352,18 @@ def _pad(a, mult):
     return np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, rem)])
 
 
-def _check_hops(shape, hops, tally):
+def _check_hops(shape, hops, tally, axes=None):
     """Every recorded hop, on every rank, against the JAX codec on the same
-    per-rank inputs (the peers of the rank's group along the hop's axis),
+    per-rank inputs (the peers of the rank's group along the hop's axis of
+    a mesh of ``axes``, the pod mesh's by default),
     to the parity rule of ``core/dp_compress.py``; the rank's recorded
     output must be the port codec's decode of the same wires bit for bit.
     ``tally`` sums the codes and flipped codes."""
     from repro_torch.core import dp_compress
     from repro_torch.core.codecs import Sdp4BitCodec
-    from repro_torch.launch.mesh import axis_ranks
+    from repro_torch.launch.mesh import AXES, axis_ranks
     import jax
+    axes = axes or AXES
     codec, jcodec = Sdp4BitCodec(), jcodec_from_spec("sdp4bit")
     # one compile a shape, not one a primitive
     jencode = jax.jit(jcodec.encode_wire)
@@ -372,7 +374,7 @@ def _check_hops(shape, hops, tally):
     assert len({len(h) for h in hops}) == 1 and hops[0]
     for k, (axis, kind, dim, _, _) in enumerate(hops[0]):
         assert all(hops[r][k][:3] == (axis, kind, dim) for r in ranks_all)
-        for ranks in axis_ranks(shape, axis):
+        for ranks in axis_ranks(shape, axis, axes):
             p = len(ranks)
             xs = [hops[r][k][3] for r in ranks]
             if kind == "rs":

@@ -686,3 +686,75 @@ def test_sdp4bit_codec_on_card_matches_cpu(card, spec, in_dtype):
         codec.decode_sum_wire(want, n, torch.float32),
         exact["bound"].sum(dim=0), codec.block)
     assert codec.decode_wire(wire, n, in_dtype).dtype == in_dtype
+
+
+@pytest.mark.parametrize("spec", ["tahquant", "tahquant:g32", "int8",
+                                  "int8:g64"])
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
+def test_group_int8_codecs_on_card_match_cpu(card, spec, in_dtype):
+    """TahQuant (the pipeline boundary) and int8 (the weight gather) on
+    the card against the CPU on the same input: codes, scales and decodes
+    bit for bit (one f32 division and a half-to-even round on both); the
+    peer-summed decode of one wire too (peer order)."""
+    codec = codec_from_spec(spec)
+    gen = np.random.default_rng(21)
+    n = 2048 * 40
+    x = torch.from_numpy(tp_like(gen, (3, n), scale=1.0)).to(in_dtype)
+    wire = codec.encode_wire(x.to(card))
+    want = codec.encode_wire(x)
+    assert torch.equal(wire.cpu(), want)
+    assert torch.equal(codec.decode_wire(want.to(card), n, in_dtype).cpu(),
+                       codec.decode_wire(want, n, in_dtype))
+    assert torch.equal(
+        codec.decode_sum_wire(want.to(card), n, torch.float32).cpu(),
+        codec.decode_sum_wire(want, n, torch.float32))
+
+
+def _pipe_smoke_model(device):
+    import dataclasses
+
+    from repro_torch.configs import get_config, make_plan, smoke_config
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(smoke_config(get_config("gpt-2.7b")),
+                              n_layers=4)
+    return Model(cfg, make_plan(cfg, 1, 1), device=device,
+                 fsdp_axes=("data",))
+
+
+@pytest.mark.parametrize("spec", ["baseline", "taco3d", "weight_ag=int8",
+                                  "pp=tahquant,weight_ag=int8"])
+def test_pipeline_step_on_card_matches_cpu(card, spec):
+    """The pipeline step at pipe = 1 (4 microbatches, smoke gpt-2.7b cut
+    to 4 layers) on the card against the CPU, same weights and batch:
+    loss 1e-3 and grad norm 5e-2 relative (phase 4's bounds); under a TACO
+    plan the card launches the compress kernels (the wire form: a smoke
+    hop is inside the wire budget), and no plain route."""
+    from repro_torch.core.parallel import ParallelCtx
+    from repro_torch.core.registry import from_spec
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train import pipeline_parallel as ppl
+    cpu, gpu = _pipe_smoke_model("cpu"), _pipe_smoke_model(card)
+    init = cpu.init(0)
+    batch = SyntheticLM(DataConfig(cpu.cfg.vocab_size, 64, 8)).batch(0)
+    ctx = ParallelCtx(plan=from_spec(spec), fsdp_axes=("data",))
+    oc = adamw.OptConfig(lr_max=1e-3, lr_min=1e-4, warmup_steps=2,
+                         total_steps=10)
+    res = {}
+    plain = dict(ops.plain_routes)
+    compress = (ash_compress.compress_blocks, ash_compress.compress_wire)
+    before = sum(k.launches for k in compress)
+    for model in (cpu, gpu):
+        params = tree_map(lambda a: a.to(model.device).clone(), init)
+        step = ppl.build_pipeline_train_step(
+            model, ctx, oc, ppl.PipeConfig(stages=1, microbatches=4))
+        _, _, m = step(params, adamw.init_opt_state(params),
+                       SyntheticLM.place(batch, model.device))
+        res[model.device.type] = (float(m["loss"]), float(m["grad_norm"]))
+    (lc, gc), (lg, gg) = res["cpu"], res["cuda"]
+    assert np.isfinite(lg) and np.isfinite(gg)
+    assert abs(lg - lc) / lc < 1e-3 and abs(gg - gc) / gc < 5e-2
+    assert ops.plain_routes == plain
+    launched = sum(k.launches for k in compress) - before
+    assert (launched > 0) == (not ctx.plan.tp_identity)

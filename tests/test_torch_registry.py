@@ -1,8 +1,8 @@
-"""The port's spec grammar: the supported subset (the ``none``, ``taco``
-and ``sdp4bit`` codecs) round-trips to the same normalized strings as the
-JAX registry; what is not ported yet (other codecs, lossless stages, the
-escalation policy) and the TPU implementation tokens are rejected with a
-clear error."""
+"""The port's spec grammar: the supported subset (the ``none``, ``taco``,
+``sdp4bit``, ``tahquant`` and ``int8`` codecs, the ``taco3d`` alias)
+round-trips to the same normalized strings as the JAX registry; what is
+not ported yet (lossless stages, the escalation policy) and the TPU
+implementation tokens are rejected with a clear error."""
 import pytest
 
 from repro.core import registry as jreg
@@ -24,6 +24,10 @@ SUPPORTED = [
     "tp=taco:folded:chunks=4,grad_rs=sdp4bit:chunks=4:schedule=serial",
     "weight_ag=sdp4bit:b256:norot,grad_rs=sdp4bit", "tp=sdp4bit",
     "tp=taco,grad_rs=sdp4bit,skip_first=2,warmup=100",
+    "pp=tahquant", "pp=tahquant:g32", "weight_ag=int8",
+    "weight_ag=int8:g64:chunks=2", "pp=tahquant,weight_ag=int8", "taco3d",
+    "pp=int8:chunks=3:schedule=serial", "grad_rs=tahquant:g128",
+    "tp=taco:folded:chunks=4,grad_rs=sdp4bit,pp=tahquant,weight_ag=int8",
 ]
 
 
@@ -38,8 +42,9 @@ def test_round_trip_matches_jax(spec):
 
 @pytest.mark.parametrize("spec", [
     "grad_rs=sdp4bit:escalate=bf16@0.08",
-    "grad_rs=sdp4bit:escalate=int8@0.1:hold=5", "pp=tahquant",
-    "weight_ag=int8", "taco3d", "tp=taco+zle", "tp=taco+zle:slot=auto",
+    "grad_rs=sdp4bit:escalate=int8@0.1:hold=5",
+    "pp=tahquant:escalate=bf16@0.1", "weight_ag=int8:escalate=int8@0.05:hold=3",
+    "pp=tahquant+zle", "tp=taco+zle", "tp=taco+zle:slot=auto",
     "tp=taco:escalate=bf16@0.08", "tp=taco:escalate=int8@0.1:hold=5"])
 def test_not_ported_yet_is_rejected(spec):
     jreg.from_spec(spec)                     # valid in the JAX grammar
@@ -58,6 +63,8 @@ def test_tpu_impl_tokens_rejected(tok):
     "tp=taco,tp_fwd=none", "nonsense", "tp=none:chunks=2",
     "warmup=-1", "skip_first=x", "tp=taco:tensorscale:g64",
     "tp=taco:schedule=fast", "tp=taco:chunks=0", "tp=taco:cdint7",
+    "pp=tahquant:g0", "pp=tahquant:b64", "weight_ag=int8:norot",
+    "pp=tahquant:chunks=0",
 ])
 def test_malformed_specs_rejected(spec):
     with pytest.raises(reg.CommSpecError):

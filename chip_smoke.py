@@ -89,9 +89,22 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      776 K3, 648 K4), losses within 5e-2 of baseline's, and one step's
      boundary hops (TahQuant) and weight gathers (``Int8Codec``) replayed
      at full width, card against CPU (codes apart from ties, scales bit
-     for bit) and profiled.
+     for bit) and profiled;
+  8. checkpoint and restart: full-width qwen2-0.5b through the train
+     launcher (``--ckpt``) on phase 6's groups under
+     ``tp=taco,grad_rs=sdp4bit``, 6 steps with a checkpoint every 3 in a
+     temporary directory (the global state gathered through NCCL, one
+     ``.npy`` a leaf), then again with a failure injected at step 4: the
+     trainer restores step 3 and replays.  The restored state must equal
+     the saved state bit for bit, the replayed run's losses and final
+     params and optimizer state the uninterrupted run's, and each of the 7
+     executed steps launch phase 3's taco counts; save and restore times
+     and GB/s are printed with the card's name and power limit.  Then the
+     serve launcher's ``--ckpt`` builds an engine from the checkpoint, and
+     its greedy tokens on 2 requests must equal those of an engine built
+     from the in-memory params.
 
-Every training and serving run of phases 2, 3, 5, 6 and 7 must take only
+Every training and serving run of phases 2, 3, 5, 6, 7 and 8 must take only
 kernels: ``ops.plain_routes`` stays 0.  Nothing is caught: any failure
 exits non-zero.  The line before the last
 is the kernel table as JSON; the last is
@@ -138,6 +151,11 @@ PIPE_ARCH, PIPE_MICRO = "gpt-2.7b", 4     # phase 7: full width, 4 microbatches
 #: one TP hop of phase 7's step: a microbatch (batch / M rows) x d 2560
 PIPE_N = TRAIN_BATCH // PIPE_MICRO * TRAIN_SEQ * 2560
 TRAIN_SIZE = "--no-smoke"                 # full width and depth
+#: phase 8: steps, a checkpoint every RESTART_EVERY, a failure injected at
+#: RESTART_FAIL; then RESTART_REQUESTS requests of RESTART_GEN tokens
+#: served from the checkpoint
+RESTART_STEPS, RESTART_EVERY, RESTART_FAIL = 6, 3, 4
+RESTART_REQUESTS, RESTART_GEN = 2, 8
 DEVICE = "cuda"                           # where phase 1b's tensors live
 
 
@@ -1396,6 +1414,212 @@ def phase_pipe_parity(mesh) -> None:
                  if n_int8 else ""))
 
 
+# --------------------------------------------------------------------------
+# phase 8: checkpoint, restart after an injected failure, and serving from
+# the checkpoint
+# --------------------------------------------------------------------------
+
+def restart_trainer(mesh, ckpt_dir: str, injector=None):
+    """Full-width qwen2-0.5b through the train launcher's entry points
+    (``--ckpt``) on the 1-rank pod / data / model groups of phase 6, under
+    ``DP_SPEC``: ``RESTART_STEPS`` steps, a checkpoint every
+    ``RESTART_EVERY`` (the launcher's own default is max(steps / 4, 10)),
+    the last one kept."""
+    from repro_torch.launch import train
+    args = train.parse_args([
+        "--arch", "qwen2-0.5b", TRAIN_SIZE, "--comm-spec", DP_SPEC,
+        "--steps", str(RESTART_STEPS), "--seq", str(TRAIN_SEQ), "--batch",
+        str(TRAIN_BATCH), "--lr", "3e-4", "--seed", "0", "--ckpt", ckpt_dir])
+    trainer, cfg = train.build_trainer(args, mesh=mesh)
+    trainer.tc.ckpt_every, trainer.tc.keep_last = RESTART_EVERY, 1
+    trainer.injector = injector
+    return trainer, want_per_step(cfg, trainer.model.plan, trainer.ctx.plan)
+
+
+def _timed(fn, into: list):
+    """``fn`` timed (host wall, after a synchronize) into ``into``."""
+    def call(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        into.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+def _state_leaves(params, opt) -> list:
+    from repro_torch.optim import adamw
+    return adamw.leaves(params) + adamw.leaves(
+        {k: opt[k] for k in ("master", "mu", "nu")})
+
+
+def _greedy(eng, prompts) -> list:
+    reqs = [eng.submit(p, max_new=RESTART_GEN) for p in prompts]
+    eng.run_until_drained()
+    return [list(r.tokens) for r in reqs]
+
+
+def phase_restart(counters, mesh, smi: str) -> dict:
+    """Train ``RESTART_STEPS`` steps with a checkpoint every
+    ``RESTART_EVERY`` (``Trainer.save``: the global state gathered through
+    the 1-rank NCCL groups, written by ``ckpt/checkpoint.py``), then again
+    with a failure injected at step ``RESTART_FAIL``: the trainer restores
+    the last checkpoint and replays.  The restored state must equal the
+    saved state bit for bit, the replayed run's losses and final params
+    the uninterrupted run's, and every executed step launch
+    ``want_per_step``'s kernels (the counts of the replayed run, set to 0
+    before it).  Then the serve launcher's ``--ckpt`` builds an engine
+    from the checkpoint: its greedy tokens on ``RESTART_REQUESTS``
+    requests must equal those of an engine built from the in-memory
+    params."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.runtime.fault_tolerance import FailureInjector
+    from repro_torch.serve.engine import ServeEngine
+    names = list(counters)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(root).free / 1e9
+        saves, restores, nbytes = [], [], []
+        snapshot, restored_diff, per_step = {}, [], []
+
+        def saving(trainer):
+            """``trainer.save``, timed, its leaves' bytes counted, and the
+            state that step RESTART_EVERY saves kept for the restore's
+            check."""
+            save = _timed(trainer.save, saves)
+
+            def call(step, params, opt):
+                if step == RESTART_EVERY and trainer.injector is not None:
+                    snapshot["leaves"] = [t.clone() for t in
+                                          _state_leaves(params, opt)]
+                    snapshot["step"] = opt["step"]
+                save(step, params, opt)
+                d = pathlib.Path(trainer.tc.ckpt_dir) / f"step_{step:08d}"
+                nbytes.append(sum(f.stat().st_size
+                                  for f in d.glob("leaf_*.npy")))
+            return call
+
+        trainer, want = restart_trainer(mesh, f"{root}/ref")
+        trainer.save = saving(trainer)
+        params, opt, hist = trainer.run(resume=False)
+        ref_losses = [h["loss"] for h in hist]
+        ref_params = [t.clone() for t in _state_leaves(params, opt)]
+        del trainer, params, opt, hist
+        shutil.rmtree(f"{root}/ref")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        trainer, _ = restart_trainer(mesh, f"{root}/run",
+                                     FailureInjector([RESTART_FAIL]))
+        restore = _timed(trainer.try_restore, restores)
+
+        def restoring(params, opt):
+            out = restore(params, opt)
+            got = _state_leaves(out[0], out[1])
+            restored_diff.append(sum(
+                not torch.equal(a, b)
+                for a, b in zip(got, snapshot["leaves"], strict=True)))
+            if out[1]["step"] != snapshot["step"] or out[2] != RESTART_EVERY:
+                raise AssertionError(f"restored step {out[2]}, opt step "
+                                     f"{out[1]['step']}")
+            snapshot.clear()
+            return out
+        trainer.save = saving(trainer)
+        trainer.try_restore = restoring
+        inner = trainer.step_fn_for
+
+        def counted(step):
+            fn = inner(step)
+
+            def run(*a):
+                before = [counters[k].launches for k in names]
+                res = fn(*a)
+                per_step.append([counters[k].launches - b
+                                 for k, b in zip(names, before)])
+                return res
+            return run
+        trainer.step_fn_for = counted
+        for c in counters.values():
+            c.launches = 0
+        for k in ops.plain_routes:
+            ops.plain_routes[k] = 0
+        params, opt, hist = trainer.run(resume=False)
+        launches = {k: counters[k].launches for k in names}
+        no_plain_routes("train restart")
+        want_row = [want[k] for k in names]
+        executed = RESTART_STEPS + RESTART_FAIL - RESTART_EVERY
+        if len(per_step) != executed or \
+                any(row != want_row for row in per_step):
+            raise AssertionError(f"restart: per-step launches {per_step}, "
+                                 f"want {executed} x {want_row}")
+        if restored_diff != [0]:
+            raise AssertionError(f"restored state vs saved: {restored_diff}"
+                                 " leaves differ (want one restore, 0)")
+        losses = [h["loss"] for h in hist]
+        final = _state_leaves(params, opt)
+        diff = sum(not torch.equal(a, b)
+                   for a, b in zip(final, ref_params, strict=True))
+        if len(set(nbytes)) != 1 or len(nbytes) != 4:
+            raise AssertionError(f"checkpoint bytes {nbytes}")
+        gb = nbytes[0] / 1e9
+        print(f"  {smi}: {RESTART_STEPS} steps of {DP_SPEC}, a checkpoint "
+              f"every {RESTART_EVERY} ({len(final)} leaves, {gb:.3f} GB "
+              f"each; {free:.1f} GB free under {root}); failure injected "
+              f"at step {RESTART_FAIL}")
+        for label, secs in (("save (gather + write)", saves),
+                            ("restore (read + cut + to the card)",
+                             restores)):
+            print(f"    {label}: " + ", ".join(
+                f"{t:.3f} s ({gb / t:.3f} GB/s)" for t in secs))
+        print(f"    restored state vs saved state: {restored_diff[0]} of "
+              f"{len(final)} leaves differ (bitwise)")
+        print(f"    uninterrupted losses {ref_losses}")
+        print(f"    replayed losses      {losses}")
+        print(f"    final params and optimizer state: {diff} of "
+              f"{len(final)} leaves differ from the uninterrupted run's; "
+              f"launches {launches} over {executed} executed steps")
+        if losses != ref_losses or diff:
+            raise AssertionError(f"the replayed run differs: {diff} leaves,"
+                                 f" losses {losses} vs {ref_losses}")
+        trainer.step_fn_for = inner = counted = None
+        del trainer, ref_params, final
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # serving from the checkpoint (the last, step RESTART_STEPS)
+        args = serve.parse_args([
+            "--arch", "qwen2-0.5b", "--no-smoke", "--comm-spec", "taco",
+            "--max-batch", str(RESTART_REQUESTS), "--requests",
+            str(RESTART_REQUESTS), "--prompt-len", "16", "--gen",
+            str(RESTART_GEN), "--seed", "0", "--ckpt", f"{root}/run"])
+        eng, cfg = serve.build_engine(args)
+        mem = ServeEngine(eng.model, eng.ctx, params,
+                          max_batch=eng.max_batch, max_len=eng.max_len,
+                          prefill_buckets=eng.buckets)
+        gen = np.random.default_rng(8)
+        prompts = [gen.integers(0, cfg.vocab_size, 16).astype(np.int32)
+                   for _ in range(RESTART_REQUESTS)]
+        toks, want_toks = _greedy(eng, prompts), _greedy(mem, prompts)
+        if toks != want_toks or any(len(t) != RESTART_GEN for t in toks):
+            raise AssertionError(f"--ckpt engine tokens {toks}, in-memory "
+                                 f"{want_toks}")
+        print(f"    serve --ckpt (taco): {RESTART_REQUESTS} requests, "
+              f"greedy tokens equal the in-memory params' engine: {toks}")
+        eng = mem = None
+        del params, opt
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "save_s": saves, "restore_s": restores,
+            "bytes": nbytes, "leaves_differ": diff}
+
+
 def check_losses(base: dict, other: dict, label: str) -> float:
     """``other``'s loss within 5e-2 relative of ``base``'s at every step;
     returns the worst relative difference."""
@@ -1689,6 +1913,13 @@ def main() -> None:
               f"{prof['taco_kernels_ms']:.3f} ms, peak {r['peak_mib']:.1f} "
               "MiB" + (f", grad_rs codec {r['grad_codec']['codec_ms']:.3f} "
                        f"ms" if "grad_codec" in r else ""))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 8 ({time.monotonic() - t_start:.0f} s): checkpoint, "
+          "restart after an injected failure and serving from the "
+          f"checkpoint, full-width qwen2-0.5b on the phase 6 groups, "
+          f"{DP_SPEC}")
+    restart = phase_restart(kernels, mesh, smi)
     dist.destroy_process_group()
     meta = {
         "compress_blocks": ("src/repro_torch/kernels/csrc/ash_compress.cu",
@@ -1719,6 +1950,7 @@ def main() -> None:
         "train ring": ring_train["launches"],
         "train dp": dp_train["launches"],
         "train 3d": threed["3d"]["launches"],
+        "train restart": restart["launches"],
         "serve ring": dict(zip(wire_names, ring_serve["launches"]))}
     launches = dict(by_path["serve taco"])
     launches.update({k: by_path["train taco"][k]

@@ -17,6 +17,10 @@ and issue the same collectives.  Rank 0 prints.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --no-smoke --qps 16 --requests 8 --max-batch 4 --gen 16 \
         --comm-spec taco
+
+``--ckpt DIR`` serves the parameters of the latest checkpoint in DIR (a
+trainer checkpoint of either package, or a bare parameter tree) in place
+of the seeded ones.
 """
 from __future__ import annotations
 
@@ -29,11 +33,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.ckpt import checkpoint as ck
 from repro_torch.configs import get_config, make_plan, smoke_config
 from repro_torch.core import collectives as cc
 from repro_torch.core.parallel import ParallelCtx, init_tp_group
 from repro_torch.launch.mesh import parse_mesh
 from repro_torch.core.registry import from_spec, to_spec
+from repro_torch.models.layers import tree_map
 from repro_torch.models.model import Model
 from repro_torch.serve.engine import ServeEngine
 
@@ -92,12 +98,13 @@ def build_engine(args, group=None):
     pod, data, tp = parse_mesh(args.mesh)
     if pod * data != 1:
         raise NotImplementedError(
-            f"mesh {args.mesh}: serving over pod and data axes (the "
-            "engine's dp batch split) is not ported; the port serves tensor "
-            "parallel only (--mesh 1,1,P)")
-    if args.ckpt:
-        raise NotImplementedError("checkpoint restore (ckpt/checkpoint.py) "
-                                  "is ported in a later slice")
+            f"mesh {args.mesh}: serving over pod and data axes is not "
+            "ported, and the JAX package cannot do it either: its engine "
+            "places each request's one-row prefill cache with the "
+            "dp-sharded cache specs (src/repro/serve/engine.py, lines "
+            "270-271), and a batch of 1 does not split over data > 1 "
+            "(ValueError at --mesh 1,2,2); the port serves tensor parallel "
+            "only (--mesh 1,1,P)")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
@@ -113,12 +120,37 @@ def build_engine(args, group=None):
     if ctx.tp_rank == 0:
         print(f"serving with comm spec: {to_spec(comm_plan)}")
     params = model.init(args.seed)
+    if args.ckpt:
+        params = restore_params(args.ckpt, model, params,
+                                verbose=ctx.tp_rank == 0)
     max_len = max(args.max_len, args.prompt_len + args.gen + 1)
     buckets = tuple(sorted({min(8, args.prompt_len),
                             min(32, max(args.prompt_len, 1))}))
     return ServeEngine(model, ctx, params, max_batch=args.max_batch,
                        max_len=max_len, prefill_buckets=buckets,
                        device=args.device), cfg
+
+
+def restore_params(ckpt_dir: str, model, params, verbose: bool = True):
+    """This rank's shards of the parameters in the latest checkpoint of
+    ``ckpt_dir``: a bare parameter tree, or the ``['params']`` subtree of a
+    trainer checkpoint (the JAX package's launcher means to unwrap it,
+    but restores against the bare tree and fails on a trainer checkpoint:
+    ROADMAP queue 3).  Prints the spec the checkpoint was trained with and
+    the step."""
+    trained_spec = ck.read_comm_spec(ckpt_dir)
+    if trained_spec is not None and verbose:
+        # serving may legitimately use another decode plan than the one
+        # trained with: surface it rather than fail
+        print(f"checkpoint was trained with comm spec: {trained_spec}")
+    prefix = "['params']" if any(k.startswith("['params']")
+                                 for k in ck.leaf_keys(ckpt_dir)) else ""
+    template = tree_map(lambda s, p: torch.empty(
+        s.shape, dtype=p.dtype, device="meta"), model.specs(), params)
+    glob, step = ck.restore(ckpt_dir, template, device="cpu", prefix=prefix)
+    if verbose:
+        print(f"restored checkpoint step {step}")
+    return model.cut_params(glob)
 
 
 def drive(eng, args, cfg) -> tuple[dict, float]:

@@ -26,6 +26,12 @@ global batches and keeps its shards.
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --device cpu --smoke --mesh 1,2,2 --steps 3 --seq 32 --batch 4 \
         --comm-spec tp=taco,grad_rs=sdp4bit
+
+``--ckpt DIR`` saves the global state (every rank's shards gathered; rank
+0 writes) every max(steps / 4, 10) steps and at the last, in the JAX
+package's layout (``ckpt/checkpoint.py``); with ``--resume`` (the
+default) a run starts from the latest checkpoint in DIR, on any mesh
+whose padded shapes match (``runtime/elastic.py`` ``replan``).
 """
 from __future__ import annotations
 
@@ -65,6 +71,13 @@ def parse_args(argv=None):
     ap.add_argument("--mesh", default="1,1,1",
                     help="pod,data,model; more than one rank runs under "
                          "torchrun with pod*data*model processes")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint dir: the state is saved every "
+                         "max(steps/4, 10) steps and at the last (default: "
+                         "no checkpoint)")
+    ap.add_argument("--resume", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="start from the latest checkpoint in --ckpt")
     return ap.parse_args(argv)
 
 
@@ -100,7 +113,9 @@ def build_trainer(args, group=None, mesh=None):
     oc = OptConfig(lr_max=args.lr, lr_min=args.lr / 10,
                    warmup_steps=max(args.steps // 20, 5),
                    total_steps=args.steps)
-    tc = TrainerConfig(total_steps=args.steps, seed=args.seed)
+    tc = TrainerConfig(total_steps=args.steps,
+                       ckpt_every=max(args.steps // 4, 10),
+                       ckpt_dir=args.ckpt, seed=args.seed)
     return Trainer(model, ctx, oc, tc, data), cfg
 
 
@@ -109,11 +124,15 @@ def main(argv=None):
     trainer, cfg = build_trainer(args)
     rank = dist.get_rank() if dist.is_initialized() else 0
     try:
-        _, _, hist = trainer.run()
+        _, _, hist = trainer.run(resume=args.resume)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
     if rank != 0:
+        return
+    if not hist:
+        print(f"{cfg.name}: the checkpoint in {args.ckpt} is at step "
+              f"{args.steps} already; nothing to run")
         return
     for h in hist:
         print(f"step {h['step']} loss {h['loss']:.4f} "

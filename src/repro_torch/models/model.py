@@ -24,10 +24,14 @@ B/F, (f + 1) * B/F)`` of the global batch (``batch_slice``).
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, RunPlan
+from repro_torch.core import collectives as cc
+from repro_torch.core.collectives import Identity, all_gather_c
 from repro_torch.core.parallel import FSDP_AXES, TP_AXIS
 from repro_torch.data import pipeline as data_pipeline
 from repro_torch.models import transformer
@@ -53,6 +57,16 @@ def _to_tensor(a, device) -> torch.Tensor:
         return torch.from_numpy(a.view(np.int16).copy()).view(
             torch.bfloat16).to(device)
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def _gather_bytes(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``x`` of every rank of ``group`` (a group or a tuple of groups),
+    concatenated along ``dim`` in rank order, bit for bit: each element
+    crosses as its bytes (uint8, a trailing dim of the item size), so any
+    dtype crosses any backend."""
+    raw = x.contiguous().view(torch.uint8).reshape(*x.shape, x.element_size())
+    out = all_gather_c(raw, group, dim, Identity, Identity)
+    return out.reshape(*out.shape[:-2], -1).view(x.dtype)
 
 
 def _stacked_ids(specs) -> set:
@@ -134,22 +148,64 @@ class Model:
                            cut=lambda s, a: self.shard(s, a,
                                                        id(s) in stacked))
 
-    def from_jax_params(self, tree):
-        """Carry JAX parameters across: ``tree`` is the JAX param pytree of
-        GLOBAL (padded) arrays with numpy leaves (``jax.device_get``); bf16
-        leaves keep their bits.  Shapes are checked against this model's
-        specs, then each leaf is cut to this rank's shard (TP, fsdp, then
-        the stage's layers)."""
+    def cut_params(self, tree):
+        """This rank's shards of a tree of GLOBAL (padded) tensors in the
+        parameter layout (the parameters, or AdamW's master weights or
+        moments), each on the model's device: shapes are checked against
+        this model's specs, then each leaf is cut as :meth:`shard` cuts it
+        (TP, fsdp, then the stage's layers)."""
         specs = self.specs()
         stacked = _stacked_ids(specs)
 
-        def conv(spec: ParamSpec, a):
-            t = _to_tensor(a, self.device)
+        def cut(spec: ParamSpec, t):
             if tuple(t.shape) != spec.shape:
                 raise ValueError(f"param shape {tuple(t.shape)} != spec "
                                  f"{spec.shape}")
-            return self.shard(spec, t, id(spec) in stacked)
-        return tree_map(conv, specs, tree)
+            return self.shard(spec, t, id(spec) in stacked).to(self.device)
+        return tree_map(cut, specs, tree)
+
+    def from_jax_params(self, tree):
+        """Carry JAX parameters across: ``tree`` is the JAX param pytree of
+        GLOBAL (padded) arrays with numpy leaves (``jax.device_get``); bf16
+        leaves keep their bits (:meth:`cut_params`)."""
+        return self.cut_params(tree_map(lambda a: _to_tensor(a, "cpu"),
+                                        tree))
+
+    def unshard(self, spec: ParamSpec, part: torch.Tensor, ctx,
+                stacked: bool = False) -> torch.Tensor:
+        """The inverse of :meth:`shard`: the global parameter from this
+        rank's ``part``, gathered over the pipe group (a leaf of a layer
+        stack, along dim 0), the fsdp groups (along ``spec.fsdp_dim``,
+        innermost first) and the TP group (along ``spec.tp_dim``) of
+        ``ctx``.  Every rank of those groups calls it, in the same order,
+        and gets the whole parameter; a group of one rank copies through
+        ``torch.distributed`` too.  The bytes move as they are, whatever
+        the dtype."""
+        out = part
+        for dim, n, group in ((0 if stacked else None, self.pipe,
+                               ctx.pipe_group),
+                              (spec.fsdp_dim, self.plan.fsdp,
+                               tuple(ctx.fsdp_groups)),
+                              (spec.tp_dim, self.plan.tp, ctx.comm)):
+            if dim is None:
+                continue
+            size = math.prod(cc.group_size(g) for g in (
+                group if isinstance(group, tuple) else (group,)))
+            if size != n:
+                raise ValueError(f"param dim {dim} of {spec.shape} is cut "
+                                 f"into {n} shards, its group has {size} "
+                                 "ranks")
+            out = _gather_bytes(out, group, dim)
+        return out
+
+    def gather_params(self, tree, ctx, device="cpu"):
+        """:meth:`unshard` of every leaf of a tree in the parameter layout
+        (the parameters, or AdamW's master weights or moments), each global
+        leaf moved to ``device`` before the next is gathered."""
+        specs = self.specs()
+        stacked = _stacked_ids(specs)
+        return tree_map(lambda s, t: self.unshard(
+            s, t.detach(), ctx, id(s) in stacked).to(device), specs, tree)
 
     # ---- training ---------------------------------------------------------
     def batch_slice(self, batch: dict) -> dict:

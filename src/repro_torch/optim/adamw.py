@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import collectives as cc
+from repro_torch.core.parallel import PIPE_AXIS
 from repro_torch.models.layers import tree_map
 
 
@@ -87,21 +88,35 @@ def _axis_groups(model, group, fsdp_groups) -> dict:
             **dict(zip(model.fsdp_axes, fsdp, strict=True))}
 
 
-def finalize_grads(grads, model, group=None, fsdp_groups=()):
+def finalize_grads(grads, model, group=None, fsdp_groups=(), pipe_group=None):
     """Sum the grads of replicated-but-divergently-used parameters over the
     mesh axes they are replicated on (``model.replicated_grad_axes``):
     over the TP ``group`` and the ``fsdp_groups`` (one per axis of
-    ``model.fsdp_axes``).  Per-rank
-    autograd covers only this rank's use of them.  The sums run in f32, in
-    one ``all_reduce`` per group of the concatenated grads of the
-    parameters that need it, and the summed grads stay f32."""
+    ``model.fsdp_axes``), and, when ``pipe_group`` moves, every grad that
+    is not a layer stack's over the pipe group as well (the JAX package's
+    ``_finalize_pipe_grads``).  Per-rank autograd covers only this rank's
+    use of them.
+
+    The JAX package sums each such leaf with one ``psum`` over its tuple of
+    axes, on the bf16 grads: XLA adds the peers in f32 and rounds the sum
+    once to bf16.  So do these sums: one f32 ``all_reduce`` per group of
+    the concatenated grads that need it, then each summed grad rounded
+    once to its own dtype.  The f32 sum of a few bf16 peers is exact
+    unless their magnitudes lie more than ~16 binades apart, so the result
+    is the reference's bit for bit, and within one bf16 ulp at worst."""
     by_axis = _axis_groups(model, group, fsdp_groups)
     flat, specs = list(leaves(grads)), leaves(model.specs())
+    axes = [model.replicated_grad_axes(s) for s in specs]
+    if cc.moves(pipe_group):
+        outside = leaves({k: tree_map(lambda _, k=k: k != "segments", v)
+                          for k, v in grads.items()})
+        axes = [a + (PIPE_AXIS,) if o else a for a, o in zip(axes, outside)]
+        by_axis[PIPE_AXIS] = pipe_group
+    dtypes, summed = [g.dtype for g in flat], set()
     for axis, g in by_axis.items():
         if not cc.moves(g):
             continue
-        rep = [i for i, s in enumerate(specs)
-               if axis in model.replicated_grad_axes(s)]
+        rep = [i for i, a in enumerate(axes) if axis in a]
         if not rep:
             continue
         buf = cc.psum_exact(torch.cat([flat[i].float().reshape(-1)
@@ -111,6 +126,9 @@ def finalize_grads(grads, model, group=None, fsdp_groups=()):
             n = flat[i].numel()
             flat[i] = buf[off:off + n].reshape(flat[i].shape)
             off += n
+        summed.update(rep)
+    for i in summed:
+        flat[i] = flat[i].to(dtypes[i])
     it = iter(flat)
     return tree_map(lambda _: next(it), grads)
 

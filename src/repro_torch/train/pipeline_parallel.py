@@ -20,7 +20,8 @@ codec.
 Stage s owns layers ``[s * L/P, (s + 1) * L/P)`` of the layer stack
 (``models.model.Model`` with ``pipe`` and ``pipe_rank``); the embedding,
 the positions, the final norm and the head are whole on every stage, and
-their grads are summed over the pipe group (:func:`_finalize_pipe_grads`).
+their grads are summed over the pipe group too (``adamw.finalize_grads``
+with the pipe group: the JAX package's ``_finalize_pipe_grads``).
 The TP and fsdp sharding inside a stage is the unpipelined one, so the
 TACO sites are the same.  The loss sum and the token count are summed over
 the pipe and the data groups.
@@ -153,9 +154,9 @@ def build_pipeline_train_step(model, ctx, oc: adamw.OptConfig,
         loss = loss_fn(params, batch)
         loss.backward()
         # a parameter the loss does not reach gets a zero grad, as in JAX
-        grads = _finalize_pipe_grads(tree_map(
+        grads = adamw.finalize_grads(tree_map(
             lambda p: torch.zeros_like(p) if p.grad is None else p.grad,
-            params), model, ctx)
+            params), model, ctx.comm, ctx.fsdp_groups, ctx.pipe_group)
         for p in flat:
             p.grad = None
         metrics = adamw.adamw_update(params, grads, opt_state, oc, model,
@@ -164,28 +165,6 @@ def build_pipeline_train_step(model, ctx, oc: adamw.OptConfig,
         return params, opt_state, metrics
 
     return step
-
-
-def _finalize_pipe_grads(grads, model, ctx):
-    """The replicated-parameter grads summed over the TP and fsdp groups
-    by the unpipelined rule (``adamw.finalize_grads``), and every grad
-    that is not a layer stack's also over the pipe group, in one
-    ``all_reduce`` of the concatenated f32 grads."""
-    grads = adamw.finalize_grads(grads, model, ctx.comm, ctx.fsdp_groups)
-    if not cc.moves(ctx.pipe_group):
-        return grads
-    out = {k: v for k, v in grads.items() if k != "segments"}
-    flat = adamw.leaves(out)
-    buf = cc.psum_exact(torch.cat([g.float().reshape(-1) for g in flat]),
-                        ctx.pipe_group)
-    pieces, off = [], 0
-    for g in flat:
-        pieces.append(buf[off:off + g.numel()].reshape(g.shape))
-        off += g.numel()
-    it = iter(pieces)
-    out = tree_map(lambda _: next(it), out)
-    out["segments"] = grads["segments"]
-    return out
 
 
 def boundary_hops_per_step(pc: PipeConfig) -> dict:

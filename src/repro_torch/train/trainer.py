@@ -1,14 +1,24 @@
-"""The training loop — the JAX package's ``repro/train/trainer.py`` without
-its restart machinery.
+"""The training loop with checkpoint / restart, failure injection and the
+step watchdog — the JAX package's ``repro/train/trainer.py``.
 
 Each step resolves the plan that runs it (``ctx.plan.at_step``: the
 identity plan during ``warmup=``, the steady plan after), takes the step
 function built for that plan (one per plan, cached), runs it on this
 data rank's rows of the step's global batch and records the step's
 metrics, the plan's ``comm/*`` wire accounting among them
-(``core/telemetry.py``).  Checkpoint / restart, fault
-injection and the ``PolicyEngine`` controllers (``slot=auto``,
-``escalate=``) are not in this slice: asking for any of them raises.
+(``core/telemetry.py``).
+
+The loop is restart-oriented: all state is (params, opt_state, step), and
+the data pipeline is a pure function of step.  With ``tc.ckpt_dir`` set,
+the state is saved every ``tc.ckpt_every`` steps and at the last one
+(``ckpt/checkpoint.py``: the global arrays, gathered from every rank's
+shards; rank 0 writes), ``run(resume=True)`` starts from the latest
+checkpoint, and a step that raises (an ``injector`` failure or a real
+one) restores the latest checkpoint and replays from it, up to
+``RetryPolicy.max_restarts`` times — bitwise, as an uninterrupted run.
+``tc.ckpt_dir=None`` (the default) saves nothing.  The ``PolicyEngine``
+controllers (``slot=auto``, ``escalate=``) are not ported: the registry
+refuses their specs.
 """
 from __future__ import annotations
 
@@ -17,43 +27,44 @@ import logging
 import time
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.core import telemetry
 from repro_torch.core.registry import to_spec
+from repro_torch.models.layers import tree_map
 from repro_torch.optim import adamw
+from repro_torch.runtime.fault_tolerance import (FailureInjector, RetryPolicy,
+                                                 StepWatchdog)
 from repro_torch.train.train_step import build_train_step
 
 log = logging.getLogger("repro_torch.trainer")
-
-NOT_IN_SLICE = ("is not in the port's training slice yet (ROADMAP: "
-                "checkpoint/restart, fault injection and the policy "
-                "controllers come later)")
 
 
 @dataclasses.dataclass
 class TrainerConfig:
     total_steps: int = 100
+    ckpt_every: int = 50
     log_every: int = 10
+    ckpt_dir: str | None = None     # None: no checkpoint
+    keep_last: int = 3
     seed: int = 0
-    ckpt_every: int | None = None   # not in this slice: must stay None
-    ckpt_dir: str | None = None     # not in this slice: must stay None
 
 
 class Trainer:
-    """``Trainer(model, ctx, oc, tc, data).run(steps)``; the parameters
-    live on ``model.device``.  ``build_step(model, ctx, oc)`` builds the
-    step function of a plan: ``train_step.build_train_step`` by default, or
-    a pipeline step (``train/pipeline_parallel.py``)."""
+    """``Trainer(model, ctx, oc, tc, data).run()``; the parameters live on
+    ``model.device``.  ``build_step(model, ctx, oc)`` builds the step
+    function of a plan: ``train_step.build_train_step`` by default, or a
+    pipeline step (``train/pipeline_parallel.py``)."""
 
     def __init__(self, model, ctx, oc: adamw.OptConfig, tc: TrainerConfig,
-                 data, injector=None, build_step=build_train_step):
-        if injector is not None:
-            raise NotImplementedError(f"fault injection {NOT_IN_SLICE}")
-        if tc.ckpt_dir is not None or tc.ckpt_every is not None:
-            raise NotImplementedError(f"checkpoint/restart {NOT_IN_SLICE}")
+                 data, injector: FailureInjector | None = None,
+                 build_step=build_train_step):
         self.model, self.ctx, self.oc, self.tc = model, ctx, oc, tc
         self.data, self.build_step = data, build_step
+        self.injector = injector
         self.comm_spec = to_spec(ctx.plan)
+        self.watchdog = StepWatchdog()
         self.history: list[dict] = []
         self._steps: dict = {}
         log.info("comm plan: %s", self.comm_spec)
@@ -72,6 +83,7 @@ class Trainer:
                 self.oc)
         return self._steps[plan]
 
+    # ---- state ------------------------------------------------------------
     def init_state(self, params=None):
         """Parameters from ``tc.seed`` (or the given ones), fresh AdamW
         state, step 0."""
@@ -79,35 +91,118 @@ class Trainer:
             params = self.model.init(self.tc.seed)
         return params, adamw.init_opt_state(params), 0
 
-    def run(self, steps: int | None = None, params=None):
-        """Run ``steps`` optimizer steps (default ``tc.total_steps``) from
-        step 0.  Returns ``(params, opt_state, history)``; each history row
-        holds the step's loss, grad_norm, lr, wall ms, tokens/s of the
-        global batch, plan spec and ``comm/*`` keys."""
-        steps = self.tc.total_steps if steps is None else steps
-        params, opt_state, start = self.init_state(params)
+    def save(self, step: int, params, opt_state) -> None:
+        """Write the state as ``step``: every leaf of the parameter layout
+        gathered to its global (padded) array on the host
+        (``Model.gather_params``; every rank of the mesh takes part), the
+        step count as it is; rank 0 of the world writes, and every rank
+        returns once the checkpoint is committed."""
+        def host(tree):
+            return self.model.gather_params(tree, self.ctx)
+        state = {"params": host(params),
+                 "opt": {"master": host(opt_state["master"]),
+                         "mu": host(opt_state["mu"]),
+                         "nu": host(opt_state["nu"]),
+                         "step": opt_state["step"]}}
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            ckpt.save(self.tc.ckpt_dir, step, state,
+                      keep_last=self.tc.keep_last, comm_spec=self.comm_spec)
+        if dist.is_initialized():
+            dist.barrier()
+
+    def try_restore(self, params, opt_state):
+        """``(params, opt_state, step)`` from the latest checkpoint in
+        ``tc.ckpt_dir``, or None when there is none.  Every rank reads the
+        global arrays and cuts its own shards (``Model.cut_params``); the
+        checkpoint must have been saved under this run's comm spec
+        (``ckpt.CommSpecMismatch`` otherwise) and in these global shapes
+        and dtypes."""
+        step = ckpt.latest_step(self.tc.ckpt_dir)
+        if step is None:
+            return None
+        specs = self.model.specs()
+
+        def meta(spec, like):
+            return torch.empty(spec.shape, dtype=like.dtype, device="meta")
+        f32 = tree_map(lambda s: torch.empty(s.shape, dtype=torch.float32,
+                                             device="meta"), specs)
+        template = {"params": tree_map(meta, specs, params),
+                    "opt": {"master": f32, "mu": f32, "nu": f32,
+                            "step": opt_state["step"]}}
+        state, step = ckpt.restore(self.tc.ckpt_dir, template, step,
+                                   device="cpu",
+                                   expect_comm_spec=self.comm_spec)
+        cut = self.model.cut_params
+        opt = state["opt"]
+        log.info("restored checkpoint at step %d", step)
+        return (cut(state["params"]),
+                {"master": cut(opt["master"]), "mu": cut(opt["mu"]),
+                 "nu": cut(opt["nu"]), "step": opt["step"]}, step)
+
+    # ---- loop -------------------------------------------------------------
+    def run(self, resume: bool = True, params=None):
+        """Run to ``tc.total_steps`` from step 0, or from the latest
+        checkpoint when ``resume`` and ``tc.ckpt_dir`` has one.  Returns
+        ``(params, opt_state, history)``; each history row holds the step's
+        loss, grad_norm, lr, wall ms, tokens/s of the global batch, plan
+        spec and ``comm/*`` keys.  A replayed step's row replaces the row
+        of its failed run, so the history has one row a step.  ``params``
+        (default: from ``tc.seed``) are updated in place; a replay from
+        step 0 starts from a copy taken here."""
+        first = None if params is None else tree_map(torch.clone, params)
+        params, opt_state, step = self.init_state(params)
+        if resume and self.tc.ckpt_dir is not None:
+            restored = self.try_restore(params, opt_state)
+            if restored is not None:
+                params, opt_state, step = restored
+        retry = RetryPolicy()
         dev = self.model.device
-        for step in range(start, start + steps):
-            glob = self.data.batch(step)
-            batch = self.data.place(self.model.batch_slice(glob), dev)
-            fn = self.step_fn_for(step)
-            t0 = time.perf_counter()
-            params, opt_state, metrics = fn(params, opt_state, batch)
-            loss = float(metrics["loss"])          # waits for the step
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            dt = time.perf_counter() - t0
-            plan = self.ctx.plan.at_step(step)
-            row = {"step": step, "loss": loss,
-                   "grad_norm": float(metrics["grad_norm"]),
-                   "lr": metrics["lr"], "ms": dt * 1e3,
-                   "tok_per_s": glob["mask"].numel() / dt,
-                   "plan": to_spec(plan)}
-            row.update(telemetry.comm_metrics(
-                plan, spec=self.comm_spec,
-                warmup_active=plan != self.ctx.plan.steady()))
-            self.history.append(row)
-            if step % self.tc.log_every == 0:
-                log.info("step %d loss %.4f gnorm %.3f lr %.2e (%.1f ms)",
-                         step, loss, row["grad_norm"], row["lr"], row["ms"])
+        while step < self.tc.total_steps:
+            try:
+                if self.injector is not None:
+                    self.injector.maybe_fail(step)
+                params, opt_state = self._step(step, params, opt_state, dev)
+                step += 1
+                if self.tc.ckpt_dir is not None and (
+                        step % self.tc.ckpt_every == 0
+                        or step == self.tc.total_steps):
+                    self.save(step, params, opt_state)
+            except Exception as exc:  # noqa: BLE001 — the restart boundary
+                if not retry.should_retry(exc):
+                    raise
+                restored = None
+                if self.tc.ckpt_dir is not None:
+                    restored = self.try_restore(params, opt_state)
+                if restored is None:
+                    restored = self.init_state(
+                        None if first is None else tree_map(torch.clone,
+                                                            first))
+                params, opt_state, step = restored
+                self.history = [h for h in self.history if h["step"] < step]
         return params, opt_state, self.history
+
+    def _step(self, step: int, params, opt_state, dev):
+        glob = self.data.batch(step)
+        batch = self.data.place(self.model.batch_slice(glob), dev)
+        fn = self.step_fn_for(step)
+        t0 = time.perf_counter()
+        params, opt_state, metrics = fn(params, opt_state, batch)
+        loss = float(metrics["loss"])          # waits for the step
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        self.watchdog.observe(dt)
+        plan = self.ctx.plan.at_step(step)
+        row = {"step": step, "loss": loss,
+               "grad_norm": float(metrics["grad_norm"]),
+               "lr": metrics["lr"], "ms": dt * 1e3,
+               "tok_per_s": glob["mask"].numel() / dt,
+               "plan": to_spec(plan)}
+        row.update(telemetry.comm_metrics(
+            plan, spec=self.comm_spec,
+            warmup_active=plan != self.ctx.plan.steady()))
+        self.history.append(row)
+        if step % self.tc.log_every == 0:
+            log.info("step %d loss %.4f gnorm %.3f lr %.2e (%.1f ms)",
+                     step, loss, row["grad_norm"], row["lr"], row["ms"])
+        return params, opt_state

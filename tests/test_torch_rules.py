@@ -1,8 +1,9 @@
 """Rules of the port, as tests:
 
-  * nothing in ``src/repro_torch`` or ``chip_smoke.py`` imports ``jax`` or
-    the JAX package ``repro`` — only torch, numpy, the standard library
-    and the port itself;
+  * nothing in ``src/repro_torch``, ``chip_smoke.py`` or the port's
+    examples imports ``jax``, ``ml_dtypes`` (the card's machine has
+    neither) or the JAX package ``repro`` — only torch, numpy, the
+    standard library and the port itself;
   * the entry points (``Model``, ``ServeEngine``, the serve launcher) run
     on CUDA unless the caller asks for the CPU, and raise without a card;
   * a CUDA tensor reaches the kernel or an error, never the plain version
@@ -17,7 +18,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 ALLOWED = set(sys.stdlib_module_names) | {"torch", "numpy", "repro_torch",
                                           "__future__"}
 
@@ -35,7 +36,8 @@ def imported_modules(path):
 def test_port_imports_only_torch_numpy_stdlib(path):
     for mod in imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
+        assert top not in ("jax", "jaxlib", "ml_dtypes", "repro"), \
+            f"{path}: {mod}"
         assert top in ALLOWED, f"{path}: imports {mod}"
 
 

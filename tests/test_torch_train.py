@@ -336,21 +336,21 @@ def test_train_launcher_on_cpu_and_without_a_card(capsys, monkeypatch):
 
 
 def test_trainer_refuses_what_the_slice_lacks():
+    """Checkpoints and fault injection are ported (``ckpt_dir``,
+    ``injector``: tests/test_torch_checkpoint.py); ``remat_policy='dots'``
+    and the policy controllers are not."""
     cfg = tconfigs.smoke_config(tconfigs.get_config("qwen2-0.5b"))
     model = TModel(cfg, tconfigs.make_plan(cfg, 1, 1), device="cpu")
     data = tpipe.SyntheticLM(tpipe.DataConfig(cfg.vocab_size, 32, 2))
-    oc = tadamw.OptConfig()
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        ttrainer.Trainer(model, TCtx(), oc, ttrainer.TrainerConfig(
-            ckpt_dir="ckpt"), data)
-    with pytest.raises(NotImplementedError, match="fault injection"):
-        ttrainer.Trainer(model, TCtx(), oc, ttrainer.TrainerConfig(), data,
-                         injector=object())
     plan = dataclasses.replace(tconfigs.make_plan(cfg, 1, 1),
                                remat_policy="dots")
     with pytest.raises(NotImplementedError, match="dots"):
         TModel(cfg, plan, device="cpu").loss_parts(
             model.init(0), data.batch(0), TCtx())
+    from repro_torch.core.registry import CommSpecError
+    for spec in ("tp=taco:escalate=sdp4bit", "tp=taco+zle:slot=auto"):
+        with pytest.raises(CommSpecError, match="not ported"):
+            tfrom_spec(spec)
 
 
 def test_warmup_schedule_matches_jax():

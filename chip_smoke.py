@@ -102,9 +102,31 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      and GB/s are printed with the card's name and power limit.  Then the
      serve launcher's ``--ckpt`` builds an engine from the checkpoint, and
      its greedy tokens on 2 requests must equal those of an engine built
-     from the in-memory params.
+     from the in-memory params;
+  9. the policy layer, on phase 5's group.  9a: one training hop at full
+     width (n = 7,340,032 bf16, the last 3/4 of the sequence rows zero)
+     under ``tp=taco+zle:slot=auto`` and its ring
+     ``tp=taco+zle:folded:chunks=4:slot=auto``: the static bootstrap, a
+     negotiated hop that moves less than the bound and equals the static
+     hop bit for bit (all-gather and reduce-scatter), a dense spike that
+     overflows and one resync replay bit-exact; the card's ZLE bytes equal
+     the CPU's, and the ZLE stage's device time (encode and decode) is
+     printed beside K1's and K3's.  9b: training through the train
+     launcher (as phase 3, on the group) under ``tp=taco+zle:slot=auto``
+     and ``tp=taco:escalate=bf16@0.005:hold=2``: every attempt at a step
+     launches ``want_per_step``'s kernels for the plan variant it ran
+     (taco's, plus one decompress a hop for the error probes; none while
+     escalated), losses within 5e-2 of phase 3's baseline, the plans and
+     ``comm/*`` policy keys printed step by step, and the escalation run
+     must escalate.  9c: serving (as phase 2) under
+     ``tp=taco+zle:slot=auto:escalate=bf16@0.005:hold=2``, every decode
+     attempt's wire launches matching its resolved plan (98 / 49 / 49 plus
+     98 probe decodes, or none while escalated); then an engine forced
+     through one overflow replay (a shared controller seeded from a
+     mostly-zero sample) gives the greedy tokens of an engine under the
+     static ``tp=taco+zle``.
 
-Every training and serving run of phases 2, 3, 5, 6, 7 and 8 must take only
+Every training and serving run of phases 2, 3, 5, 6, 7, 8 and 9 must take only
 kernels: ``ops.plain_routes`` stays 0.  Nothing is caught: any failure
 exits non-zero.  The line before the last
 is the kernel table as JSON; the last is
@@ -157,6 +179,12 @@ TRAIN_SIZE = "--no-smoke"                 # full width and depth
 RESTART_STEPS, RESTART_EVERY, RESTART_FAIL = 6, 3, 4
 RESTART_REQUESTS, RESTART_GEN = 2, 8
 DEVICE = "cuda"                           # where phase 1b's tensors live
+#: phase 9: the lossless stack with negotiated slots (and its ring), the
+#: escalation policy, and both on the decode path
+ZLE_SPEC = "tp=taco+zle:slot=auto"
+ZLE_RING_SPEC = "tp=taco+zle:folded:chunks=4:slot=auto"
+ESC_SPEC = "tp=taco:escalate=bf16@0.005:hold=2"
+POLICY_SERVE_SPEC = "tp=taco+zle:slot=auto:escalate=bf16@0.005:hold=2"
 
 
 def fail(msg: str) -> None:
@@ -820,10 +848,12 @@ def want_per_step(cfg, model_plan, comm_plan, ticks: int = 1) -> dict:
     compressed hop of ``models.transformer.tp_hops_per_step`` runs one
     compress and one decompress (all-gather) or decompress-reduce
     (reduce-scatter) per ring chunk (``chunks=1``: the monolithic hop).
-    The pipeline step (``train/pipeline_parallel.py``) runs the whole
-    model's hops of its stage once a tick: ``ticks`` = M + P - 1 (at
-    pipe = 1 each tick is one microbatch's step).  An identity TP plan
-    launches none."""
+    Under ``escalate=`` each hop also decodes one wire row back for its
+    error probe (``collectives._err_probe``, on chunk 0 of a ring): one
+    more decompress a hop.  The pipeline step
+    (``train/pipeline_parallel.py``) runs the whole model's hops of its
+    stage once a tick: ``ticks`` = M + P - 1 (at pipe = 1 each tick is one
+    microbatch's step).  An identity TP plan launches none."""
     from repro_torch.core import collectives as cc
     from repro_torch.models import transformer
     hops = transformer.tp_hops_per_step(cfg, model_plan, comm_plan)
@@ -831,11 +861,36 @@ def want_per_step(cfg, model_plan, comm_plan, ticks: int = 1) -> dict:
     if len(chunks) != 1:
         raise AssertionError(f"forward and backward codecs chunk apart: "
                              f"{chunks}")
-    k = chunks.pop() * ticks * (not comm_plan.tp_identity)
+    probed = {getattr(comm_plan.tp_fwd, "escalate", None) is not None,
+              getattr(comm_plan.tp_bwd, "escalate", None) is not None}
+    if len(probed) != 1:
+        raise AssertionError("forward and backward codecs probe apart")
+    on = ticks * (not comm_plan.tp_identity)
+    k = chunks.pop() * on
     ag, rs = hops["all_gather"] * k, hops["reduce_scatter"] * k
-    return {"compress_blocks": ag + rs, "decompress_blocks": ag,
+    probes = (hops["all_gather"] + hops["reduce_scatter"]) * on \
+        * probed.pop()
+    return {"compress_blocks": ag + rs, "decompress_blocks": ag + probes,
             "decompress_reduce": rs, "compress_wire": 0, "decompress_wire": 0,
             "decompress_reduce_wire": 0, "compress_blocks_butterfly": 0}
+
+
+def count_attempts(trainer, counters, rows: list) -> None:
+    """Every attempt at a step (``Trainer._attempt``: the phase with every
+    hop of the step; a replayed step makes two) appends ``(plan, kernel
+    launches)`` to ``rows``, the plan being the variant the engine built
+    that step function for."""
+    names = list(counters)
+    inner = trainer._attempt
+
+    def attempt(fn, params, batch):
+        before = [counters[k].launches for k in names]
+        out = inner(fn, params, batch)
+        plan = next(p for p, f in trainer.policy._fns.items() if f is fn)
+        rows.append((plan, [counters[k].launches - b
+                            for k, b in zip(names, before)]))
+        return out
+    trainer._attempt = attempt
 
 
 @contextlib.contextmanager
@@ -875,38 +930,29 @@ def launcher_trainer(spec, groups):
     mesh = groups if isinstance(groups, Mesh) else None
     group = None if mesh is not None else groups
     trainer, cfg = train.build_trainer(args, group=group, mesh=mesh)
-    return trainer, want_per_step(cfg, trainer.model.plan, trainer.ctx.plan)
+    return trainer, lambda plan: want_per_step(cfg, trainer.model.plan, plan)
 
 
 def phase_train(counters, runs, make=launcher_trainer,
                 sessions: int = 3, replay=None) -> dict:
     """Training runs, one per ``(label, spec, groups)``, each built by
     ``make(spec, groups) -> (trainer, launches a step)`` (default: the
-    train launcher on full-width qwen2-0.5b): per-step launches, losses,
-    wall and peak memory, and one step profiled ``sessions`` times; under
-    a compressed ``grad_rs`` codec also the codec's device time a step
-    (:func:`grad_codec_profile`), and ``replay(ctx, one_step)`` when
-    given (its dict under ``"replay"``)."""
+    train launcher on full-width qwen2-0.5b; the launches a dict, or a
+    function of the plan variant an attempt ran): per-attempt launches,
+    losses, wall and peak memory, and one step profiled ``sessions``
+    times; under a compressed ``grad_rs`` codec also the codec's device
+    time a step (:func:`grad_codec_profile`), and ``replay(ctx,
+    one_step)`` when given (its dict under ``"replay"``)."""
     from repro_torch.core.codecs import IdentityCodec
     from repro_torch.kernels import ops
     names = list(counters)
     out = {}
     for label, spec, groups in runs:
         trainer, want = make(spec, groups)
-        per_step = []
+        want_of = want if callable(want) else (lambda plan, w=want: w)
+        attempts = []
+        count_attempts(trainer, counters, attempts)
         inner = trainer.step_fn_for
-
-        def counted(step, inner=inner, per_step=per_step):
-            fn = inner(step)
-
-            def run(*a):
-                before = [counters[k].launches for k in names]
-                res = fn(*a)
-                per_step.append([counters[k].launches - b
-                                 for k, b in zip(names, before)])
-                return res
-            return run
-        trainer.step_fn_for = counted
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
@@ -918,12 +964,14 @@ def phase_train(counters, runs, make=launcher_trainer,
         launches = dict(zip(names, (counters[k].launches for k in names)))
         no_plain_routes(f"train {label}")
         peak = torch.cuda.max_memory_allocated() / 2**20
-        want_row = [want[k] for k in names]
-        if any(row != want_row for row in per_step):
-            raise AssertionError(f"{label}: per-step launches {per_step}, "
-                                 f"want {want_row} ({names})")
+        want_row = [want_of(trainer.ctx.plan)[k] for k in names]
+        per_step = [row for _, row in attempts]
+        wants = [[want_of(plan)[k] for k in names] for plan, _ in attempts]
+        if per_step != wants or len(attempts) < TRAIN_STEPS:
+            raise AssertionError(f"{label}: per-attempt launches "
+                                 f"{per_step}, want {wants} ({names})")
         if [launches[k] for k in names] != \
-                [TRAIN_STEPS * w for w in want_row]:
+                [sum(col) for col in zip(*wants)]:
             raise AssertionError(f"{label}: launches {launches}")
         for h in hist:
             if not np.isfinite(h["loss"]) or not np.isfinite(h["grad_norm"]):
@@ -963,6 +1011,7 @@ def phase_train(counters, runs, make=launcher_trainer,
               f" idle share {1 - busy / wall:.3f}, TACO kernels "
               f"{taco_ms:.3f} ms; top {top}")
         out[label] = {"hist": hist, "launches": launches, "per_step": want_row,
+                      "attempts": attempts,
                       "peak_mib": peak, "mean_ms": mean_ms,
                       "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / mean_ms * 1e3,
                       "step_profile": {"wall_ms": wall, "device_ms": busy,
@@ -972,7 +1021,7 @@ def phase_train(counters, runs, make=launcher_trainer,
             out[label]["grad_codec"] = grad_codec_profile(trainer.ctx, one)
         if replay is not None:
             out[label]["replay"] = replay(trainer.ctx, one)
-        trainer.step_fn_for = inner = counted = fn = None
+        trainer._attempt = inner = fn = None
         del trainer, params, opt, batch
         gc.collect()
         torch.cuda.empty_cache()
@@ -1531,24 +1580,14 @@ def phase_restart(counters, mesh, smi: str) -> dict:
             return out
         trainer.save = saving(trainer)
         trainer.try_restore = restoring
-        inner = trainer.step_fn_for
-
-        def counted(step):
-            fn = inner(step)
-
-            def run(*a):
-                before = [counters[k].launches for k in names]
-                res = fn(*a)
-                per_step.append([counters[k].launches - b
-                                 for k, b in zip(names, before)])
-                return res
-            return run
-        trainer.step_fn_for = counted
+        attempts = []
+        count_attempts(trainer, counters, attempts)
         for c in counters.values():
             c.launches = 0
         for k in ops.plain_routes:
             ops.plain_routes[k] = 0
         params, opt, hist = trainer.run(resume=False)
+        per_step = [row for _, row in attempts]
         launches = {k: counters[k].launches for k in names}
         no_plain_routes("train restart")
         want_row = [want[k] for k in names]
@@ -1586,7 +1625,7 @@ def phase_restart(counters, mesh, smi: str) -> dict:
         if losses != ref_losses or diff:
             raise AssertionError(f"the replayed run differs: {diff} leaves,"
                                  f" losses {losses} vs {ref_losses}")
-        trainer.step_fn_for = inner = counted = None
+        trainer._attempt = None
         del trainer, ref_params, final
         gc.collect()
         torch.cuda.empty_cache()
@@ -1618,6 +1657,186 @@ def phase_restart(counters, mesh, smi: str) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "save_s": saves, "restore_s": restores,
             "bytes": nbytes, "leaves_differ": diff}
+
+
+# --------------------------------------------------------------------------
+# phase 9: the policy layer (ZLE stacks, negotiated slots, escalation)
+# --------------------------------------------------------------------------
+
+def phase_zle_hop(group, kernels, smi: str) -> dict:
+    """One training hop at full width (``TRAIN_N`` bf16 elements, the
+    last 3/4 of the sequence rows zero) through the 1-rank NCCL group,
+    under ``ZLE_SPEC`` and its ring ``ZLE_RING_SPEC``: bootstrap at the
+    static bound, a negotiated hop that moves less than the bound and
+    equals the static hop bit for bit (all-gather and reduce-scatter), a
+    dense spike that overflows, one resync replay bit-exact at the static
+    bound.  The card's ZLE bytes of an inner wire equal the CPU port's bit
+    for bit.  The ZLE stage's device time at this hop (encode and decode
+    apart) is printed beside K1's and K3's."""
+    from repro_torch.core import collectives as cc
+    from repro_torch.core import lossless as zle
+    from repro_torch.core.codecs import pack_wire, unpack_wire
+    from repro_torch.core.registry import from_spec
+    gen = np.random.default_rng(9)
+    shape = (TRAIN_BATCH, TRAIN_SEQ, 896)
+    x = tp_like(gen, shape).to(DEVICE, torch.bfloat16)
+    x[:, TRAIN_SEQ // 4:] = 0                 # padded sequence rows
+    dense = tp_like(gen, shape).to(DEVICE, torch.bfloat16)
+    ident = cc.Identity
+    out = {}
+    for spec in (ZLE_SPEC, ZLE_RING_SPEC):
+        codec = from_spec(spec).tp_fwd
+        static = from_spec(spec.replace(":slot=auto", "")).tp_fwd
+        ctl = cc.SlotController()
+
+        def hops(c, v):
+            return [cc.all_gather_c(v, group, 1, c, ident),
+                    cc.psum_scatter_c(v, group, 1, c, ident)]
+        bound_b = cc.wire_slot_bytes(codec, TRAIN_N)
+        boot_c = ctl.negotiate(codec)
+        if boot_c.moved_frac is not None or \
+                cc.moved_slot_bytes(boot_c, TRAIN_N) != bound_b:
+            raise AssertionError(f"{spec}: bootstrap is not the static bound")
+        boot = hops(boot_c, x)
+        if ctl.finish_step():
+            raise AssertionError(f"{spec}: the static bootstrap overflowed")
+        neg = ctl.negotiate(codec)
+        moved_b = cc.moved_slot_bytes(neg, TRAIN_N)
+        ach_b = int(cc.achieved_slot_bytes(codec, x.reshape(1, -1)).sum())
+        want = hops(static, x)
+        got = hops(neg, x)
+        if moved_b >= bound_b or not all(
+                torch.equal(a, b) for a, b in zip(got + boot, want + want)):
+            raise AssertionError(f"{spec}: negotiated {moved_b} of {bound_b}"
+                                 " bytes, or its hop differs from the static"
+                                 " hop")
+        if ctl.finish_step():
+            raise AssertionError(f"{spec}: the negotiated hop overflowed")
+        hops(ctl.negotiate(codec), dense)
+        if not ctl.finish_step():
+            raise AssertionError(f"{spec}: the dense spike did not overflow")
+        replay = hops(ctl.negotiate(codec), dense)
+        if ctl.finish_step() or ctl.resyncs != 1 or not all(
+                torch.equal(a, b)
+                for a, b in zip(replay, hops(static, dense))):
+            raise AssertionError(f"{spec}: resync {ctl.resyncs}, or the "
+                                 "replay differs from the static hop")
+        print(f"  {smi}: {spec}, n {TRAIN_N}: bound {bound_b} B, achieved "
+              f"{ach_b} B ({ach_b / bound_b:.4f}), negotiated moved "
+              f"{moved_b} B ({moved_b / bound_b:.4f}, frac "
+              f"{neg.moved_frac}); negotiated == static bit for bit (AG, "
+              f"RS); dense spike: overflow, {ctl.resyncs} resync, replay =="
+              f" static bit for bit")
+        out[spec] = {"bound_b": bound_b, "achieved_b": ach_b,
+                     "moved_b": moved_b, "frac": neg.moved_frac}
+    # the card's ZLE bytes of an inner wire == the CPU port's
+    codec = from_spec(ZLE_SPEC).tp_fwd
+    flat = x.reshape(1, -1)
+    inner = codec.inner.encode_wire(flat)
+    w = inner.shape[-1]
+    card = zle.zle_encode(inner)
+    cpu = zle.zle_encode(inner.cpu())
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu)) or \
+            not torch.equal(zle.zle_decode(card[1], card[2], w), inner):
+        raise AssertionError("ZLE bytes on the card differ from the CPU's")
+    lay = codec.wire_layout(TRAIN_N)
+    zwire = pack_wire(card, lay)
+
+    def encode():
+        pack_wire(zle.zle_encode(inner), lay)
+
+    def decode():
+        _, bm, data = unpack_wire(zwire, lay)
+        zle.zle_decode(bm, data, w)
+    enc_ms, dec_ms = device_ms(encode, 10), device_ms(decode, 10)
+    k1, _ = kernel_ms(lambda: codec.inner.encode_wire(flat),
+                      KERNEL_FN["compress_blocks"], iters=10)
+    k3, _ = kernel_ms(lambda: codec.inner.decode_wire(inner, TRAIN_N,
+                                                     torch.bfloat16),
+                      KERNEL_FN["decompress_blocks"], iters=10)
+    enc_call, dec_call = call_ms(encode, 10), call_ms(decode, 10)
+    print(f"  {smi}: ZLE bytes card == CPU bit for bit ({w} B inner wire, "
+          f"{int(card[0][0, 0])} B achieved); device ms at this hop: ZLE "
+          f"encode {enc_ms:.4f} (per call {enc_call:.4f}), ZLE decode "
+          f"{dec_ms:.4f} (per call {dec_call:.4f}); K1 {k1:.4f}, K3 "
+          f"{k3:.4f}")
+    out["zle_ms"] = {"encode": enc_ms, "decode": dec_ms, "k1": k1, "k3": k3,
+                     "encode_call": enc_call, "decode_call": dec_call}
+    return out
+
+
+def print_policy_run(label: str, r: dict) -> None:
+    """The step-by-step plans, launches and ``comm/*`` policy keys of a
+    phase 9 training run (the launches by attempt, when a step was
+    replayed)."""
+    from repro_torch.core.registry import to_spec
+    attempts = r["attempts"]
+    for i, h in enumerate(r["hist"]):
+        keys = {k[5:]: round(v, 6) for k, v in h.items()
+                if k.startswith("comm/") and isinstance(v, float)
+                and any(t in k for t in ("slot", "negotiated", "achieved",
+                                         "err_ema", "escalat", "wire_var"))}
+        row = attempts[i][1] if len(attempts) == len(r["hist"]) else "-"
+        print(f"    {label} step {h['step']}: ran {h['plan']}, launches "
+              f"{row}, loss {h['loss']:.6f}, {keys}")
+    if len(attempts) != len(r["hist"]):
+        print(f"    {label} attempts: "
+              f"{[(to_spec(p_), row) for p_, row in attempts]}")
+
+
+def phase_policy_serve(kernels, smi: str) -> dict:
+    """Serving under ``POLICY_SERVE_SPEC`` through the serve launcher (as
+    phase 2; every decode attempt's launches match its resolved plan),
+    then two engines on the same params and prompts: one under
+    ``tp=taco+zle:slot=auto`` with a shared controller seeded from a
+    mostly-zero sample (its first negotiated tick is too narrow for the
+    dense decode hop: one overflow, one replay), one under the static
+    ``tp=taco+zle``, each serving ``RESTART_REQUESTS`` requests of
+    ``RESTART_GEN`` tokens on a table of 4 slots.  Their greedy tokens
+    must be equal."""
+    from repro_torch.core import collectives as cc
+    from repro_torch.core.parallel import ParallelCtx
+    from repro_torch.core.registry import from_spec, to_spec
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ServeEngine
+    run = phase_serve(kernels, [("policy", POLICY_SERVE_SPEC, None)])
+    r = run["policy"]
+    states = [("esc" if plan.tp_identity else "taco", row)
+              for plan, row in r["attempts"]]
+    print(f"    policy ticks (plan, [compress, reduce, decompress]): "
+          f"{states}; {r['engine_metrics']}")
+    args = serve.parse_args([
+        "--arch", "qwen2-0.5b", "--no-smoke", "--comm-spec", "tp=taco+zle",
+        "--max-batch", "4", "--requests", str(RESTART_REQUESTS),
+        "--prompt-len", "16", "--gen", str(RESTART_GEN), "--seed", "0"])
+    static, cfg = serve.build_engine(args)
+    shared = cc.SlotController()
+    auto_plan = from_spec("tp=taco+zle:slot=auto")
+    sample = torch.zeros((1, static.max_batch * cfg.d_model),
+                         device=DEVICE, dtype=torch.bfloat16)
+    sample[0, :256] = 0.02
+    shared.observe_sample(auto_plan.tp_fwd, sample)
+    if shared.finish_step():
+        raise AssertionError("the seeding sample overflowed")
+    frac = shared.negotiate(auto_plan.tp_fwd).moved_frac
+    auto = ServeEngine(static.model, ParallelCtx(plan=auto_plan),
+                       static.params, max_batch=static.max_batch,
+                       max_len=static.max_len, prefill_buckets=static.buckets,
+                       device=static.device.type, slot_controller=shared)
+    gen = np.random.default_rng(10)
+    prompts = [gen.integers(0, cfg.vocab_size, 16).astype(np.int32)
+               for _ in range(RESTART_REQUESTS)]
+    t_auto, t_static = _greedy(auto, prompts), _greedy(static, prompts)
+    if shared.resyncs != 1 or t_auto != t_static:
+        raise AssertionError(f"replayed engine: {shared.resyncs} resyncs, "
+                             f"tokens {t_auto} vs {t_static}")
+    print(f"  {smi}: seeded frac {frac}: {shared.overflows} overflow, "
+          f"{shared.resyncs} replayed tick; greedy tokens == the static "
+          f"{to_spec(static.ctx.plan)} engine's: {t_auto}")
+    auto = static = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
 
 
 def check_losses(base: dict, other: dict, label: str) -> float:
@@ -1681,12 +1900,48 @@ def phase_reference_train() -> float:
     return worst
 
 
+def serve_want(plan, hops: int) -> list:
+    """Wire-kernel launches [compress, decompress-reduce, decompress] of
+    one decode forward under ``plan``: per AllReduce hop of the decode path
+    and ring chunk two compress, one decompress-reduce and one decompress
+    wire kernel; under ``escalate=`` each of a hop's two transports also
+    decodes one wire row back for its error probe (on chunk 0 of a ring):
+    two more decompress a hop."""
+    from repro_torch.core import collectives as cc
+    if plan.tp_identity:
+        return [0, 0, 0]
+    chunks = cc.ring_chunks(plan.tp_fwd)
+    probes = 2 * hops if getattr(plan.tp_fwd, "escalate", None) else 0
+    return [2 * hops * chunks, hops * chunks, hops * chunks + probes]
+
+
+def count_decode_attempts(eng, counters, rows: list) -> None:
+    """Every decode attempt of ``eng`` (a tick, or its replay) appends
+    ``(plan, [compress, reduce, decompress] wire launches)`` to ``rows``:
+    the step functions the engine's ``PolicyEngine`` built, and will
+    build, are wrapped."""
+    def wrap(plan, fn):
+        def run(tok, pos):
+            before = [c.launches for c in counters]
+            out = fn(tok, pos)
+            rows.append((plan, [c.launches - b
+                                for c, b in zip(counters, before)]))
+            return out
+        return run
+    pe = eng.policy
+    pe._fns = {p_: wrap(p_, f) for p_, f in pe._fns.items()}
+    build = pe._build
+    pe._build = lambda plan: wrap(plan, build(plan))
+
+
 def phase_serve(kernels, runs) -> dict:
     """Full-width qwen2-0.5b serving through the serve launcher's entry
-    points, one run per ``(label, spec, group)``: every decode tick of a
-    compressed run launches, per hop of the decode path (24 layers x 2 + 1
-    = 49 AllReduce hops) and ring chunk, two compress, one
-    decompress-reduce and one decompress wire kernel, and no block
+    points, one run per ``(label, spec, group)``: every decode attempt
+    (a tick, or a replayed tick) and every prefill forward of a
+    compressed run launches :func:`serve_want`'s wire kernels for the
+    plan it ran (per hop of the decode path, 24 layers x 2 + 1 = 49
+    AllReduce hops, and ring chunk: two compress, one decompress-reduce
+    and one decompress; prefill runs the declared plan), and no block
     kernel."""
     from repro_torch.core import collectives as cc
     from repro_torch.core.registry import from_spec
@@ -1701,14 +1956,8 @@ def phase_serve(kernels, runs) -> dict:
             "--max-batch", "4", "--requests", "6", "--prompt-len", "16",
             "--gen", "16", "--qps", "16", "--seed", "0"])
         eng, cfg = serve.build_engine(args, group=group)
-        ticks = []
-        inner = eng._decode_tick
-
-        def counted_tick(now, inner=inner, ticks=ticks):
-            before = [c.launches for c in counters]
-            inner(now)
-            ticks.append([c.launches - b for c, b in zip(counters, before)])
-        eng._decode_tick = counted_tick
+        attempts = []
+        count_decode_attempts(eng, counters, attempts)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for c in kernels.values():
@@ -1729,18 +1978,18 @@ def phase_serve(kernels, runs) -> dict:
             raise AssertionError(f"{label}: not every request finished")
         if any(not 0 <= t < cfg.vocab_size for r in done for t in r.tokens):
             raise AssertionError(f"{label}: token id out of range")
-        plan = from_spec(spec)
         hops = 2 * cfg.n_layers + 1
-        chunks = cc.ring_chunks(plan.tp_fwd)
-        per_tick = [0, 0, 0] if plan.tp_identity else \
-            [2 * hops * chunks, hops * chunks, hops * chunks]
-        if any(t != per_tick for t in ticks):
-            raise AssertionError(f"{label}: per-tick launches {ticks}, want "
-                                 f"{per_tick} every tick")
-        fwd_calls = s["decode_steps"] + s["prefill_steps"]
-        if launches != [k * fwd_calls for k in per_tick]:
+        ticks = [row for _, row in attempts]
+        wants = [serve_want(plan, hops) for plan, _ in attempts]
+        if ticks != wants or len(attempts) < s["decode_steps"]:
+            raise AssertionError(f"{label}: per-attempt launches {ticks}, "
+                                 f"want {wants}")
+        per_prefill = serve_want(from_spec(spec), hops)
+        if launches != [sum(col) + k * s["prefill_steps"] for col, k in
+                        zip(zip(*wants), per_prefill)]:
             raise AssertionError(f"{label}: launches {launches} over "
-                                 f"{fwd_calls} forward calls")
+                                 f"{len(attempts)} decode attempts and "
+                                 f"{s['prefill_steps']} prefill calls")
         toks = s["total_new_tokens"]
         print(f"  {label:8s} ({spec}, tp group "
               f"{'none' if group is None else eng.ctx.tp_size}) "
@@ -1756,12 +2005,14 @@ def phase_serve(kernels, runs) -> dict:
               f"max_mem={torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
               f"torch.distributed calls {({k: v for k, v in calls.items() if v})}")
         prof = profile_tick(eng)
+        cc.drain_probes()           # the profiled calls' probes, if any
         print(f"    one decode tick: wall {prof['wall_ms']:.3f} ms, device "
               f"busy {prof['device_ms']:.3f} ms, idle share "
               f"{prof['idle_share']:.3f}, taco kernels "
               f"{prof['taco_kernels_ms']:.4f} ms; top {prof['top']}")
-        out[label] = dict(s, wall_s=wall, launches=launches, tick=prof)
-        eng._decode_tick = inner = None   # break the engine's self-cycle
+        out[label] = dict(s, wall_s=wall, launches=launches, tick=prof,
+                          attempts=attempts, engine_metrics=eng.policy.metrics())
+        eng.policy._fns = eng.policy._build = None  # break the self-cycle
         del eng
         gc.collect()
         torch.cuda.empty_cache()
@@ -1920,6 +2171,29 @@ def main() -> None:
           f"checkpoint, full-width qwen2-0.5b on the phase 6 groups, "
           f"{DP_SPEC}")
     restart = phase_restart(kernels, mesh, smi)
+    print(f"phase 9 ({time.monotonic() - t_start:.0f} s): the policy layer "
+          f"on phase 5's 1-rank NCCL group: one training hop under "
+          f"{ZLE_SPEC} and {ZLE_RING_SPEC}, then training under {ZLE_SPEC} "
+          f"and {ESC_SPEC}, then serving under {POLICY_SERVE_SPEC}")
+    zle_hop = phase_zle_hop(group, kernels, smi)
+    policy_train = phase_train(kernels, [("zle", ZLE_SPEC, group),
+                                         ("escalate", ESC_SPEC, group)],
+                               sessions=1)
+    for label, r in policy_train.items():
+        check_losses(trained["baseline"], r, label)
+        print_policy_run(label, r)
+        print(f"  {smi}: {label}: {r['mean_ms']:.3f} ms/step, "
+              f"{r['tok_per_s']:.1f} tok/s, one step device busy "
+              f"{r['step_profile']['device_ms']:.3f} ms, idle share "
+              f"{r['step_profile']['idle_share']:.3f}")
+    apart = max(abs(a["loss"] - b["loss"]) for a, b in
+                zip(policy_train["zle"]["hist"], trained["taco"]["hist"]))
+    print(f"  zle losses vs phase 3's taco: max |difference| {apart:.3e} "
+          "(the stage is lossless and the bound negotiated to cover it)")
+    esc = policy_train["escalate"]["hist"][-1]
+    if esc["comm/escalations"] < 1:
+        raise AssertionError(f"{ESC_SPEC}: never escalated ({esc})")
+    policy_serve = phase_policy_serve(kernels, smi)
     dist.destroy_process_group()
     meta = {
         "compress_blocks": ("src/repro_torch/kernels/csrc/ash_compress.cu",
@@ -1951,7 +2225,10 @@ def main() -> None:
         "train dp": dp_train["launches"],
         "train 3d": threed["3d"]["launches"],
         "train restart": restart["launches"],
-        "serve ring": dict(zip(wire_names, ring_serve["launches"]))}
+        "serve ring": dict(zip(wire_names, ring_serve["launches"])),
+        "train zle": policy_train["zle"]["launches"],
+        "train escalate": policy_train["escalate"]["launches"],
+        "serve policy": dict(zip(wire_names, policy_serve["launches"]))}
     launches = dict(by_path["serve taco"])
     launches.update({k: by_path["train taco"][k]
                      for k in ("compress_blocks", "decompress_blocks",
@@ -1972,6 +2249,7 @@ def main() -> None:
                                  for p_, c in by_path.items()},
             "shapes": {k: v for k, v in rows[name].items() if k != path}})
     print(f"train hop routes: {json.dumps(blocks['hops'])}")
+    print(f"phase 9 ZLE hop: {json.dumps(zle_hop)}")
     print(f"chip_smoke: {time.monotonic() - t_start:.1f}s in all")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,16 @@ card.  ``Sdp4BitCodec``, ``TahQuantCodec`` and ``Int8Codec`` are the
 generic composition over the plain PyTorch of ``core/dp_compress.py`` and
 ``core/pp_compress.py`` on either device: the JAX package has no Pallas
 kernel for them.
+
+A slot may be *bounded-but-ragged*: a layout with ``variable=True`` (the
+lossless stage, ``core/lossless.py``) still moves ``total_bytes`` — the
+worst-case bound — but only a data-dependent prefix carries information,
+recorded in a uint32 length header at byte offset 0
+(:func:`achieved_wire_bytes` reads it back).
+
+Every lossy codec carries the error-escalation policy fields
+(``escalate=<fallback>@<threshold>`` / ``hold=<N>``, ``core/policy.py``);
+``escalate=None``, the default, adds no probe op to a hop.
 """
 from __future__ import annotations
 
@@ -44,12 +54,12 @@ __all__ = [
     "Int8Codec", "WireComponent",
     "WireLayout", "make_wire_layout", "achieved_wire_bytes", "pack_wire",
     "unpack_wire", "WireFastPath", "wire_bytes_per_element", "PIPELINED",
-    "SCHEDULES",
+    "SCHEDULES", "DEFAULT_HOLD",
 ]
 
 
 _TORCH_DTYPES = {"uint8": torch.uint8, "int8": torch.int8,
-                 "float32": torch.float32}
+                 "uint32": torch.uint32, "float32": torch.float32}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,9 +85,16 @@ class WireComponent:
 @dataclasses.dataclass(frozen=True)
 class WireLayout:
     """Per-slot wire format: components in ``encode`` output order,
-    densely packed (offset_i+1 == offset_i + nbytes_i)."""
+    densely packed (offset_i+1 == offset_i + nbytes_i).
+
+    ``total_bytes`` is always the static slot width, the size of the
+    buffer a hop moves.  ``variable=True`` declares a bounded-but-ragged
+    slot: its first component must be a one-element uint32 length header
+    at byte offset 0 recording the achieved bytes, and every byte past
+    them is zero."""
 
     components: tuple
+    variable: bool = False
 
     @property
     def total_bytes(self) -> int:
@@ -86,26 +103,47 @@ class WireLayout:
         last = self.components[-1]
         return last.offset + last.nbytes
 
+    def __post_init__(self):
+        if self.variable:
+            c0 = self.components[0] if self.components else None
+            if c0 is None or c0.offset != 0 or c0.dtype != "uint32" \
+                    or c0.size != 1:
+                raise ValueError(
+                    "variable WireLayout requires a 1-element uint32 "
+                    "length header as its first component (offset 0)")
 
-def make_wire_layout(*comps) -> WireLayout:
-    """Dense :class:`WireLayout` from ``(name, dtype, size)`` triples."""
+
+def make_wire_layout(*comps, variable: bool = False) -> WireLayout:
+    """Dense :class:`WireLayout` from ``(name, dtype, size)`` triples
+    (``variable``: a bounded-but-ragged slot, see :class:`WireLayout`)."""
     out, off = [], 0
     for name, dtype, size in comps:
         c = WireComponent(name, np.dtype(dtype).name, int(size), off)
         out.append(c)
         off += c.nbytes
-    return WireLayout(tuple(out))
+    return WireLayout(tuple(out), variable=variable)
+
+
+def achieved_wire_bytes_i64(wire: torch.Tensor,
+                            layout: WireLayout) -> torch.Tensor:
+    """:func:`achieved_wire_bytes` as int64 (PyTorch computes little in
+    uint32, on the card least of all)."""
+    if not layout.variable:
+        return torch.full(wire.shape[:-1], layout.total_bytes,
+                          dtype=torch.int64, device=wire.device)
+    b = wire[..., 0:4].to(torch.int64)
+    return b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
 
 
 def achieved_wire_bytes(wire: torch.Tensor,
                         layout: WireLayout) -> torch.Tensor:
     """Per-slot achieved bytes of a packed wire buffer ``(...,
-    total_bytes)``: a ``(...,)`` uint32 tensor.  Every layout the port has
-    is static, so every slot achieves its full ``total_bytes`` (the JAX
-    package's variable layouts, with a length header, come with its
-    lossless tier)."""
-    return torch.full(wire.shape[:-1], layout.total_bytes,
-                      dtype=torch.uint32, device=wire.device)
+    total_bytes)``: a ``(...,)`` uint32 tensor.  A variable layout's
+    length header is read byte by byte (little-endian), so a wire that is
+    a view at any byte offset reads; on a static layout every slot
+    achieves its full ``total_bytes``."""
+    return achieved_wire_bytes_i64(wire, layout).to(torch.int32) \
+        .view(torch.uint32)
 
 
 def _to_bytes(a: torch.Tensor) -> torch.Tensor:
@@ -136,21 +174,50 @@ def unpack_wire(wire: torch.Tensor, layout: WireLayout) -> tuple:
     """Inverse of :func:`pack_wire`: slice the uint8 buffer at the static
     byte offsets and reinterpret each component (any leading axes).  A
     field that does not start at a multiple of its element size (a wire
-    view at an odd byte offset) is copied first, so any view decodes."""
+    view at an odd byte offset) or whose row stride is not one (a single
+    row of a slot width that is not a multiple of it) is copied first, so
+    any view decodes."""
     out = []
     for c in layout.components:
         dtype = _TORCH_DTYPES[c.dtype]
         field = wire[..., c.offset:c.offset + c.nbytes].contiguous()
-        if field.storage_offset() % dtype.itemsize:
-            field = field.clone()
+        if field.storage_offset() % dtype.itemsize or \
+                any(st % dtype.itemsize for st in field.stride()[:-1]):
+            field = field.clone(memory_format=torch.contiguous_format)
         out.append(field.view(dtype))
     return tuple(out)
+
+
+#: Default de-escalation hysteresis window (steps) of ``escalate=``
+#: codecs, shared by the dataclass fields and the spec normaliser.
+DEFAULT_HOLD = 20
+
+
+def _check_escalation(codec) -> None:
+    """Validate the ``escalate`` / ``hold`` fields of a lossy codec (the
+    registry checks the fallback NAME against its fallback table)."""
+    esc = getattr(codec, "escalate", None)
+    hold = getattr(codec, "hold", DEFAULT_HOLD)
+    if not isinstance(hold, int) or hold < 1:
+        raise ValueError(f"escalation hold must be an int >= 1, got {hold!r}")
+    if esc is None:
+        return
+    if (not isinstance(esc, tuple) or len(esc) != 2
+            or not isinstance(esc[0], str) or not esc[0]):
+        raise ValueError("escalate must be a (fallback_name, threshold) "
+                         f"tuple, got {esc!r}")
+    thr = float(esc[1])
+    if not thr > 0.0:
+        raise ValueError(f"escalation threshold must be > 0, got {thr}")
 
 
 class WireFastPath:
     """Generic wire-native paths: pack/unpack composed with encode/decode.
     These define the wire byte format; ``TacoCodec`` overrides them with
     the fused kernels, which must write and read the same bytes."""
+
+    def __post_init__(self):
+        _check_escalation(self)
 
     def encode_wire(self, x):
         """(slots, n) -> (slots, total_bytes) uint8 wire buffer."""
@@ -200,6 +267,8 @@ class TacoCodec(WireFastPath):
     cfg: TacoConfig = TacoConfig()
     chunks: int = 1
     schedule: str = PIPELINED
+    escalate: tuple | None = None   # (fallback_name, error threshold)
+    hold: int = DEFAULT_HOLD
 
     @property
     def granule(self) -> int:
@@ -295,6 +364,8 @@ class Sdp4BitCodec(WireFastPath):
     rotate: bool = True
     chunks: int = 1
     schedule: str = PIPELINED
+    escalate: tuple | None = None   # (fallback_name, error threshold)
+    hold: int = DEFAULT_HOLD
 
     @property
     def granule(self) -> int:
@@ -358,6 +429,8 @@ class TahQuantCodec(_GroupInt8):
     group: int = 64
     chunks: int = 1
     schedule: str = PIPELINED
+    escalate: tuple | None = None   # (fallback_name, error threshold)
+    hold: int = DEFAULT_HOLD
 
 
 @dataclasses.dataclass(frozen=True)
@@ -368,6 +441,8 @@ class Int8Codec(_GroupInt8):
     group: int = 128
     chunks: int = 1
     schedule: str = PIPELINED
+    escalate: tuple | None = None   # (fallback_name, error threshold)
+    hold: int = DEFAULT_HOLD
 
 
 def wire_bytes_per_element(codec, in_dtype=torch.bfloat16) -> float:

@@ -63,12 +63,27 @@ def ring_schedule(codec) -> str:
     return validate_schedule(getattr(codec, "schedule", PIPELINED))
 
 
+def _per_chunk(stage, n: int) -> list:
+    """A stage as one callable per chunk: a single callable is shared by
+    every chunk; a sequence gives chunk ``c`` its own at index ``c`` (the
+    negotiated ring's per-chunk wire widths).  The schedules consume
+    chunks FIFO per stage, so chunk ``c``'s buffer always meets chunk
+    ``c``'s callable."""
+    if callable(stage):
+        return [stage] * n
+    fns = list(stage)
+    if len(fns) != n:
+        raise ValueError(
+            f"per-chunk stage needs exactly {n} callables, got {len(fns)}")
+    return fns
+
+
 def _serial(segs, encode, transfer, decode):
     """Hoisted stage ordering: all encodes, then all transfers (each waited
     on before the next is issued), then all decodes."""
-    wires = [encode(seg) for seg in segs]
-    moved = [_settled(transfer(wire)) for wire in wires]
-    return [decode(m) for m in moved]
+    wires = [encode[c](seg) for c, seg in enumerate(segs)]
+    moved = [_settled(transfer[c](wire)) for c, wire in enumerate(wires)]
+    return [decode[c](m) for c, m in enumerate(moved)]
 
 
 def _settled(moved):
@@ -88,6 +103,7 @@ def _pipelined(segs, encode, transfer, decode):
     enc: list = []                  # encoded wires awaiting transfer
     tx: list = []                   # transfers in flight, awaiting decode
     outs: list = []                 # decoded chunks, in chunk order
+    e_i = t_i = d_i = 0             # next chunk index per stage (FIFO)
     for _ in range(len(segs) + 2):  # prologue + steady state + epilogue
         # pop every stage's input BEFORE pushing results: a buffer
         # produced in tick t enters its next stage no earlier than t+1
@@ -95,11 +111,14 @@ def _pipelined(segs, encode, transfer, decode):
         t_in = enc.pop(0) if enc else None
         d_in = tx.pop(0) if tx else None
         if t_in is not None:
-            tx.append(transfer(t_in))
+            tx.append(transfer[t_i](t_in))
+            t_i += 1
         if e_in is not None:
-            enc.append(encode(e_in))
+            enc.append(encode[e_i](e_in))
+            e_i += 1
         if d_in is not None:
-            outs.append(decode(_settled(d_in)))
+            outs.append(decode[d_i](_settled(d_in)))
+            d_i += 1
     return outs
 
 
@@ -110,14 +129,18 @@ def run_ring(segs, *, encode, transfer, decode, schedule=PIPELINED):
     works)``: the buffers that will hold what the peers sent, and the
     async work handles that fill them; ``decode((arrivals, ()))`` -> the
     output chunk, called only after every work of its transfer was waited
-    on.  Returns the decoded chunks in input order.  The stage functions
-    must be per-chunk independent (no chunk's stage may read another
-    chunk's buffers) — the schedules reorder emission under exactly that
-    contract, which is what keeps ``pipelined`` and ``serial``
-    bit-identical."""
+    on.  Each stage is one callable shared by every chunk or a sequence
+    of one callable per chunk (:func:`_per_chunk`).  Returns the decoded
+    chunks in input order.  The stage functions must be per-chunk
+    independent (no chunk's stage may read another chunk's buffers) —
+    the schedules reorder emission under exactly that contract, which is
+    what keeps ``pipelined`` and ``serial`` bit-identical."""
     validate_schedule(schedule)
     if not segs:
         return []
+    encode = _per_chunk(encode, len(segs))
+    transfer = _per_chunk(transfer, len(segs))
+    decode = _per_chunk(decode, len(segs))
     if schedule == SERIAL or len(segs) == 1:
         # one chunk has nothing to pipeline with
         return _serial(segs, encode, transfer, decode)

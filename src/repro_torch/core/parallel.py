@@ -118,6 +118,42 @@ class CommPlan:
         return {path: int(getattr(getattr(self, path), "chunks", 1))
                 for path in PATHS}
 
+    def wire_variable(self) -> dict:
+        """Per-path flags: does the codec publish a variable
+        (bounded-but-ragged) wire layout?  Then the bytes per element are
+        the slot bound, and the achieved bytes depend on the data."""
+        out = {}
+        for path in PATHS:
+            codec = getattr(self, path)
+            wl = getattr(codec, "wire_layout", None)
+            layout = wl(codec.granule) if wl is not None else None
+            out[path] = bool(layout is not None
+                             and getattr(layout, "variable", False))
+        return out
+
+    def slot_modes(self) -> dict:
+        """Per-path slot policy: ``"auto"`` where the codec opted into
+        renegotiation (``slot=auto``), ``"static"`` elsewhere."""
+        return {path: getattr(getattr(self, path), "slot", "static")
+                for path in PATHS}
+
+    def has_auto_slots(self) -> bool:
+        """True when any path runs under ``slot=auto`` (a
+        ``collectives.SlotController`` should drive this plan)."""
+        return any(m == "auto" for m in self.slot_modes().values())
+
+    def escalation_modes(self) -> dict:
+        """Per-path error-escalation policy: ``(fallback_name,
+        threshold)`` where the codec carries ``escalate=``, else None."""
+        return {path: getattr(getattr(self, path), "escalate", None)
+                for path in PATHS}
+
+    def has_escalation(self) -> bool:
+        """True when any path carries an ``escalate=`` policy (a
+        ``policy.ErrorEscalationController`` should drive this plan)."""
+        return any(e is not None
+                   for e in self.escalation_modes().values())
+
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:

@@ -8,43 +8,55 @@ strings (``from_spec`` / ``to_spec``) for the codecs it has ported::
     path   := "tp" | "tp_fwd" | "tp_bwd" | "grad_rs" | "weight_ag" | "pp"
             | "sp"
     knob   := "skip_first" | "skip_last" | "warmup"
-    codec  := name (":" arg)*
+    codec  := base ("+" stage)* (":" arg)*
 
-Ported codecs: ``none``, ``taco``, ``sdp4bit``, ``tahquant`` and
-``int8``.  ``taco`` takes e4m3|e5m2|int8, b<N>, g<N>, dual|folded,
+Codecs: ``none``, ``taco``, ``sdp4bit``, ``tahquant`` and ``int8``.
+``taco`` takes e4m3|e5m2|int8, b<N>, g<N>, dual|folded,
 ash|hadamard|notransform, blockscale|tensorscale, auto, cd<dtype>, tau<f>,
 eps<f>, seps<f>, disabled, chunks=<N> and schedule=pipelined|serial.
 ``sdp4bit`` takes b<N>, norot, chunks=<N> and schedule=pipelined|serial.
 ``tahquant`` and ``int8`` take g<N>, chunks=<N> and
-schedule=pipelined|serial.  Aliases: ``baseline``, ``identity``, ``taco``,
-``taco_folded``, ``taco3d``.
+schedule=pipelined|serial.  Every one of these four takes
+``escalate=<fallback>@<thr>`` and ``hold=<N>`` (error-driven escalation,
+``core/policy.py``; ``hold=`` without ``escalate=`` is rejected).
+Aliases: ``baseline``, ``identity``, ``taco``, ``taco_folded``, ``taco3d``.
 
-What the port does not have yet is rejected with a :class:`CommSpecError`
-that says so: ``+stage`` lossless stacks and the ``escalate=`` /
-``hold=`` policy tokens.  The implementation tokens ``jnp``, ``pallas``
-and ``pallas_interpret`` name TPU implementations and are rejected: the
-port chooses the CUDA kernel or the plain version by the tensor's device.
+A ``+stage`` suffix on the codec head stacks a lossless wire stage over
+the base codec (``tp=taco+zle:folded:chunks=4``).  Colon args are routed
+by prefix: a stage claims its ``key=`` prefixes (``zle``: ``g=``,
+``slot=``, ``headroom=``), everything else goes to the base codec — so
+``taco+zle:escalate=bf16@0.08:slot=auto`` parses ``escalate=`` into taco
+and ``slot=auto`` into zle.  A stage needs a codec with a wire layout
+(``none+zle`` is rejected).  Escalation fallbacks: ``bf16`` (the identity
+codec), ``int8`` and ``tahquant`` (:func:`register_fallback`).
+
+The implementation tokens ``jnp``, ``pallas`` and ``pallas_interpret``
+name TPU implementations and are rejected: the port chooses the CUDA
+kernel or the plain version by the tensor's device.  The registry's
+extension API for codecs and aliases (``register_codec``, ``get_codec``,
+``register_alias``, ``list_aliases``) is not ported.
 """
 from __future__ import annotations
 
-from repro_torch.core.codecs import (PIPELINED, SCHEDULES, IdentityCodec,
-                                     Int8Codec, Sdp4BitCodec,
+import dataclasses
+from typing import Callable
+
+from repro_torch.core.codecs import (DEFAULT_HOLD, PIPELINED, SCHEDULES,
+                                     IdentityCodec, Int8Codec, Sdp4BitCodec,
                                      TahQuantCodec, TacoCodec)
+from repro_torch.core.lossless import ZleCodec
 from repro_torch.core.parallel import PATHS, CommPlan
 from repro_torch.core.taco import TacoConfig
 
 __all__ = ["CommSpecError", "codec_from_spec", "codec_to_spec", "from_spec",
-           "to_spec", "list_codecs"]
+           "to_spec", "list_codecs", "register_stage", "list_stages",
+           "register_fallback", "list_fallbacks", "fallback_codec"]
 
 _TPU_IMPLS = ("jnp", "pallas", "pallas_interpret")
 
 
 class CommSpecError(ValueError):
-    """Malformed, unknown or not yet ported compression spec."""
-
-
-def _not_ported(what: str) -> CommSpecError:
-    return CommSpecError(f"{what} is not ported yet to the PyTorch package")
+    """Malformed or unknown compression spec."""
 
 
 # --------------------------------------------------------------------------
@@ -84,6 +96,60 @@ def _schedule_val(tok):
     return val
 
 
+def _escalate_val(tok):
+    """``escalate=<fallback>@<thr>`` -> ``(fallback_name, threshold)``."""
+    val = tok[len("escalate="):]
+    name, sep, thr = val.partition("@")
+    if not sep or not name or not thr:
+        raise CommSpecError(
+            f"arg {tok!r}: escalate needs <fallback>@<threshold> "
+            "(e.g. escalate=bf16@0.08)")
+    if name not in _FALLBACKS:
+        raise CommSpecError(
+            f"arg {tok!r}: unknown escalation fallback {name!r}; "
+            f"registered: {sorted(_FALLBACKS)}")
+    try:
+        t = float(thr)
+    except ValueError:
+        raise CommSpecError(
+            f"arg {tok!r}: escalation threshold must be a float") from None
+    if not t > 0.0:
+        raise CommSpecError(
+            f"arg {tok!r}: escalation threshold must be > 0, got {t}")
+    return (name, t)
+
+
+def _hold_val(tok):
+    """``hold=<N>`` -> N (>= 1)."""
+    try:
+        n = int(tok[len("hold="):])
+    except ValueError:
+        raise CommSpecError(
+            f"arg {tok!r}: hold needs an integer >= 1") from None
+    if n < 1:
+        raise CommSpecError(f"arg {tok!r}: hold must be >= 1, got {n}")
+    return n
+
+
+def _check_hold_has_escalate(kw, name):
+    """``hold=`` without ``escalate=`` would be silently inert."""
+    if "hold" in kw and "escalate" not in kw:
+        raise CommSpecError(
+            f"codec {name!r}: 'hold=' requires an 'escalate=' token")
+
+
+def _escalation_args(codec) -> list:
+    """Normalised escalate / hold args, the tail of every lossy codec's
+    unparse."""
+    out = []
+    if codec.escalate is not None:
+        name, thr = codec.escalate
+        out.append(f"escalate={name}@{thr!r}")
+        if codec.hold != DEFAULT_HOLD:
+            out.append(f"hold={codec.hold}")
+    return out
+
+
 def _parse_identity(args):
     if args:
         raise CommSpecError(f"codec 'none' takes no args, got {args}")
@@ -104,8 +170,10 @@ def _parse_taco(args):
             put("chunks", _chunks_val(tok), tok, into=codec_kw)
         elif tok.startswith("schedule="):
             put("schedule", _schedule_val(tok), tok, into=codec_kw)
-        elif tok.startswith(("escalate=", "hold=")):
-            raise _not_ported(f"the error-escalation policy ({tok!r})")
+        elif tok.startswith("escalate="):
+            put("escalate", _escalate_val(tok), tok, into=codec_kw)
+        elif tok.startswith("hold="):
+            put("hold", _hold_val(tok), tok, into=codec_kw)
         elif tok in _TACO_FMT:
             put("fmt", tok, tok)
         elif tok in _TACO_META:
@@ -137,6 +205,7 @@ def _parse_taco(args):
             put("enabled", False, tok)
         else:
             raise CommSpecError(f"unknown taco arg {tok!r}")
+    _check_hold_has_escalate(codec_kw, "taco")
     return TacoCodec(TacoConfig(**kw), **codec_kw)
 
 
@@ -170,6 +239,7 @@ def _unparse_taco(codec):
         out.append(f"chunks={codec.chunks}")
     if codec.schedule != PIPELINED:
         out.append(f"schedule={codec.schedule}")
+    out += _escalation_args(codec)
     return tuple(out)
 
 
@@ -180,14 +250,17 @@ def _parse_sdp4bit(args):
             kw["chunks"] = _chunks_val(tok)
         elif tok.startswith("schedule="):
             kw["schedule"] = _schedule_val(tok)
-        elif tok.startswith(("escalate=", "hold=")):
-            raise _not_ported(f"the error-escalation policy ({tok!r})")
+        elif tok.startswith("escalate="):
+            kw["escalate"] = _escalate_val(tok)
+        elif tok.startswith("hold="):
+            kw["hold"] = _hold_val(tok)
         elif tok.startswith("b") and tok[1:].isdigit():
             kw["block"] = _pos_int(tok, "b")
         elif tok == "norot":
             kw["rotate"] = False
         else:
             raise CommSpecError(f"unknown sdp4bit arg {tok!r}")
+    _check_hold_has_escalate(kw, "sdp4bit")
     return Sdp4BitCodec(**kw)
 
 
@@ -201,12 +274,13 @@ def _unparse_sdp4bit(codec):
         out.append(f"chunks={codec.chunks}")
     if codec.schedule != PIPELINED:
         out.append(f"schedule={codec.schedule}")
+    out += _escalation_args(codec)
     return tuple(out)
 
 
 def _group_codec(cls, name):
     """(parse, unparse) of a per-group int8 codec: g<N>, chunks=<N>,
-    schedule=."""
+    schedule=, escalate=, hold=."""
     def parse(args):
         kw = {}
         for tok in args:
@@ -214,12 +288,15 @@ def _group_codec(cls, name):
                 kw["chunks"] = _chunks_val(tok)
             elif tok.startswith("schedule="):
                 kw["schedule"] = _schedule_val(tok)
-            elif tok.startswith(("escalate=", "hold=")):
-                raise _not_ported(f"the error-escalation policy ({tok!r})")
+            elif tok.startswith("escalate="):
+                kw["escalate"] = _escalate_val(tok)
+            elif tok.startswith("hold="):
+                kw["hold"] = _hold_val(tok)
             elif tok.startswith("g") and tok[1:].isdigit():
                 kw["group"] = _pos_int(tok, "g")
             else:
                 raise CommSpecError(f"unknown {name} arg {tok!r}")
+        _check_hold_has_escalate(kw, name)
         return cls(**kw)
 
     def unparse(codec):
@@ -230,6 +307,7 @@ def _group_codec(cls, name):
             out.append(f"chunks={codec.chunks}")
         if codec.schedule != PIPELINED:
             out.append(f"schedule={codec.schedule}")
+        out += _escalation_args(codec)
         return tuple(out)
 
     return cls, parse, unparse
@@ -249,32 +327,194 @@ def list_codecs() -> list[str]:
     return sorted(_CODECS)
 
 
+# --------------------------------------------------------------------------
+# lossless stages
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StageEntry:
+    name: str
+    cls: type
+    wrap: Callable          # (inner codec, *stage args) -> stacked codec
+    unparse: Callable | None = None   # (codec) -> normalised stage args
+    args: tuple = ()        # "key=" prefixes of the args the stage claims
+
+
+_STAGES: dict[str, StageEntry] = {}
+_STAGE_NAME_BY_CLS: dict[type, str] = {}
+
+
+def register_stage(name: str, cls: type, wrap: Callable, *,
+                   unparse: Callable | None = None,
+                   args: tuple = ()) -> None:
+    """Register a lossless wire stage usable as a ``+name`` head suffix:
+    ``wrap(inner, *stage_args)`` stacks it over a codec with a wire
+    layout, ``args`` are the ``key=`` prefixes it claims out of the codec
+    spec, ``unparse(codec)`` its normalised non-default args."""
+    if name in _STAGES:
+        raise ValueError(f"stage {name!r} already registered")
+    if name in _CODECS:
+        raise ValueError(f"stage {name!r} collides with a codec name")
+    _STAGES[name] = StageEntry(name, cls, wrap, unparse, tuple(args))
+    _STAGE_NAME_BY_CLS.setdefault(cls, name)
+
+
+def list_stages() -> list[str]:
+    """Sorted names of every registered lossless stage."""
+    return sorted(_STAGES)
+
+
+def _stage_entry(name: str, spec: str) -> StageEntry:
+    try:
+        return _STAGES[name]
+    except KeyError:
+        raise CommSpecError(
+            f"unknown stage {name!r} in {spec!r}; "
+            f"registered stages: {sorted(_STAGES)}") from None
+
+
+def _apply_stage(entry: StageEntry, codec, stage_args: tuple, spec: str):
+    wl = getattr(codec, "wire_layout", None)
+    if wl is None or wl(codec.granule) is None:
+        raise CommSpecError(
+            f"stage {entry.name!r} in {spec!r} requires a codec with a "
+            "wire layout to stack over (lossless stages transform the "
+            "packed wire buffer)")
+    try:
+        return entry.wrap(codec, *stage_args)
+    except CommSpecError:
+        raise
+    except Exception as e:  # noqa: BLE001 — surface as a spec error
+        raise CommSpecError(
+            f"bad args for stage {entry.name!r}: {spec!r} ({e})") from e
+
+
+def _wrap_zle(inner, *args):
+    kw = {}
+    for tok in args:
+        if tok.startswith("g="):
+            key, val = "group", _pos_int(tok, "g=")
+        elif tok.startswith("slot="):
+            key, val = "slot", tok[len("slot="):]
+        elif tok.startswith("headroom="):
+            key, val = "headroom", float(tok[len("headroom="):])
+        else:  # unreachable while routing matches the claimed prefixes
+            raise CommSpecError(f"unknown zle arg {tok!r}")
+        if key in kw:
+            raise CommSpecError(f"duplicate zle arg {tok!r}")
+        kw[key] = val
+    return ZleCodec(inner, **kw)
+
+
+def _unparse_zle(codec):
+    ref = ZleCodec(codec.inner)
+    out = []
+    if codec.group != ref.group:
+        out.append(f"g={codec.group}")
+    if codec.slot != ref.slot:
+        out.append(f"slot={codec.slot}")
+    if codec.headroom != ref.headroom:
+        out.append(f"headroom={codec.headroom!r}")
+    # moved_frac is controller-negotiated state, never spec text
+    return tuple(out)
+
+
+register_stage("zle", ZleCodec, _wrap_zle, unparse=_unparse_zle,
+               args=("g=", "slot=", "headroom="))
+
+
+# --------------------------------------------------------------------------
+# escalation fallbacks
+# --------------------------------------------------------------------------
+
+_FALLBACKS: dict[str, str] = {}
+
+
+def register_fallback(name: str, spec: str) -> None:
+    """Register an escalation fallback: ``escalate=<name>@<thr>`` swaps
+    the escalated path to ``codec_from_spec(spec)``.  The fallback must
+    parse and carry no ``escalate=`` of its own (it emits no probes, so a
+    chained escalation could never fire)."""
+    codec = codec_from_spec(spec)
+    if getattr(codec, "escalate", None) is not None:
+        raise CommSpecError(
+            f"fallback {name!r} -> {spec!r} carries its own 'escalate=' "
+            "token; escalation fallbacks must be terminal")
+    _FALLBACKS[name] = spec
+
+
+def list_fallbacks() -> dict[str, str]:
+    """Copy of the escalation-fallback table (name -> codec spec)."""
+    return dict(_FALLBACKS)
+
+
+def fallback_codec(name: str):
+    """The codec registered as escalation fallback ``name``."""
+    try:
+        return codec_from_spec(_FALLBACKS[name])
+    except KeyError:
+        raise CommSpecError(
+            f"unknown escalation fallback {name!r}; "
+            f"registered: {sorted(_FALLBACKS)}") from None
+
+
+# --------------------------------------------------------------------------
+# codec specs
+# --------------------------------------------------------------------------
+
 def codec_from_spec(spec: str):
-    """``"taco:e4m3:folded"`` -> codec instance."""
+    """``"taco:e4m3:folded"`` / ``"taco+zle:folded:slot=auto"`` -> codec.
+    The head splits on ``+`` into the base codec and its stages; an arg a
+    stage claims goes to that stage, the rest to the base codec; the
+    stages wrap the base codec left to right."""
     parts = spec.strip().split(":")
     head, args = parts[0], tuple(parts[1:])
     name, *stages = head.split("+")
-    if stages:
-        raise _not_ported(f"the lossless stage stack {head!r}")
     if name not in _CODECS:
         raise CommSpecError(
             f"unknown codec {name!r}; registered: {list_codecs()}")
+    sentries = [_stage_entry(s, spec) for s in stages]
+    base_args, stage_args = [], {s: [] for s in stages}
+    for tok in args:
+        owner = next((se.name for se in sentries
+                      if any(tok.startswith(p) for p in se.args)), None)
+        (stage_args[owner] if owner else base_args).append(tok)
     try:
-        return _CODECS[name][1](args)
+        codec = _CODECS[name][1](tuple(base_args))
     except CommSpecError:
         raise
     except ValueError as e:
         raise CommSpecError(f"bad args for codec {name!r}: {spec!r} ({e})") \
             from e
+    for se in sentries:
+        codec = _apply_stage(se, codec, tuple(stage_args[se.name]), spec)
+    return codec
 
 
 def codec_to_spec(codec) -> str:
-    """Codec instance -> normalized spec string."""
+    """Codec instance -> normalised spec string.  A stacked stage adds
+    ``+stage`` to the inner codec's head and its args after the inner
+    codec's; a negotiated ``moved_frac`` is not written."""
+    stage = _STAGE_NAME_BY_CLS.get(type(codec))
+    if stage is not None:
+        inner = codec_to_spec(codec.inner)
+        head, sep, rest = inner.partition(":")
+        entry = _STAGES[stage]
+        extra = tuple(entry.unparse(codec)) if entry.unparse else ()
+        out = f"{head}+{stage}{sep}{rest}"
+        return ":".join((out,) + extra) if extra else out
     for name, (cls, _, unparse) in _CODECS.items():
         if type(codec) is cls:
             return ":".join((name,) + tuple(unparse(codec)))
     raise CommSpecError(f"codec class {type(codec).__name__} is not "
                         "registered")
+
+
+# the precision ladder an escalated path climbs ("bf16": the identity
+# baseline), registered after the codecs they parse through
+register_fallback("bf16", "none")
+register_fallback("int8", "int8")
+register_fallback("tahquant", "tahquant")
 
 
 _KNOBS = {"skip_first": "skip_first", "skip_last": "skip_last",

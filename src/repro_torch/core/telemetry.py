@@ -1,7 +1,9 @@
-"""Observability: the trainer's per-step ``comm/*`` wire accounting
-(:func:`comm_metrics`), and for the serving engine the event/counter
-:class:`Reporter` and the nearest-rank :func:`percentile` (copies of the
-JAX package's ``core/telemetry.py`` pieces the port's paths use)."""
+"""Observability: the per-step ``comm/*`` wire accounting shared by the
+trainer and the serving engine (:func:`comm_metrics`), the event/counter
+:class:`Reporter` and the nearest-rank :func:`percentile` — the JAX
+package's ``core/telemetry.py``.  Everything is host-side Python on
+static plan data, apart from the one cached probe encode behind
+:func:`achieved_probe_ratio`."""
 from __future__ import annotations
 
 import collections
@@ -9,16 +11,43 @@ import logging
 import math
 import time
 
+_PROBE_RATIO_CACHE: dict = {}
+
+
+def achieved_probe_ratio(codec) -> float:
+    """Achieved / slot byte fraction of ``codec`` on an all-zero probe
+    slot: the floor of its variable wire layout.  One encode on the CPU,
+    cached per codec identity (negotiated variants share the entry)."""
+    import torch
+
+    from repro_torch.core import collectives as cc
+    key = cc._slot_key(codec)
+    cached = _PROBE_RATIO_CACHE.get(key)
+    if cached is None:
+        n = 4 * key.granule
+        probe = torch.zeros((1, n), dtype=torch.bfloat16)
+        ach = cc.achieved_slot_bytes(key, probe)
+        slot = cc.wire_slot_bytes(key, n)
+        cached = float(ach[0]) / float(slot)
+        _PROBE_RATIO_CACHE[key] = cached
+    return cached
+
+
+def clear_probe_cache() -> None:
+    """Drop every cached :func:`achieved_probe_ratio` entry."""
+    _PROBE_RATIO_CACHE.clear()
+
 
 def comm_metrics(plan, *, spec: str | None = None,
                  warmup_active: bool | None = None) -> dict:
-    """Per-path wire telemetry for the plan that ran a step (static, no
-    device work): ``comm/spec``, ``comm/warmup_active``,
-    ``comm/<path>_bytes_per_elem`` for every path and
-    ``comm/<path>_chunks`` for every path whose codec runs the chunked
-    ring — the JAX package's key set for the codecs the port has (its
-    variable-layout, ``slot=auto`` and escalation families need codecs
-    the port's plans cannot carry yet)."""
+    """Per-path wire telemetry for the plan that ran a step (static apart
+    from the cached floor probe): ``comm/spec``, ``comm/warmup_active``,
+    ``comm/<path>_bytes_per_elem`` for every path, ``comm/<path>_chunks``
+    on a ring, ``comm/<path>_wire_variable`` and
+    ``comm/<path>_achieved_floor_ratio`` on a variable layout,
+    ``comm/<path>_slot_auto`` and ``comm/<path>_negotiated_bytes`` under
+    ``slot=auto``, and ``comm/<path>_escalate_threshold`` under
+    ``escalate=`` — the JAX package's key set."""
     m: dict = {}
     if spec is not None:
         m["comm/spec"] = spec
@@ -29,6 +58,28 @@ def comm_metrics(plan, *, spec: str | None = None,
     for path, nc in plan.wire_chunks().items():
         if nc != 1:
             m[f"comm/{path}_chunks"] = nc
+    for path, var in plan.wire_variable().items():
+        if var:
+            m[f"comm/{path}_wire_variable"] = 1.0
+            m[f"comm/{path}_achieved_floor_ratio"] = \
+                achieved_probe_ratio(getattr(plan, path))
+    for path, mode in plan.slot_modes().items():
+        if mode == "auto":
+            # the bytes/elem the negotiated bound moves (the slot bound
+            # while bootstrapping or resyncing: moved_frac unset)
+            frac = getattr(getattr(plan, path), "moved_frac", None)
+            if frac is None:
+                worst = 1.0
+            elif isinstance(frac, (int, float)):
+                worst = float(frac)
+            else:
+                worst = max(frac)
+            m[f"comm/{path}_slot_auto"] = 1.0
+            m[f"comm/{path}_negotiated_bytes"] = \
+                m[f"comm/{path}_bytes_per_elem"] * worst
+    for path, esc in plan.escalation_modes().items():
+        if esc is not None:
+            m[f"comm/{path}_escalate_threshold"] = float(esc[1])
     return m
 
 

@@ -17,19 +17,31 @@ request-serving system:
     slot-table row (in place), and the slot joins the next decode tick.
 
 Retirement, admission (the :class:`~repro_torch.serve.kv_pager.KVPager`)
-and prefill advancement happen on the host between device steps.  Unlike
-the JAX engine there is no compiled-step cache (PyTorch runs eagerly), so
-the summary has no retrace counter, and the policy layer (``slot=auto``,
-``escalate=``) is not ported: the registry rejects those specs.
+and prefill advancement happen on the host between device steps.
+
+The decode tick runs through a ``core/policy.py`` ``PolicyEngine``, as
+the JAX engine's does: ``slot=auto`` TP paths renegotiate the decode wire
+bound between ticks (pass a shared ``slot_controller=`` to pool
+watermarks across engines), ``escalate=`` paths swap to their fallback
+codec on error spikes, and a tick whose negotiated bound overflowed is
+replayed at the static bound.  The replay needs no copy of the KV cache:
+the tick writes each layer's k/v at every slot's position before that
+layer reads the cache, so the replay overwrites exactly the positions
+the failed run wrote.  Prefill runs the base plan (the static bound,
+never negotiated); its probes feed the controllers too.  PyTorch runs
+eagerly, so a plan variant is a decode function closed over its plan,
+with nothing compiled, and the summary has no retrace counter.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.core import telemetry
+from repro_torch.core import collectives as cc
+from repro_torch.core import policy, telemetry
 from repro_torch.models.model import resolve_device
 from repro_torch.serve import serve_step as ss
 from repro_torch.serve.kv_pager import KVPager
@@ -55,7 +67,8 @@ class ServeEngine:
                  max_len: int = 64, block: int = 16,
                  total_blocks: int | None = None,
                  prefill_buckets=DEFAULT_BUCKETS,
-                 collect_logits: bool = False, reporter=None, device=None):
+                 collect_logits: bool = False, reporter=None, device=None,
+                 slot_controller=None):
         dev = resolve_device(device)
         if dev.type != model.device.type:
             raise ValueError(f"engine device {dev} but model on "
@@ -69,6 +82,11 @@ class ServeEngine:
         self.collect_logits = collect_logits
         self.reporter = reporter if reporter is not None \
             else telemetry.Reporter(maxlen=REPORTER_MAXLEN)
+        self.policy = policy.PolicyEngine(
+            ctx.plan, self._build_decode_for,
+            controllers=policy.default_controllers(
+                ctx.plan, reporter=self.reporter,
+                slot_controller=slot_controller))
         self.pager = KVPager(self.max_batch, self.max_len, block=block,
                              total_blocks=total_blocks)
         self.sched = Scheduler(self.pager)
@@ -79,7 +97,28 @@ class ServeEngine:
         self.ticks = 0
         self.decode_steps = 0
         self.prefill_steps = 0      # decode_forward calls made by prefill
+        self.policy.fn_for()        # the decode function of the base plan
         self._t0 = time.monotonic()
+
+    # ---- the decode step of one plan variant --------------------------------
+    def _build_decode_for(self, plan):
+        """The engine's build callback: the decode step of one resolved
+        plan variant (the base plan, a negotiated bound, or a fallback
+        codec), ``fn(tok, pos)`` on the slot table's cache."""
+        ctx = self.ctx if plan == self.ctx.plan else \
+            dataclasses.replace(self.ctx, plan=plan)
+
+        def step(tok, pos):
+            return ss.decode_forward(self.params, tok, self.cache, pos,
+                                     self.model, ctx,
+                                     return_logits=self.collect_logits)
+        return step
+
+    @property
+    def slots(self):
+        """The engine's ``SlotController`` (under ``slot=auto``, or the one
+        passed in), else None."""
+        return self.policy.controller(cc.SlotController)
 
     # ---- request API -------------------------------------------------------
     def submit(self, prompt, max_new: int = 16, eos: int | None = None,
@@ -136,9 +175,9 @@ class ServeEngine:
         pos = torch.as_tensor(self.slot_pos, dtype=torch.long,
                               device=self.device)
         t0 = time.perf_counter()
-        out = ss.decode_forward(self.params, tok, self.cache, pos,
-                                self.model, self.ctx,
-                                return_logits=self.collect_logits)
+        # resolve this tick's plan, run it, tick the controllers, and
+        # replay a tick whose negotiated bound overflowed
+        out, _ = self.policy.run(None, lambda fn: fn(tok, pos))
         nxt, logits = out if self.collect_logits else (out, None)
         nxt = nxt.cpu().numpy()                 # waits for the device
         dt = time.perf_counter() - t0
@@ -208,8 +247,8 @@ class ServeEngine:
         out = dict(self.sched.stats(), ticks=self.ticks,
                    decode_steps=self.decode_steps,
                    prefill_steps=self.prefill_steps, requests=len(rows))
-        for path, bpe in self.ctx.plan.wire_bytes_per_element().items():
-            out[f"comm/{path}_bytes_per_elem"] = bpe
+        out.update(telemetry.comm_metrics(self.policy.plan_at(), spec=None))
+        out.update(self.policy.metrics())
         if rows:
             per_tok = [r["decode_s_per_tok"] for r in rows
                        if r["decode_s_per_tok"] is not None]

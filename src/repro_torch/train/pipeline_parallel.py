@@ -47,9 +47,10 @@ import torch
 
 from repro_torch.core import collectives as cc
 from repro_torch.models import layers, transformer
-from repro_torch.models.layers import apply_norm, tree_map
+from repro_torch.models.layers import apply_norm
 from repro_torch.optim import adamw
-from repro_torch.train.train_step import check_fsdp_axes
+from repro_torch.train.train_step import (TrainStep, backward_grads,
+                                          check_fsdp_axes, update_step)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,10 +74,10 @@ def _stage_forward(x_shard, seg_params_local, model, ctx, positions):
 
 def build_pipeline_train_step(model, ctx, oc: adamw.OptConfig,
                               pc: PipeConfig):
-    """Returns ``step(params, opt_state, batch) -> (params, opt_state,
-    metrics)`` on this rank's stage, as ``train_step.build_train_step``
-    does (params updated in place; metrics ``loss``, ``grad_norm`` and
-    ``lr``).  ``model`` is this rank's stage (``pipe == pc.stages``),
+    """Returns the ``train_step.TrainStep`` of this rank's stage, as
+    ``train_step.build_train_step`` does (``step(params, opt_state, batch)
+    -> (params, opt_state, metrics)``, params updated in place; metrics
+    ``loss``, ``grad_norm`` and ``lr``).  ``model`` is this rank's stage (``pipe == pc.stages``),
     ``ctx`` carries the pipe group (``launch.mesh.Mesh.parallel_ctx`` of
     the pipe mesh) and the batch is this rank's data rows."""
     cfg = model.cfg
@@ -147,24 +148,13 @@ def build_pipeline_train_step(model, ctx, oc: adamw.OptConfig,
         count = cc.psum_exact(count.detach(), over)
         return loss_sum / torch.clamp_min(count, 1.0)
 
-    def step(params, opt_state, batch):
-        flat = adamw.leaves(params)
-        for p in flat:
+    def grads(params, batch):
+        for p in adamw.leaves(params):
             p.requires_grad_(True)
         loss = loss_fn(params, batch)
-        loss.backward()
-        # a parameter the loss does not reach gets a zero grad, as in JAX
-        grads = adamw.finalize_grads(tree_map(
-            lambda p: torch.zeros_like(p) if p.grad is None else p.grad,
-            params), model, ctx.comm, ctx.fsdp_groups, ctx.pipe_group)
-        for p in flat:
-            p.grad = None
-        metrics = adamw.adamw_update(params, grads, opt_state, oc, model,
-                                     ctx.comm, ctx.fsdp_groups)
-        metrics["loss"] = loss.detach()
-        return params, opt_state, metrics
+        return backward_grads(params, loss, model, ctx, ctx.pipe_group), loss
 
-    return step
+    return TrainStep(grads, update_step(model, ctx, oc))
 
 
 def boundary_hops_per_step(pc: PipeConfig) -> dict:

@@ -12,6 +12,14 @@ the loss sum and the token count are summed over the dp axes
 (:func:`dp_axes`), so every rank holds the global loss, and the summed
 loss's backward passes the cotangent through unchanged (``psum_exact``):
 each rank's gradient is its own rows' share of the global mean.
+
+A step is two phases (:class:`TrainStep`): ``grads`` runs every hop of
+the step — forward, backward and the ``grad_rs`` reduce-scatters — and
+writes nothing; ``apply`` is the optimizer update, which writes the
+parameters and the optimizer state in place.  The trainer's policy
+engine decides whether a step stands (a negotiated wire bound may have
+overflowed, ``core/policy.py``) between the two, so a replayed step
+starts from untouched state.
 """
 from __future__ import annotations
 
@@ -38,33 +46,59 @@ def check_fsdp_axes(model, ctx) -> None:
                          f"{ctx.fsdp_axes}")
 
 
-def build_train_step(model, ctx, oc: adamw.OptConfig):
-    """Returns ``step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``.  ``params`` are the model's bf16 leaf tensors; the step
-    marks them as requiring grad, runs ``backward()`` and updates them and
+class TrainStep:
+    """``step(params, opt_state, batch) -> (params, opt_state, metrics)``
+    in two phases: ``grads(params, batch) -> (grads, loss)`` runs every hop
+    and writes nothing (the parameters' ``.grad`` are cleared again);
+    ``apply(params, opt_state, grads, loss)`` updates the parameters and
     ``opt_state`` in place.  metrics: ``loss`` and ``grad_norm`` (0-d f32
     tensors on the device) and ``lr`` (float)."""
+
+    def __init__(self, grads, apply):
+        self.grads, self.apply = grads, apply
+
+    def __call__(self, params, opt_state, batch):
+        return self.apply(params, opt_state, *self.grads(params, batch))
+
+
+def backward_grads(params, loss, model, ctx, pipe_group=None):
+    """``loss.backward()`` and the finalized grads of ``params``, their
+    ``.grad`` cleared again (a parameter the loss does not reach gets a
+    zero grad, as in JAX)."""
+    flat = adamw.leaves(params)
+    loss.backward()
+    grads = adamw.finalize_grads(tree_map(
+        lambda p: torch.zeros_like(p) if p.grad is None else p.grad,
+        params), model, ctx.comm, ctx.fsdp_groups, pipe_group)
+    for p in flat:
+        p.grad = None
+    return grads
+
+
+def update_step(model, ctx, oc: adamw.OptConfig):
+    """``apply`` of a :class:`TrainStep`: AdamW in place."""
+    def apply(params, opt_state, grads, loss):
+        metrics = adamw.adamw_update(params, grads, opt_state, oc, model,
+                                     ctx.comm, ctx.fsdp_groups)
+        metrics["loss"] = loss.detach()
+        return params, opt_state, metrics
+    return apply
+
+
+def build_train_step(model, ctx, oc: adamw.OptConfig) -> TrainStep:
+    """The :class:`TrainStep` of ``ctx.plan``.  ``params`` are the model's
+    bf16 leaf tensors; ``grads`` marks them as requiring grad and runs
+    ``backward()``."""
     check_fsdp_axes(model, ctx)
 
-    def step(params, opt_state, batch):
-        flat = adamw.leaves(params)
-        for p in flat:
+    def grads(params, batch):
+        for p in adamw.leaves(params):
             p.requires_grad_(True)
         loss_sum, count, _ = model.loss_parts(params, batch, ctx)
         dp = tuple(ctx.axis_group(a) for a in dp_axes(model))
         loss_sum = psum_exact(loss_sum, dp)
         count = psum_exact(count.detach(), dp)
         loss = loss_sum / torch.clamp_min(count, 1.0)
-        loss.backward()
-        # a parameter the loss does not reach gets a zero grad, as in JAX
-        grads = adamw.finalize_grads(tree_map(
-            lambda p: torch.zeros_like(p) if p.grad is None else p.grad,
-            params), model, ctx.comm, ctx.fsdp_groups)
-        for p in flat:
-            p.grad = None
-        metrics = adamw.adamw_update(params, grads, opt_state, oc, model,
-                                     ctx.comm, ctx.fsdp_groups)
-        metrics["loss"] = loss.detach()
-        return params, opt_state, metrics
+        return backward_grads(params, loss, model, ctx), loss
 
-    return step
+    return TrainStep(grads, update_step(model, ctx, oc))

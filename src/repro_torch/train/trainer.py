@@ -1,12 +1,21 @@
 """The training loop with checkpoint / restart, failure injection and the
 step watchdog — the JAX package's ``repro/train/trainer.py``.
 
-Each step resolves the plan that runs it (``ctx.plan.at_step``: the
-identity plan during ``warmup=``, the steady plan after), takes the step
-function built for that plan (one per plan, cached), runs it on this
-data rank's rows of the step's global batch and records the step's
-metrics, the plan's ``comm/*`` wire accounting among them
-(``core/telemetry.py``).
+The trainer hands every step to a ``core/policy.py`` ``PolicyEngine``:
+the engine resolves the plan that runs the step (``ctx.plan.at_step``:
+the identity plan during ``warmup=``, the steady plan after; then every
+controller's proposal — a negotiated wire bound under ``slot=auto``, a
+fallback codec under ``escalate=``), takes the step function built for
+that plan (one per plan variant, cached), and ticks its controllers after
+the step, replaying a step whose negotiated bound overflowed.  The step
+runs on this data rank's rows of the step's global batch.  Its update
+writes the parameters and the optimizer state in place, so the step runs
+in two phases (``train_step.TrainStep``): the engine runs the phase with
+every hop of the step (forward, backward, the ``grad_rs``
+reduce-scatters), decides, and only the attempt that stands is applied
+— a replay starts from untouched state, with no copy of it.  Each
+history row holds the step's metrics, the plan's ``comm/*`` wire
+accounting (``core/telemetry.py``) and the engine's controller counters.
 
 The loop is restart-oriented: all state is (params, opt_state, step), and
 the data pipeline is a pure function of step.  With ``tc.ckpt_dir`` set,
@@ -16,9 +25,7 @@ shards; rank 0 writes), ``run(resume=True)`` starts from the latest
 checkpoint, and a step that raises (an ``injector`` failure or a real
 one) restores the latest checkpoint and replays from it, up to
 ``RetryPolicy.max_restarts`` times — bitwise, as an uninterrupted run.
-``tc.ckpt_dir=None`` (the default) saves nothing.  The ``PolicyEngine``
-controllers (``slot=auto``, ``escalate=``) are not ported: the registry
-refuses their specs.
+``tc.ckpt_dir=None`` (the default) saves nothing.
 """
 from __future__ import annotations
 
@@ -30,7 +37,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.ckpt import checkpoint as ckpt
-from repro_torch.core import telemetry
+from repro_torch.core import collectives as cc
+from repro_torch.core import policy, telemetry
 from repro_torch.core.registry import to_spec
 from repro_torch.models.layers import tree_map
 from repro_torch.optim import adamw
@@ -53,9 +61,9 @@ class TrainerConfig:
 
 class Trainer:
     """``Trainer(model, ctx, oc, tc, data).run()``; the parameters live on
-    ``model.device``.  ``build_step(model, ctx, oc)`` builds the step
-    function of a plan: ``train_step.build_train_step`` by default, or a
-    pipeline step (``train/pipeline_parallel.py``)."""
+    ``model.device``.  ``build_step(model, ctx, oc)`` builds the
+    ``train_step.TrainStep`` of a plan: ``train_step.build_train_step`` by
+    default, or a pipeline step (``train/pipeline_parallel.py``)."""
 
     def __init__(self, model, ctx, oc: adamw.OptConfig, tc: TrainerConfig,
                  data, injector: FailureInjector | None = None,
@@ -66,22 +74,43 @@ class Trainer:
         self.comm_spec = to_spec(ctx.plan)
         self.watchdog = StepWatchdog()
         self.history: list[dict] = []
-        self._steps: dict = {}
-        log.info("comm plan: %s", self.comm_spec)
+        self.reporter = telemetry.Reporter(log)
+        # the engine owns plan resolution, the per-plan step cache and the
+        # replay protocol; default_controllers attaches what the plan asks
+        # for (slot=auto / escalate= paths)
+        self.policy = policy.PolicyEngine(
+            ctx.plan, self._build_step,
+            controllers=policy.default_controllers(
+                ctx.plan, reporter=self.reporter))
+        log.info("comm plan: %s%s", self.comm_spec,
+                 f" [{len(self.policy.controllers)} policy controller(s)]"
+                 if self.policy.controllers else "")
 
     @property
     def losses(self) -> list[float]:
         return [h["loss"] for h in self.history]
 
+    @property
+    def slots(self):
+        """The engine's ``SlotController`` when a path runs under
+        ``slot=auto``, else None."""
+        return self.policy.controller(cc.SlotController)
+
+    def _build_step(self, plan):
+        """The engine's build callback: the step of one plan variant."""
+        return self.build_step(
+            self.model, dataclasses.replace(self.ctx, plan=plan), self.oc)
+
     def step_fn_for(self, step: int):
-        """The step function of the plan active at ``step`` (warmup
-        resolved here, outside the step)."""
-        plan = self.ctx.plan.at_step(step)
-        if plan not in self._steps:
-            self._steps[plan] = self.build_step(
-                self.model, dataclasses.replace(self.ctx, plan=plan),
-                self.oc)
-        return self._steps[plan]
+        """The step function of the plan variant active at ``step``
+        (warmup and every controller's proposal resolved by the engine,
+        outside the step)."""
+        return self.policy.fn_for(step)[0]
+
+    def _attempt(self, fn, params, batch):
+        """One attempt at a step: every hop of it, nothing written
+        (``TrainStep.grads``); the engine decides whether it stands."""
+        return fn, fn.grads(params, batch)
 
     # ---- state ------------------------------------------------------------
     def init_state(self, params=None):
@@ -184,15 +213,18 @@ class Trainer:
     def _step(self, step: int, params, opt_state, dev):
         glob = self.data.batch(step)
         batch = self.data.place(self.model.batch_slice(glob), dev)
-        fn = self.step_fn_for(step)
         t0 = time.perf_counter()
-        params, opt_state, metrics = fn(params, opt_state, batch)
+        # resolve, run every hop, tick the controllers, replay an attempt
+        # whose negotiated bound overflowed; then apply the one that stood
+        (fn, (grads, loss)), plan = self.policy.run(
+            step, lambda fn: self._attempt(fn, params, batch))
+        params, opt_state, metrics = fn.apply(params, opt_state, grads, loss)
+        del grads
         loss = float(metrics["loss"])          # waits for the step
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
         self.watchdog.observe(dt)
-        plan = self.ctx.plan.at_step(step)
         row = {"step": step, "loss": loss,
                "grad_norm": float(metrics["grad_norm"]),
                "lr": metrics["lr"], "ms": dt * 1e3,
@@ -200,7 +232,8 @@ class Trainer:
                "plan": to_spec(plan)}
         row.update(telemetry.comm_metrics(
             plan, spec=self.comm_spec,
-            warmup_active=plan != self.ctx.plan.steady()))
+            warmup_active=self.policy.warmup_active(step)))
+        row.update(self.policy.metrics())
         self.history.append(row)
         if step % self.tc.log_every == 0:
             log.info("step %d loss %.4f gnorm %.3f lr %.2e (%.1f ms)",

@@ -758,3 +758,81 @@ def test_pipeline_step_on_card_matches_cpu(card, spec):
     assert ops.plain_routes == plain
     launched = sum(k.launches for k in compress) - before
     assert (launched > 0) == (not ctx.plan.tp_identity)
+
+
+# --------------------------------------------------------------------------
+# the policy layer on the card (chip_smoke.py phase 9a at a smaller size)
+# --------------------------------------------------------------------------
+
+def _zle_input(rng, card, rows=64, d=896, zero_from=16):
+    x = torch.from_numpy(tp_like(rng, (2, rows, d))).to(card, torch.bfloat16)
+    x[:, zero_from:] = 0                  # padded sequence rows
+    return x
+
+
+def test_zle_bytes_on_card_equal_cpu(card, rng):
+    """The ZLE stage is plain PyTorch on the card: its bytes of an inner
+    wire equal the CPU's bit for bit, and it inverts on the card."""
+    from repro_torch.core import lossless as zle
+    from repro_torch.core.registry import codec_from_spec
+    codec = codec_from_spec("taco+zle")
+    x = _zle_input(rng, card)
+    inner = codec.inner.encode_wire(x.reshape(1, -1))
+    for group in (1, 16, 64):
+        got = zle.zle_encode(inner, group)
+        want = zle.zle_encode(inner.cpu(), group)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+        assert torch.equal(zle.zle_decode(got[1], got[2], inner.shape[-1],
+                                          group), inner)
+
+
+@pytest.mark.parametrize("transport", ["", ":folded:chunks=4"])
+def test_negotiated_hop_on_card_equals_static(card, transport, rng):
+    """Bootstrap, a negotiated hop narrower than the bound equal to the
+    static hop bit for bit (all-gather and reduce-scatter), a dense spike
+    that overflows, one resync replay bit-exact."""
+    from repro_torch.core import collectives as cc
+    from repro_torch.core.registry import codec_from_spec
+    codec = codec_from_spec(f"taco+zle{transport}:slot=auto")
+    static = codec_from_spec(f"taco+zle{transport}")
+    x, dense = _zle_input(rng, card), _zle_input(rng, card, zero_from=64)
+    ctl = cc.SlotController()
+
+    def hops(c, v):
+        return [cc.all_gather_c(v, None, 1, c, cc.Identity),
+                cc.psum_scatter_c(v, None, 1, c, cc.Identity)]
+    hops(ctl.negotiate(codec), x)
+    assert ctl.finish_step() is False
+    neg = ctl.negotiate(codec)
+    n = x.numel()
+    assert cc.moved_slot_bytes(neg, n) < cc.wire_slot_bytes(codec, n)
+    assert all(torch.equal(a, b)
+               for a, b in zip(hops(neg, x), hops(static, x)))
+    assert ctl.finish_step() is False
+    hops(ctl.negotiate(codec), dense)
+    assert ctl.finish_step() is True
+    replay = hops(ctl.negotiate(codec), dense)
+    assert ctl.finish_step() is False and ctl.resyncs == 1
+    assert all(torch.equal(a, b)
+               for a, b in zip(replay, hops(static, dense)))
+
+
+def test_err_probe_on_card_adds_one_decompress_launch(card, rng):
+    """Under escalate= a hop decodes one wire row back for its probe: one
+    more decompress launch (K5 at this size), and its value is read with
+    one copy by drain_probes."""
+    from repro_torch.core import collectives as cc
+    from repro_torch.core import policy
+    from repro_torch.core.registry import codec_from_spec
+    esc = policy.ErrorEscalationController()
+    x = torch.from_numpy(tp_like(rng, (1, 3584))).to(card)
+    counters = (ash_compress.compress_wire, ash_decompress.decompress_wire)
+    for spec, extra in (("taco", 0), ("taco:escalate=bf16@0.1", 1)):
+        c = codec_from_spec(spec)
+        before = [k.launches for k in counters]
+        cc.all_gather_c(x, None, 1, c, c)
+        assert [k.launches - b for k, b in zip(counters, before)] == \
+            [1, 1 + extra]
+    cc.drain_probes()
+    (_, err), = esc._obs
+    assert 0.0 < err < 0.1

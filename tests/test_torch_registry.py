@@ -1,13 +1,23 @@
-"""The port's spec grammar: the supported subset (the ``none``, ``taco``,
-``sdp4bit``, ``tahquant`` and ``int8`` codecs, the ``taco3d`` alias)
-round-trips to the same normalized strings as the JAX registry; what is
-not ported yet (lossless stages, the escalation policy) and the TPU
-implementation tokens are rejected with a clear error."""
+"""The port's spec grammar: the ``none``, ``taco``, ``sdp4bit``,
+``tahquant`` and ``int8`` codecs, the ``+zle`` lossless stage, the
+``escalate=`` / ``hold=`` policy tokens and the aliases round-trip to the
+same normalized strings as the JAX registry; the TPU implementation
+tokens are rejected with a clear error."""
 import pytest
+import torch
 
 from repro.core import registry as jreg
+from repro_torch.core import collectives as cc
 from repro_torch.core import registry as reg
 from repro_torch.core.parallel import CommPlan, ParallelCtx
+
+#: specs the port refused before its lossless tier and policy layer
+LOSSLESS_AND_POLICY = [
+    "grad_rs=sdp4bit:escalate=bf16@0.08",
+    "grad_rs=sdp4bit:escalate=int8@0.1:hold=5",
+    "pp=tahquant:escalate=bf16@0.1", "weight_ag=int8:escalate=int8@0.05:hold=3",
+    "pp=tahquant+zle", "tp=taco+zle", "tp=taco+zle:slot=auto",
+    "tp=taco:escalate=bf16@0.08", "tp=taco:escalate=int8@0.1:hold=5"]
 
 SUPPORTED = [
     "baseline", "identity", "taco", "taco_folded", "", "tp=none",
@@ -28,7 +38,12 @@ SUPPORTED = [
     "weight_ag=int8:g64:chunks=2", "pp=tahquant,weight_ag=int8", "taco3d",
     "pp=int8:chunks=3:schedule=serial", "grad_rs=tahquant:g128",
     "tp=taco:folded:chunks=4,grad_rs=sdp4bit,pp=tahquant,weight_ag=int8",
-]
+    "tp=taco+zle:folded:chunks=4", "tp=taco+zle:escalate=bf16@0.08:slot=auto",
+    "tp=taco+zle:slot=auto:escalate=bf16@0.08", "tp=taco+zle:g=32",
+    "tp=taco+zle:g64", "tp=taco+zle:slot=auto:headroom=0.25:chunks=4",
+    "tp=taco+zle:slot=static", "weight_ag=int8+zle:slot=auto",
+    "grad_rs=sdp4bit+zle:g=8,pp=tahquant:g128:escalate=bf16@0.1",
+] + LOSSLESS_AND_POLICY
 
 
 @pytest.mark.parametrize("spec", SUPPORTED)
@@ -40,16 +55,21 @@ def test_round_trip_matches_jax(spec):
     assert reg.to_spec(reg.from_spec(out)) == out
 
 
-@pytest.mark.parametrize("spec", [
-    "grad_rs=sdp4bit:escalate=bf16@0.08",
-    "grad_rs=sdp4bit:escalate=int8@0.1:hold=5",
-    "pp=tahquant:escalate=bf16@0.1", "weight_ag=int8:escalate=int8@0.05:hold=3",
-    "pp=tahquant+zle", "tp=taco+zle", "tp=taco+zle:slot=auto",
-    "tp=taco:escalate=bf16@0.08", "tp=taco:escalate=int8@0.1:hold=5"])
+@pytest.mark.parametrize("spec", LOSSLESS_AND_POLICY)
 def test_not_ported_yet_is_rejected(spec):
-    jreg.from_spec(spec)                     # valid in the JAX grammar
-    with pytest.raises(reg.CommSpecError, match="not ported yet"):
-        reg.from_spec(spec)
+    """Named for what it held before the lossless tier and the policy
+    layer were ported (these nine specs were refused): each now parses to
+    the JAX package's normalized string, and one all-gather hop of its
+    compressed path runs and equals the hop of its inner codec."""
+    plan = reg.from_spec(spec)
+    assert reg.to_spec(plan) == jreg.to_spec(jreg.from_spec(spec))
+    path = next(p for p in ("tp_fwd", "grad_rs", "weight_ag", "pp")
+                if getattr(plan, p) != cc.Identity)
+    codec = getattr(plan, path)
+    inner = getattr(codec, "inner", codec)
+    x = torch.linspace(-1.0, 1.0, 4 * codec.granule).reshape(4, -1)
+    assert torch.equal(cc.all_gather_c(x, None, 0, codec, codec),
+                       cc.all_gather_c(x, None, 0, inner, inner))
 
 
 @pytest.mark.parametrize("tok", ["jnp", "pallas", "pallas_interpret"])
@@ -64,7 +84,9 @@ def test_tpu_impl_tokens_rejected(tok):
     "warmup=-1", "skip_first=x", "tp=taco:tensorscale:g64",
     "tp=taco:schedule=fast", "tp=taco:chunks=0", "tp=taco:cdint7",
     "pp=tahquant:g0", "pp=tahquant:b64", "weight_ag=int8:norot",
-    "pp=tahquant:chunks=0",
+    "pp=tahquant:chunks=0", "tp=none+zle", "tp=taco+zle:g=0",
+    "tp=taco:slot=auto", "tp=taco:hold=5", "tp=taco:escalate=sdp4bit",
+    "tp=taco:escalate=nosuch@0.1", "tp=taco+foo",
 ])
 def test_malformed_specs_rejected(spec):
     with pytest.raises(reg.CommSpecError):

@@ -337,8 +337,11 @@ def test_train_launcher_on_cpu_and_without_a_card(capsys, monkeypatch):
 
 def test_trainer_refuses_what_the_slice_lacks():
     """Checkpoints and fault injection are ported (``ckpt_dir``,
-    ``injector``: tests/test_torch_checkpoint.py); ``remat_policy='dots'``
-    and the policy controllers are not."""
+    ``injector``: tests/test_torch_checkpoint.py), and so are the policy
+    controllers (tests/test_torch_policy.py): both specs below parse and
+    train.  ``remat_policy='dots'`` is not ported.  ``escalate=`` needs a
+    registered fallback and a threshold: ``escalate=sdp4bit`` is refused
+    as the JAX registry refuses it."""
     cfg = tconfigs.smoke_config(tconfigs.get_config("qwen2-0.5b"))
     model = TModel(cfg, tconfigs.make_plan(cfg, 1, 1), device="cpu")
     data = tpipe.SyntheticLM(tpipe.DataConfig(cfg.vocab_size, 32, 2))
@@ -347,10 +350,20 @@ def test_trainer_refuses_what_the_slice_lacks():
     with pytest.raises(NotImplementedError, match="dots"):
         TModel(cfg, plan, device="cpu").loss_parts(
             model.init(0), data.batch(0), TCtx())
+    from repro.core.registry import CommSpecError as JCommSpecError
     from repro_torch.core.registry import CommSpecError
-    for spec in ("tp=taco:escalate=sdp4bit", "tp=taco+zle:slot=auto"):
-        with pytest.raises(CommSpecError, match="not ported"):
-            tfrom_spec(spec)
+    for bad in ("tp=taco:escalate=sdp4bit", "tp=taco:escalate=sdp4bit@0.1"):
+        with pytest.raises(JCommSpecError):
+            from_spec(bad)
+        with pytest.raises(CommSpecError, match="escalat"):
+            tfrom_spec(bad)
+    for spec in ("tp=taco:escalate=bf16@0.08", "tp=taco+zle:slot=auto"):
+        tr = ttrainer.Trainer(model, TCtx(plan=tfrom_spec(spec)),
+                              tadamw.OptConfig(**OPT),
+                              ttrainer.TrainerConfig(total_steps=2), data)
+        hist = tr.run()[2]
+        assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
+        assert tr.policy.controllers
 
 
 def test_warmup_schedule_matches_jax():

@@ -83,10 +83,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      (loss 1e-3, grad norm 5e-2) and makes no ``torch.distributed`` call
      for its boundary hops (no peer at pipe = 1), and the card equals the
      CPU under ``taco3d`` and ``weight_ag=int8``; then full-width
-     gpt-2.7b (32 layers, d 2560, vocab 51200), batch 4 x seq 2048 in 4
-     microbatches, 2 warm + 6 timed steps, under ``baseline`` and
-     ``taco3d``: launches 4 x phase 3's per-microbatch counts (1424 K1,
-     776 K3, 648 K4), losses within 5e-2 of baseline's, and one step's
+     gpt-2.7b (d 2560, vocab 51200) cut to 16 of its 32 layers, batch 4
+     x seq 2048 in 4 microbatches, 2 warm + 6 timed steps, under
+     ``baseline`` and ``taco3d``: launches 4 x phase 3's per-microbatch
+     counts (at 16 layers 720 K1, 392 K3, 328 K4), losses within 5e-2 of
+     baseline's, and one step's
      boundary hops (TahQuant) and weight gathers (``Int8Codec``) replayed
      at full width, card against CPU (codes apart from ties, scales bit
      for bit) and profiled;
@@ -124,12 +125,31 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      98 probe decodes, or none while escalated); then an engine forced
      through one overflow replay (a shared controller seeded from a
      mostly-zero sample) gives the greedy tokens of an engine under the
-     static ``tp=taco+zle``.
+     static ``tp=taco+zle``;
+ 10. sequence parallelism under ``sp=taco:folded``, on phase 5's group.
+     One card cannot hold two ranks, and at sp = 1 both attention
+     flavours run the monolithic core (as in the JAX package), so the
+     sp hops' kernels are held at full-width sp = 2 shapes instead
+     (``SP_HOPS``): 10a/10b, the Ulysses in-hop (4 x 1024 x 14 x 192)
+     and out-hop (4 x 2048 x 7 x 64) through ``all_to_all_c`` and the
+     ring's KV hop (4 x 1024 x 14 x 128) through ``ppermute_c``, forward
+     and backward: one K1 and one K3 a hop each way, no plain route, the
+     card's wires against the CPU's by the parity rule and their K3
+     decode against the plain decode, the hop's output and gradient the
+     decode of its wires bit for bit, the all-to-all's bytes against
+     ``a2a_wire_bytes``, and each hop's device time; 10c (in phase 1b),
+     K1/K3/K4 on the two-peer stacks a rank of sp = 2 decodes; 10d, the
+     ring's online-softmax fold of one full-width layer (2 sequence
+     blocks) against ``attention_core`` within one bf16 output ulp (atol
+     2e-2, the JAX package's ``check_sp.py`` contract); 10e, phase 3's
+     taco cell through the train launcher with the seq mesh's 1-rank
+     groups, ``--sp-mode ulysses`` and ``ring``, 3 steps each: phase 3's
+     launches every step and its first losses bit for bit.
 
-Every training and serving run of phases 2, 3, 5, 6, 7, 8 and 9 must take only
-kernels: ``ops.plain_routes`` stays 0.  Nothing is caught: any failure
-exits non-zero.  The line before the last
-is the kernel table as JSON; the last is
+Every training and serving run of phases 2, 3, 5, 6, 7, 8, 9 and 10 must
+take only kernels: ``ops.plain_routes`` stays 0.  Nothing is caught: any
+failure exits non-zero.  The line before the last is the kernel table as
+JSON; the last is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -137,6 +157,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import pathlib
 import re
 import subprocess
@@ -170,6 +191,9 @@ RING_SPEC = "tp=taco:folded:chunks=4"     # the paper's spec: the chunked ring
 DP_SPEC = "tp=taco,grad_rs=sdp4bit"       # TACO on TP, SDP4bit on the data axes
 PIPE_SPEC = "taco3d"                      # + TahQuant at the stage boundaries
 PIPE_ARCH, PIPE_MICRO = "gpt-2.7b", 4     # phase 7: full width, 4 microbatches
+#: phase 7's depth: half of gpt-2.7b's 32 layers, so that the whole script
+#: stays well inside its 1200 s limit (phase 7 is its longest phase)
+PIPE_LAYERS = 16
 #: one TP hop of phase 7's step: a microbatch (batch / M rows) x d 2560
 PIPE_N = TRAIN_BATCH // PIPE_MICRO * TRAIN_SEQ * 2560
 TRAIN_SIZE = "--no-smoke"                 # full width and depth
@@ -185,6 +209,15 @@ ZLE_SPEC = "tp=taco+zle:slot=auto"
 ZLE_RING_SPEC = "tp=taco+zle:folded:chunks=4:slot=auto"
 ESC_SPEC = "tp=taco:escalate=bf16@0.005:hold=2"
 POLICY_SERVE_SPEC = "tp=taco+zle:slot=auto:escalate=bf16@0.005:hold=2"
+#: phase 10: the sp hops of full-width qwen2-0.5b at sp = 2 (batch 4 x seq
+#: 2048, tp 1, 14 heads of 64 after the kv expansion, bf16): each the
+#: tensor one rank of sp = 2 sends, with its all-to-all's (split, concat)
+#: dims (None: the ring's permute)
+SP_SPEC = "sp=taco:folded"
+SP_HOPS = (("ulysses in", (TRAIN_BATCH, TRAIN_SEQ // 2, 14, 192), (2, 1)),
+           ("ulysses out", (TRAIN_BATCH, TRAIN_SEQ, 7, 64), (1, 2)),
+           ("ring kv", (TRAIN_BATCH, TRAIN_SEQ // 2, 14, 128), None))
+SP_TRAIN_STEPS = 3
 
 
 def fail(msg: str) -> None:
@@ -663,6 +696,12 @@ def phase_blocks() -> dict:
     case("taco", TRAIN_N // 4, torch.bfloat16, 4, timed=True, label="tp4 hop")
     # a TP hop of phase 7's gpt-2.7b pipeline step (tp=taco of taco3d)
     case("taco", PIPE_N, torch.bfloat16, 1, timed=True, label="pipe hop")
+    # phase 10c: the stacks a rank of sp = 2 decodes (two peers' slots of
+    # each sp hop of SP_HOPS)
+    for label, shape, dims in SP_HOPS:
+        n = math.prod(shape)
+        case("taco:folded", n // 2 if dims else n, torch.bfloat16, 2,
+             timed=label == "ulysses in", label=f"sp {label}")
     torch.cuda.empty_cache()
     return {"rows": rows, "hops": hops}
 
@@ -843,11 +882,14 @@ def phase_group_parity(group) -> None:
               f"{({k: v for k, v in calls.items() if v})}")
 
 
-def want_per_step(cfg, model_plan, comm_plan, ticks: int = 1) -> dict:
+def want_per_step(cfg, model_plan, comm_plan, ticks: int = 1, sp: int = 1,
+                  sp_mode: str = "ulysses") -> dict:
     """Block-kernel launches per training step, derived from the code: each
     compressed hop of ``models.transformer.tp_hops_per_step`` runs one
     compress and one decompress (all-gather) or decompress-reduce
-    (reduce-scatter) per ring chunk (``chunks=1``: the monolithic hop).
+    (reduce-scatter) per ring chunk (``chunks=1``: the monolithic hop);
+    each sp hop over a seq group of ``sp`` ranks (an all-to-all or a
+    permute, never chunked) one compress and one decompress.
     Under ``escalate=`` each hop also decodes one wire row back for its
     error probe (``collectives._err_probe``, on chunk 0 of a ring): one
     more decompress a hop.  The pipeline step
@@ -856,7 +898,9 @@ def want_per_step(cfg, model_plan, comm_plan, ticks: int = 1) -> dict:
     microbatch's step).  An identity TP plan launches none."""
     from repro_torch.core import collectives as cc
     from repro_torch.models import transformer
-    hops = transformer.tp_hops_per_step(cfg, model_plan, comm_plan)
+    hops = transformer.tp_hops_per_step(cfg, model_plan, comm_plan, sp,
+                                        sp_mode)
+    sp_hops = ticks * (hops["all_to_all"] + hops["permute"])
     chunks = {cc.ring_chunks(comm_plan.tp_fwd), cc.ring_chunks(comm_plan.tp_bwd)}
     if len(chunks) != 1:
         raise AssertionError(f"forward and backward codecs chunk apart: "
@@ -870,7 +914,8 @@ def want_per_step(cfg, model_plan, comm_plan, ticks: int = 1) -> dict:
     ag, rs = hops["all_gather"] * k, hops["reduce_scatter"] * k
     probes = (hops["all_gather"] + hops["reduce_scatter"]) * on \
         * probed.pop()
-    return {"compress_blocks": ag + rs, "decompress_blocks": ag + probes,
+    return {"compress_blocks": ag + rs + sp_hops,
+            "decompress_blocks": ag + probes + sp_hops,
             "decompress_reduce": rs, "compress_wire": 0, "decompress_wire": 0,
             "decompress_reduce_wire": 0, "compress_blocks_butterfly": 0}
 
@@ -1189,13 +1234,15 @@ def phase_dp_parity(mesh) -> None:
 
 def pipe_trainer(mesh):
     """``make`` of :func:`phase_train` for the pipeline step: full-width
-    gpt-2.7b (32 layers, d 2560, 32 heads of 80, d_ff 10240, vocab 51200,
-    learned positions, layernorm, gelu) through
+    gpt-2.7b (d 2560, 32 heads of 80, d_ff 10240, vocab 51200, learned
+    positions, layernorm, gelu) cut to ``PIPE_LAYERS`` layers, through
     ``train.pipeline_parallel.build_pipeline_train_step`` on the pipe
     mesh, ``PIPE_MICRO`` microbatches, per-layer recompute, weights from
     seed 0, synthetic tokens (seed 1234), the train launcher's schedule
     (lr 3e-4 -> 3e-5)."""
     def make(spec, groups):
+        import dataclasses
+
         from repro_torch.configs import get_config, make_plan
         from repro_torch.core.registry import from_spec
         from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -1203,7 +1250,8 @@ def pipe_trainer(mesh):
         from repro_torch.optim.adamw import OptConfig
         from repro_torch.train import pipeline_parallel as ppl
         from repro_torch.train.trainer import Trainer, TrainerConfig
-        cfg = get_config(PIPE_ARCH)
+        cfg = dataclasses.replace(get_config(PIPE_ARCH),
+                                  n_layers=PIPE_LAYERS)
         ctx = mesh.parallel_ctx(from_spec(spec))
         model = Model(cfg, make_plan(cfg, ctx.tp_size, ctx.fsdp_size),
                       **mesh.model_kwargs())
@@ -1839,6 +1887,232 @@ def phase_policy_serve(kernels, smi: str) -> dict:
     return r
 
 
+# --------------------------------------------------------------------------
+# phase 10: sequence parallelism (the sp hops, the ring's fold, a 1-rank
+# seq group through the launcher)
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def a2a_bytes():
+    """Count the bytes that ``dist.all_to_all_single`` calls move inside the
+    block (the input of each call)."""
+    import torch.distributed as dist
+    moved = [0]
+    inner = dist.all_to_all_single
+
+    def call(out, inp, *a, **k):
+        moved[0] += inp.numel() * inp.element_size()
+        return inner(out, inp, *a, **k)
+    dist.all_to_all_single = call
+    try:
+        yield moved
+    finally:
+        dist.all_to_all_single = inner
+
+
+def phase_sp_hops(group, counters, smi: str) -> dict:
+    """10a, 10b: each hop of ``SP_HOPS`` under ``SP_SPEC`` through the
+    1-rank NCCL group (an all-to-all through ``all_to_all_c``, the ring's
+    KV block through ``ppermute_c`` over the pair ``(0, 0)``), forward and
+    backward.  At sp = 1 the hop encodes and decodes its one slot: one K1
+    and one K3 each way and no plain route.  The card's wire rows against
+    the CPU port's by the parity rule, K3's decode of them against the
+    plain decode, the hop's output and its gradient the decode of the
+    card's wires (the gradient the conjugate hop's) bit for bit, and the
+    bytes the all-to-all moved against ``a2a_wire_bytes``.  Returns the
+    launches and each hop's device time."""
+    from repro_torch.core import collectives as cc
+    from repro_torch.core.registry import from_spec
+    from repro_torch.kernels import ops, ref
+    codec = from_spec(SP_SPEC).sp
+    cfg = codec.cfg
+    gen = np.random.default_rng(10)
+    names = list(counters)
+    want = dict.fromkeys(names, 0)
+    want.update(compress_blocks=1, decompress_blocks=1)
+    for c in counters.values():
+        c.launches = 0
+    for k in ops.plain_routes:
+        ops.plain_routes[k] = 0
+    rows, hops = [], []
+    for label, shape, dims in SP_HOPS:
+        n = math.prod(shape)
+        x = tp_like(gen, shape).to(DEVICE, torch.bfloat16)
+        ct = tp_like(gen, shape).to(DEVICE, torch.bfloat16)
+
+        def hop(v, g, back=False, dims=dims):
+            if dims is None:
+                return cc.ppermute_c(v, g, ((0, 0),), codec, codec)
+            split, concat = dims[::-1] if back else dims
+            return cc.all_to_all_c(v, g, split, concat, codec, codec)
+
+        def rows_of(v, back=False, dims=dims):
+            split = 0 if dims is None else dims[back]
+            return torch.movedim(v, split, 0).reshape(1, -1)
+        xx = x.clone().requires_grad_(True)
+        before = [counters[k].launches for k in names]
+        with a2a_bytes() as moved:
+            y = hop(xx, group)
+        fwd = [counters[k].launches - b for k, b in zip(names, before)]
+        y.backward(ct)
+        torch.cuda.synchronize()
+        bwd = [counters[k].launches - b - f
+               for k, b, f in zip(names, before, fwd)]
+        if fwd != [want[k] for k in names] or bwd != fwd:
+            raise AssertionError(f"sp {label}: launches forward {fwd}, "
+                                 f"backward {bwd} ({names})")
+        hops.append(dict(zip(names, (f + b for f, b in zip(fwd, bwd)))))
+        # the card's wires against the CPU's, and what the hop decoded
+        for v, back, got in ((x, False, y.detach()), (ct, True, xx.grad)):
+            r = rows_of(v, back)
+            wire = codec.encode_wire(r)
+            stats = ref.check_wire_parity(wire, codec.encode_wire(r.cpu()),
+                                          n, cfg)
+            err = ref.check_decoded_close(
+                codec.decode_wire(wire, n, torch.float32),
+                codec.decode_wire(wire.cpu(), n, torch.float32), cfg)
+            dec = codec.decode_wire(wire, n, torch.bfloat16)
+            split = 0 if dims is None else dims[back]
+            lead = torch.movedim(got, split, 0)
+            if not torch.equal(lead.reshape(1, -1), dec):
+                raise AssertionError(f"sp {label}: the hop's "
+                                     f"{'gradient' if back else 'output'} is"
+                                     " not the decode of its wire")
+            rows.append((label, back, stats["flipped"], err))
+        slot = cc.wire_slot_bytes(codec, n, chunks=1)
+        half = cc.a2a_wire_bytes(shape, torch.bfloat16, 2, codec)
+        if dims is not None and (
+                moved[0] != slot
+                or half != cc.wire_slot_bytes(codec, n // 2, chunks=1)
+                or cc.a2a_wire_bytes(shape, torch.bfloat16, 1, codec) != 0):
+            raise AssertionError(f"sp {label}: moved {moved[0]} B, slot "
+                                 f"{slot} B, a2a_wire_bytes at sp 2 {half}")
+        with torch.no_grad():
+            ms = device_ms(lambda: hop(x, group), 5)
+        sent = (f"the all-to-all moved {moved[0]} B through the 1-rank "
+                f"group (its one slot, chunks=1); a rank of sp = 2 puts "
+                f"{half:.0f} B on the wire (a2a_wire_bytes)") if dims else \
+            (f"the permute's wire row is {slot} B (a copy on the 1-rank "
+             "group), what a rank of sp = 2 sends a hop")
+        print(f"  {smi}: sp {label} {tuple(shape)} n={n}: launches a hop "
+              f"K1 1, K3 1 (forward and backward), plain routes 0; {sent};"
+              f" device {ms:.4f} ms a hop; wire card vs CPU: flipped "
+              f"{[r[2] for r in rows[-2:]]}, decode max abs err "
+              f"{[f'{r[3]:.2e}' for r in rows[-2:]]}")
+        del x, ct, xx, y
+    no_plain_routes("sp hops")
+    # the hops' own launches (the checks' and the timing's not counted)
+    launches = {k: sum(h[k] for h in hops) for k in names}
+    return {"launches": launches, "hops": hops}
+
+
+def phase_sp_fold(smi: str) -> dict:
+    """10d: the ring's online-softmax fold at full width on the card: one
+    layer's q, k, v (bf16, (4, 2048, 14, 64), seeded) cut into 2 sequence
+    blocks; each q block folds the KV blocks in the order its rank of sp =
+    2 receives them (its own, then the peer's) through ``_block_partial``
+    and ``_merge_partial``; against ``attention_core`` on the whole
+    sequence within one bf16 output ulp, as the JAX package's
+    ``tests/multidev/check_sp.py`` states it (atol 2e-2, one ulp at the
+    outputs' magnitude); the largest distance in ulps of each element's
+    own magnitude and the elements apart are printed."""
+    from repro_torch.models import attention as ta
+    gen = torch.Generator().manual_seed(12)
+    q, k, v = (torch.randn((TRAIN_BATCH, TRAIN_SEQ, 14, 64), generator=gen)
+               .to(DEVICE, torch.bfloat16) for _ in range(3))
+    full = ta.attention_core(q, k, v, causal=True, window=None).float()
+    sp, s = 2, TRAIN_SEQ // 2
+    worst = apart = 0.0
+    ulps = 0.0
+    for i in range(sp):
+        qf = q[:, i * s:(i + 1) * s].transpose(1, 2).float() / np.sqrt(64)
+        q_pos = i * s + torch.arange(s, device=DEVICE)
+        state = None
+        for t in range(sp):
+            src = (i - t) % sp
+            blk = slice(src * s, (src + 1) * s)
+            part = ta._block_partial(
+                qf, k[:, blk].transpose(1, 2), v[:, blk].transpose(1, 2),
+                ta._block_bias(q_pos, src * s + torch.arange(
+                    s, device=DEVICE), causal=True, window=None))
+            state = part if state is None else ta._merge_partial(state, part)
+        acc, _, l = state
+        got = (acc / l.clamp_min(1e-30)[..., None]).transpose(1, 2).to(
+            torch.bfloat16).float()
+        want = full[:, i * s:(i + 1) * s]
+        diff = (got - want).abs()
+        worst = max(worst, float(diff.max()))
+        apart += float((diff > 0).sum())
+        big = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+        ulps = max(ulps, float((diff / torch.exp2(
+            torch.floor(torch.log2(big)) - 7)).max()))
+        if worst > 2e-2:
+            raise AssertionError(f"ring fold, block {i}: {worst} from "
+                                 "attention_core (atol 2e-2)")
+    print(f"  {smi}: ring fold at full width (2 blocks of {s}) vs "
+          f"attention_core: max |difference| {worst:.3e} (atol 2e-2), "
+          f"{apart:.0f} of {full.numel()} elements apart, at most "
+          f"{ulps:.3g} bf16 ulps of their own magnitude")
+    return {"max_abs": worst, "apart": apart, "ulps": ulps}
+
+
+def phase_sp_train(counters, trained, mesh) -> dict:
+    """10e: phase 3's taco cell through the train launcher with the seq
+    mesh's 1-rank groups (``mesh``, a seq group of one rank threaded
+    through) under ``tp=taco,`` + ``SP_SPEC``, once with each
+    ``--sp-mode``, ``SP_TRAIN_STEPS`` steps: at sp = 1 both flavours run
+    the monolithic core and move no sp hop, as in the JAX package, so every
+    attempt launches phase 3's taco counts and the losses are phase 3's
+    first ones bit for bit."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    names = list(counters)
+    base = trained["taco"]
+    out = {}
+    for mode in ("ulysses", "ring"):
+        args = train.parse_args([
+            "--arch", "qwen2-0.5b", TRAIN_SIZE, "--comm-spec",
+            f"tp=taco,{SP_SPEC}", "--steps", str(SP_TRAIN_STEPS), "--seq",
+            str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--lr", "3e-4",
+            "--seed", "0", "--sp-mode", mode])
+        trainer, cfg = train.build_trainer(args, mesh=mesh)
+        if not trainer.ctx.sp_active or trainer.ctx.sp_size() != 1:
+            raise AssertionError(f"sp {mode}: no 1-rank seq group")
+        want = want_per_step(cfg, trainer.model.plan, trainer.ctx.plan,
+                             sp=1, sp_mode=mode)
+        if [want[k] for k in names] != base["per_step"]:
+            raise AssertionError(f"sp {mode}: derived launches {want}, "
+                                 f"phase 3 {base['per_step']}")
+        attempts = []
+        count_attempts(trainer, counters, attempts)
+        for c in counters.values():
+            c.launches = 0
+        for k in ops.plain_routes:
+            ops.plain_routes[k] = 0
+        _, _, hist = trainer.run()
+        no_plain_routes(f"train sp {mode}")
+        per = [row for _, row in attempts]
+        if per != [base["per_step"]] * SP_TRAIN_STEPS:
+            raise AssertionError(f"sp {mode}: launches {per}, want phase "
+                                 f"3's {base['per_step']} a step")
+        losses = [h["loss"] for h in hist]
+        first = [h["loss"] for h in base["hist"][:SP_TRAIN_STEPS]]
+        if losses != first:
+            raise AssertionError(f"sp {mode}: losses {losses}, phase 3's "
+                                 f"{first}")
+        print(f"  train sp {mode} (tp=taco,{SP_SPEC}, a 1-rank seq group): "
+              f"{SP_TRAIN_STEPS} steps, launches a step phase 3's "
+              f"{dict(zip(names, base['per_step']))}, losses {losses} == "
+              f"phase 3's bit for bit; wall "
+              f"{[round(h['ms'], 3) for h in hist]} ms")
+        out[mode] = dict(zip(names, (counters[k].launches for k in names)))
+        trainer._attempt = None
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_losses(base: dict, other: dict, label: str) -> float:
     """``other``'s loss within 5e-2 relative of ``base``'s at every step;
     returns the worst relative difference."""
@@ -2069,7 +2343,7 @@ def main() -> None:
     import torch.distributed as dist
 
     from repro_torch.core.parallel import init_tp_group
-    from repro_torch.launch.mesh import PIPE_AXES, init_mesh
+    from repro_torch.launch.mesh import PIPE_AXES, SP_AXES, init_mesh
     from repro_torch.kernels import (ash_compress, ash_decompress, build,
                                      fwht_butterfly)
     t_start = t0 = time.monotonic()
@@ -2143,7 +2417,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"phase 7 ({time.monotonic() - t_start:.0f} s): the pipeline step "
           f"on 1-rank NCCL groups for pipe, data and model, {PIPE_ARCH} at "
-          f"full width, {PIPE_MICRO} microbatches, baseline and "
+          f"full width cut to {PIPE_LAYERS} layers, {PIPE_MICRO} "
+          "microbatches, baseline and "
           f"{PIPE_SPEC}; at pipe = 1 the boundary hop has no peer (torch "
           "refuses a send to its own rank and NCCL two ranks on one card),"
           " so TahQuant and int8 are held card vs CPU on a replay of one "
@@ -2194,6 +2469,16 @@ def main() -> None:
     if esc["comm/escalations"] < 1:
         raise AssertionError(f"{ESC_SPEC}: never escalated ({esc})")
     policy_serve = phase_policy_serve(kernels, smi)
+    print(f"phase 10 ({time.monotonic() - t_start:.0f} s): sequence "
+          f"parallelism under {SP_SPEC}: the sp hops of full-width "
+          "qwen2-0.5b at sp = 2 through phase 5's 1-rank NCCL group (one "
+          "card: sp = 1 moves no sp byte), the ring's fold at full width, "
+          "and phase 3's taco cell with a 1-rank seq group threaded "
+          "through")
+    sp_hops = phase_sp_hops(group, kernels, smi)
+    sp_fold = phase_sp_fold(smi)
+    sp_train = phase_sp_train(kernels, trained,
+                              init_mesh((1, 1, 1, 1), "cuda", axes=SP_AXES))
     dist.destroy_process_group()
     meta = {
         "compress_blocks": ("src/repro_torch/kernels/csrc/ash_compress.cu",
@@ -2228,7 +2513,10 @@ def main() -> None:
         "serve ring": dict(zip(wire_names, ring_serve["launches"])),
         "train zle": policy_train["zle"]["launches"],
         "train escalate": policy_train["escalate"]["launches"],
-        "serve policy": dict(zip(wire_names, policy_serve["launches"]))}
+        "serve policy": dict(zip(wire_names, policy_serve["launches"])),
+        "sp": sp_hops["launches"],
+        "train sp ulysses": sp_train["ulysses"],
+        "train sp ring": sp_train["ring"]}
     launches = dict(by_path["serve taco"])
     launches.update({k: by_path["train taco"][k]
                      for k in ("compress_blocks", "decompress_blocks",
@@ -2250,6 +2538,7 @@ def main() -> None:
             "shapes": {k: v for k, v in rows[name].items() if k != path}})
     print(f"train hop routes: {json.dumps(blocks['hops'])}")
     print(f"phase 9 ZLE hop: {json.dumps(zle_hop)}")
+    print(f"phase 10 sp: {json.dumps({'hops': sp_hops, 'fold': sp_fold})}")
     print(f"chip_smoke: {time.monotonic() - t_start:.1f}s in all")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,10 @@ the CPU — with one implementation for both backends:
                     destination and from its source (``ppermute_c``, the
                     pipeline boundary; ``chunks=`` is ignored, as in the
                     JAX package: one send has nothing to ring over)
+  all-to-all      : ``(P, total)`` rows, row j for peer j ->
+                    ``all_to_all_single`` -> ``(P, total)``, peer j's
+                    block at index j (``all_to_all_c``, the Ulysses
+                    redistribute; ``chunks=`` ignored as for the permute)
 
 A codec with ``chunks > 1`` takes the chunked ring instead (the JAX
 package's ``_ag_one_ring`` / ``_rs_one_ring``): each chunk is encoded,
@@ -61,6 +65,8 @@ the quantizer is not differentiated):
                 bwd AR)
   Pipeline    : ``ppermute_c`` fwd / ``ppermute_c`` over the inverted
                 pairs bwd
+  All-to-all  : ``all_to_all_c`` fwd / ``all_to_all_c`` with the split
+                and concat dims swapped bwd
 
 Every rank must issue the same collectives in the same order.  The model
 guarantees it: all ranks run the same layers on same-shaped shards, and
@@ -683,6 +689,43 @@ def _pp_impl(x, group, perm, codec):
     return codec.decode_wire(wire, pn, x.dtype)[..., :n].reshape(x.shape)
 
 
+def _a2a_impl(x, group, split_dim, concat_dim, codec):
+    """All-to-all over ``group`` (the JAX package's ``_a2a_impl``): ``x``
+    is cut along ``split_dim`` into P blocks, block j goes to peer j, and
+    the blocks received are joined peer-major along ``concat_dim`` — the
+    tiled ``lax.all_to_all`` layout, for ``split_dim == concat_dim`` (the
+    MoE dispatch) and for the transposed Ulysses hop alike.  The identity
+    codec moves the tensor's bytes; any other codec encodes the P blocks
+    into ONE packed (P, slot) wire buffer through :func:`_transport`
+    (probed, truncated and, under :func:`multibuffer_wire`, moved a
+    component at a time as on the other hops) and decodes what arrives.
+    ``chunks=`` is ignored: an all-to-all has nothing to ring over."""
+    p = group_size(group)
+    moved = torch.movedim(x, split_dim, 0)
+    d = moved.shape[0]
+    if d % p:
+        raise ValueError(
+            f"compressed all-to-all: split dim {split_dim} has size {d}, "
+            f"not divisible by the group size {p}")
+    rows = moved.reshape(p, -1)                     # row j -> peer j
+    if isinstance(codec, IdentityCodec):
+        raw = rows.contiguous().view(torch.uint8)
+        dec = _exchange_rows(raw, group).view(x.dtype)
+    else:
+        dec = _transport(rows, codec, lambda w: _exchange_rows(w, group),
+                         dtype=x.dtype)
+    # stack[j]: peer j's block, split dim already cut to d/p and in front;
+    # undo the movedim inside each block, then put the peer axis just
+    # before concat_dim and merge it in, peer-major
+    stack = dec.reshape(p, d // p, *moved.shape[1:])
+    blocks = torch.movedim(stack, 1, split_dim + 1)
+    out = torch.movedim(blocks, 0, concat_dim)
+    shape = list(x.shape)
+    shape[split_dim] = d // p
+    shape[concat_dim] *= p
+    return out.reshape(shape)
+
+
 def _ag_impl(x, group, dim, codec):
     """Hierarchical all-gather over a group or a tuple of groups, innermost
     first (the JAX package's major-to-minor concatenation order)."""
@@ -794,6 +837,20 @@ def ppermute_c(x, group, perm, fwd_codec, bwd_codec):
         lambda ct, g, pm, fc, bc: ppermute_c(
             ct, g, tuple((d, s) for s, d in pm), bc, fc),
         (group, tuple(perm), fwd_codec, bwd_codec))
+
+
+def all_to_all_c(x, group, split_dim, concat_dim, fwd_codec, bwd_codec):
+    """Compressed all-to-all over ``group`` (the MoE dispatch; the Ulysses
+    heads<->sequence redistribute): ONE ``all_to_all_single`` moving the
+    packed wire buffer, the output in the tiled layout (``split_dim``
+    shrinks P-fold, ``concat_dim`` grows P-fold); the split dim must
+    divide by the group size (``ValueError`` otherwise).  The backward
+    swaps the dims and the codecs — for the transposed hop exactly the
+    inverse redistribute."""
+    return _apply(
+        x, lambda a, g, sd, cd, fc, bc: _a2a_impl(a, g, sd, cd, fc),
+        lambda ct, g, sd, cd, fc, bc: all_to_all_c(ct, g, cd, sd, bc, fc),
+        (group, split_dim, concat_dim, fwd_codec, bwd_codec))
 
 
 def psum_exact(x, group):
@@ -919,6 +976,22 @@ def scatter_wire_bytes(local_shape, dtype, p, codec, *, sample=None) -> float:
         if ach is not None:
             return ach * (p - 1) / p
     slot = wire_slot_bytes(codec, n // p)
+    if slot is None:
+        slot = (n // p) * torch.empty((), dtype=dtype).element_size()
+    return float(slot) * (p - 1)
+
+
+def a2a_wire_bytes(local_shape, dtype, p, codec, *, sample=None) -> float:
+    """Bytes one all-to-all puts on the wire per rank: p-1 of the p split
+    slots (each ``n/p`` elements, padded to the granule and packed; the
+    hop never rings).  With ``sample`` the achieved bytes, scaled by
+    (p-1)/p as for :func:`scatter_wire_bytes`."""
+    n = int(math.prod(local_shape))
+    if sample is not None and n % p == 0:
+        ach = _achieved_total(codec, sample.reshape(p, -1), chunks=1)
+        if ach is not None:
+            return ach * (p - 1) / p
+    slot = wire_slot_bytes(codec, n // p, chunks=1)
     if slot is None:
         slot = (n // p) * torch.empty((), dtype=dtype).element_size()
     return float(slot) * (p - 1)

@@ -23,7 +23,9 @@ at each use through the ``weight_ag`` codec, and its backward — the
 reduce-scatter of the weight gradient over the data axes — goes through
 the ``grad_rs`` codec (ZeRO falls out of the chain rule).  On the pipe
 mesh, ``pipe_group`` carries the stage boundaries' sends through the
-``pp`` codec (``train/pipeline_parallel.py``).
+``pp`` codec (``train/pipeline_parallel.py``).  On the seq mesh,
+``sp_group`` carries sequence-parallel attention through the ``sp`` codec
+(``models/attention.py``: Ulysses all-to-alls or ring permutes).
 ``CommPlan.at_step`` resolves the warmup schedule per optimizer step,
 outside the step function, as the JAX trainer does.
 """
@@ -48,6 +50,8 @@ PATHS = ("tp_fwd", "tp_bwd", "grad_rs", "weight_ag", "pp", "sp")
 FSDP_AXES = ("pod", "data")
 TP_AXIS = "model"
 PIPE_AXIS = "pipe"
+#: the Ulysses / ring sequence-parallel axis (``launch/mesh.py``)
+SP_AXIS = "seq"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,10 +112,26 @@ class CommPlan:
                     spans.append((n, plan))
         return tuple(spans)
 
-    def wire_bytes_per_element(self) -> dict:
-        """Per-path asymptotic wire bytes per element (2.0 = bf16)."""
-        return {path: float(getattr(self, path).bytes_per_element())
-                for path in PATHS}
+    def wire_bytes_per_element(self, n: int | None = None) -> dict:
+        """Per-path wire bytes per element (2.0 = bf16).  With ``n`` (the
+        elements of one hop's slot) the exact packed bytes of the path's
+        hop over ``n``, the transport's padding included: the AG/RS hops
+        pad to ``chunks * granule``; the ``pp`` and ``sp`` hops (a
+        permute, an all-to-all) never ring, so they pad to the granule
+        alone.  Without ``n`` the asymptotic ratio (the trainer's
+        per-step telemetry, where no single slot size exists).  The
+        identity codec reports its raw bytes either way."""
+        out = {}
+        for path in PATHS:
+            codec = getattr(self, path)
+            if n is not None:
+                slot = cc.wire_slot_bytes(
+                    codec, n, chunks=1 if path in ("pp", "sp") else None)
+                if slot is not None:
+                    out[path] = slot / n
+                    continue
+            out[path] = float(codec.bytes_per_element())
+        return out
 
     def wire_chunks(self) -> dict:
         """Per-path ring chunk counts (1 = monolithic transport)."""
@@ -171,7 +191,15 @@ class ParallelCtx:
     decode path always takes the f/g pair.  ``fsdp_axes`` names the fsdp
     axes, one per group of ``fsdp_groups`` (``None``: one group of one
     rank per axis); ``pipe_group`` is this process's group along the
-    pipeline axis (``None``: one stage)."""
+    pipeline axis (``None``: one stage).
+
+    ``sp_group`` is this process's group along the sequence-parallel axis
+    ``"seq"`` (``None``: sequence parallelism off), over which the
+    sequence dim of the batch is sharded — distinct from ``tp_mode``
+    ``"sp"``, Megatron-SP's residual sharding over the TP group.
+    Attention crosses it through the ``sp`` codec: the Ulysses
+    heads<->sequence all-to-all (``sp_mode="ulysses"``) or the ring's
+    KV-block permutes (``sp_mode="ring"``)."""
 
     tp_size: int = 1
     tp_rank: int = 0
@@ -181,6 +209,8 @@ class ParallelCtx:
     fsdp_groups: tuple | None = None
     fsdp_axes: tuple = FSDP_AXES
     pipe_group: object = None
+    sp_group: object = None
+    sp_mode: str = "ulysses"
 
     def __post_init__(self):
         if self.group is not None:
@@ -216,6 +246,8 @@ class ParallelCtx:
             return self.comm
         if axis == PIPE_AXIS:
             return self.pipe_group
+        if axis == SP_AXIS:
+            return self.sp_group
         return self.fsdp_groups[self.fsdp_axes.index(axis)]
 
     @property
@@ -267,6 +299,34 @@ class ParallelCtx:
             return w
         return cc.all_gather_c(w, self.fsdp_groups, dim,
                                self.plan.weight_ag, self.plan.grad_rs)
+
+    # ---- sequence parallelism over the seq group --------------------------
+    @property
+    def sp_active(self) -> bool:
+        """True when a seq group is threaded through (a group of one rank
+        included: the flavours then run the monolithic core)."""
+        return self.sp_group is not None
+
+    def sp_size(self) -> int:
+        """Ranks of the seq group (1 when sequence parallelism is off)."""
+        return cc.group_size(self.sp_group) if self.sp_active else 1
+
+    def sp_index(self) -> int:
+        """This rank's place in the seq group (0 when off)."""
+        return cc.group_rank(self.sp_group) if self.sp_active else 0
+
+    def sp_all_to_all(self, x, split_dim: int, concat_dim: int):
+        """The Ulysses redistribute: one compressed all-to-all over the
+        seq group through the plan's ``sp`` codec in both directions (the
+        backward swaps the dims, which is the inverse hop)."""
+        return cc.all_to_all_c(x, self.sp_group, split_dim, concat_dim,
+                               self.plan.sp, self.plan.sp)
+
+    def sp_permute(self, x, perm):
+        """One compressed point-to-point hop over the seq group (the ring's
+        KV-block transfer) through the plan's ``sp`` codec."""
+        return cc.ppermute_c(x, self.sp_group, perm, self.plan.sp,
+                             self.plan.sp)
 
 
 def init_tp_group(device, *, init_method: str = "env://",

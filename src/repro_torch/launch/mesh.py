@@ -1,6 +1,6 @@
 """The process meshes: rank layout and process groups.
 
-Two meshes of three axes each, as the JAX package builds them:
+Three meshes, as the JAX package builds them:
 
   pod mesh  ``("pod", "data", "model")``: data parallelism and FSDP over
             pod x data, tensor parallelism over model (the train
@@ -8,14 +8,19 @@ Two meshes of three axes each, as the JAX package builds them:
   pipe mesh ``("pipe", "data", "model")``: pipeline stages over pipe,
             FSDP over data, tensor parallelism over model
             (``train/pipeline_parallel.py``, as the JAX package's
-            ``tests/multidev/check_pipeline.py`` lays it out).
+            ``tests/multidev/check_pipeline.py`` lays it out);
+  seq mesh  ``("pod", "data", "seq", "model")``: the pod mesh with a
+            sequence-parallel axis carved out of data, between data and
+            model (the train launcher's ``--sp``; the JAX package's
+            ``make_production_mesh(sp=...)``).  Parameters are replicated
+            over seq and the batch's sequence dim is sharded over it.
 
 Rank ``r`` of a mesh sits at the row-major coordinates of ``r``, the
 model axis fastest — the device order that ``jax.make_mesh(shape,
 axes)`` gives the JAX package.  So the ranks of one TP group are
 neighbours, and the fsdp index of a rank (its shard of an fsdp-sharded
 weight and its rows of the batch) is ``pod * data + data_index`` on the
-pod mesh, pod-major as the JAX package's ``PartitionSpec(("pod",
+pod and seq meshes, pod-major as the JAX package's ``PartitionSpec(("pod",
 "data"))`` shards, and ``data_index`` on the pipe mesh.
 
 :func:`init_mesh` builds one family of process groups per axis: each
@@ -23,20 +28,23 @@ group holds the ranks that differ only in that axis' coordinate.  Every
 rank creates every group, in the same order (model, data, then pod or
 pipe; within a family, by the other coordinates in row-major order):
 ``new_group`` is a collective call of the whole world, and ranks that
-create groups in another order hang.
+create groups in another order hang.  (On the seq mesh: model, seq,
+data, pod.)
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 
 import torch.distributed as dist
 
-from repro_torch.core.parallel import (FSDP_AXES, PIPE_AXIS, TP_AXIS,
-                                       ParallelCtx, init_tp_group)
+from repro_torch.core.parallel import (FSDP_AXES, PIPE_AXIS, SP_AXIS,
+                                       TP_AXIS, ParallelCtx, init_tp_group)
 
 AXES = FSDP_AXES + (TP_AXIS,)                  # the pod mesh
 PIPE_AXES = (PIPE_AXIS, "data", TP_AXIS)       # the pipe mesh
+SP_AXES = FSDP_AXES + (SP_AXIS, TP_AXIS)       # the seq mesh
 
 
 def parse_mesh(text: str) -> tuple[int, int, int]:
@@ -48,18 +56,23 @@ def parse_mesh(text: str) -> tuple[int, int, int]:
     return shape
 
 
-def mesh_coords(rank: int, shape) -> tuple[int, int, int]:
+def mesh_coords(rank: int, shape) -> tuple:
     """Row-major coordinates of ``rank`` (the last axis, model, fastest)."""
-    pod, data, model = shape
-    if not 0 <= rank < pod * data * model:
-        raise ValueError(f"rank {rank} outside a {shape} mesh")
-    return rank // (data * model), rank // model % data, rank % model
+    if not 0 <= rank < math.prod(shape):
+        raise ValueError(f"rank {rank} outside a {tuple(shape)} mesh")
+    out = []
+    for n in reversed(shape):
+        out.append(rank % n)
+        rank //= n
+    return tuple(reversed(out))
 
 
 def mesh_rank(coords, shape) -> int:
     """Inverse of :func:`mesh_coords`."""
-    p, d, m = coords
-    return (p * shape[1] + d) * shape[2] + m
+    r = 0
+    for c, n in zip(coords, shape, strict=True):
+        r = r * n + c
+    return r
 
 
 def axis_ranks(shape, axis: str, axes: tuple = AXES) -> list[list[int]]:
@@ -82,8 +95,8 @@ def axis_ranks(shape, axis: str, axes: tuple = AXES) -> list[list[int]]:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """This process's place in the mesh: its rank, the axis sizes, the
-    axis names (the pod mesh's or the pipe mesh's), and its process group
-    along each axis (``None``: this process alone, no
+    axis names (the pod mesh's, the pipe mesh's or the seq mesh's), and
+    its process group along each axis (``None``: this process alone, no
     ``torch.distributed``)."""
 
     shape: tuple = (1, 1, 1)
@@ -92,14 +105,16 @@ class Mesh:
     axes: tuple = AXES
 
     def __post_init__(self):
-        if self.axes not in (AXES, PIPE_AXES):
-            raise ValueError(f"mesh axes {self.axes}: want {AXES} or "
-                             f"{PIPE_AXES}")
+        if self.axes not in (AXES, PIPE_AXES, SP_AXES):
+            raise ValueError(f"mesh axes {self.axes}: want {AXES}, "
+                             f"{PIPE_AXES} or {SP_AXES}")
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"mesh shape {self.shape} for axes {self.axes}")
         if self.groups is None:
             object.__setattr__(self, "groups", dict.fromkeys(self.axes))
 
     @property
-    def coords(self) -> tuple[int, int, int]:
+    def coords(self) -> tuple:
         return mesh_coords(self.rank, self.shape)
 
     def size(self, axis: str) -> int:
@@ -113,7 +128,8 @@ class Mesh:
         """The axes that shard weights and the batch, outermost first:
         ``("pod", "data")`` on the pod mesh, ``("data",)`` on the pipe
         mesh."""
-        return tuple(a for a in self.axes if a not in (TP_AXIS, PIPE_AXIS))
+        return tuple(a for a in self.axes
+                     if a not in (TP_AXIS, PIPE_AXIS, SP_AXIS))
 
     @property
     def fsdp_groups(self) -> tuple:
@@ -127,20 +143,27 @@ class Mesh:
             r = r * self.size(a) + self.index(a)
         return r
 
-    def parallel_ctx(self, plan) -> ParallelCtx:
-        """The ``ParallelCtx`` of this rank under the comm ``plan``."""
+    def parallel_ctx(self, plan, sp_mode: str = "ulysses") -> ParallelCtx:
+        """The ``ParallelCtx`` of this rank under the comm ``plan``; on the
+        seq mesh its seq group (a group of one rank included) with the
+        attention flavour ``sp_mode``."""
         return ParallelCtx(plan=plan, group=self.groups[TP_AXIS],
                            fsdp_groups=self.fsdp_groups,
                            fsdp_axes=self.fsdp_axes,
-                           pipe_group=self.groups.get(PIPE_AXIS))
+                           pipe_group=self.groups.get(PIPE_AXIS),
+                           sp_group=self.groups.get(SP_AXIS),
+                           sp_mode=sp_mode)
 
     def model_kwargs(self) -> dict:
         """This rank's place as ``models.model.Model`` takes it."""
-        pipe = PIPE_AXIS in self.axes
+        pipe, seq = PIPE_AXIS in self.axes, SP_AXIS in self.axes
         return {"tp_rank": self.index(TP_AXIS), "fsdp_rank": self.fsdp_rank,
                 "fsdp_axes": self.fsdp_axes,
                 "pipe": self.size(PIPE_AXIS) if pipe else 1,
-                "pipe_rank": self.index(PIPE_AXIS) if pipe else 0}
+                "pipe_rank": self.index(PIPE_AXIS) if pipe else 0,
+                "sp_axis": SP_AXIS if seq else None,
+                "sp": self.size(SP_AXIS) if seq else 1,
+                "sp_rank": self.index(SP_AXIS) if seq else 0}
 
 
 def init_mesh(shape, device, *, axes: tuple = AXES,
@@ -150,15 +173,18 @@ def init_mesh(shape, device, *, axes: tuple = AXES,
     gloo for the CPU (``parallel.init_tp_group``) — and create the mesh's
     groups along every axis, a group of one rank included, so that every
     hop goes through ``torch.distributed``.  ``axes`` picks the pod mesh
-    (:data:`AXES`) or the pipe mesh (:data:`PIPE_AXES`).  The world must
-    hold ``shape[0] * shape[1] * shape[2]`` ranks."""
+    (:data:`AXES`), the pipe mesh (:data:`PIPE_AXES`) or the seq mesh
+    (:data:`SP_AXES`).  The world must hold the product of ``shape``
+    ranks."""
     shape = tuple(int(v) for v in shape)
     axes = tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} for axes {axes}")
     init_tp_group(device, init_method=init_method, world_size=world_size,
                   rank=rank, timeout_s=timeout_s)
     world, me = dist.get_world_size(), dist.get_rank()
-    if world != shape[0] * shape[1] * shape[2]:
-        raise ValueError(f"mesh {shape} needs {shape[0] * shape[1] * shape[2]}"
+    if world != math.prod(shape):
+        raise ValueError(f"mesh {shape} needs {math.prod(shape)}"
                          f" ranks, the process group has {world}")
     groups = {}
     for axis in reversed(axes):                 # the same order on every rank
@@ -173,8 +199,17 @@ def mesh_axis_info(mesh: Mesh):
     """(fsdp_axes, tp_axis, tp, fsdp_size) of a mesh (the JAX package's
     ``launch/mesh.py`` ``mesh_axis_info`` on the pod mesh; on the pipe mesh
     the fsdp axes are ``("data",)``, as the JAX package's pipeline check
-    passes them); the groups are ``mesh.groups[axis]``."""
+    passes them; the seq axis is neither fsdp nor TP: see
+    :func:`sp_axis_info`); the groups are ``mesh.groups[axis]``."""
     fsdp = 1
     for a in mesh.fsdp_axes:
         fsdp *= mesh.size(a)
     return mesh.fsdp_axes, TP_AXIS, mesh.size(TP_AXIS), fsdp
+
+
+def sp_axis_info(mesh: Mesh):
+    """(seq axis name or None, its size): a seq axis of size 1 counts as
+    inactive, as the JAX package's ``sp_axis_info`` has it."""
+    if SP_AXIS in mesh.axes and mesh.size(SP_AXIS) > 1:
+        return SP_AXIS, mesh.size(SP_AXIS)
+    return None, 1

@@ -27,6 +27,18 @@ global batches and keeps its shards.
         --device cpu --smoke --mesh 1,2,2 --steps 3 --seq 32 --batch 4 \
         --comm-spec tp=taco,grad_rs=sdp4bit
 
+``--sp k`` carves a sequence-parallel axis ``seq`` of k ranks out of the
+data axis (the seq mesh ``pod, data/k, seq, model`` of ``launch/mesh.py``;
+the world is still pod*data*model processes): each rank takes a 1/k
+shard of its rows' sequence, and attention crosses the seq group through
+the ``sp=`` codec, by Ulysses all-to-alls or, with ``--sp-mode ring``, by
+ring permutes of the KV blocks.  ``--sp`` must divide the data axis and
+``--seq``.
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --device cpu --smoke --mesh 1,4,1 --sp 2 --sp-mode ring --steps 3 \
+        --seq 32 --batch 4 --comm-spec tp=taco,sp=taco:folded
+
 ``--ckpt DIR`` saves the global state (every rank's shards gathered; rank
 0 writes) every max(steps / 4, 10) steps and at the last, in the JAX
 package's layout (``ckpt/checkpoint.py``); with ``--resume`` (the
@@ -44,7 +56,8 @@ from repro_torch.configs import get_config, make_plan, smoke_config
 from repro_torch.core.parallel import ParallelCtx
 from repro_torch.core.registry import from_spec, to_spec
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
-from repro_torch.launch.mesh import init_mesh, parse_mesh
+from repro_torch.core.parallel import SP_AXIS
+from repro_torch.launch.mesh import AXES, SP_AXES, init_mesh, parse_mesh
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -71,6 +84,16 @@ def parse_args(argv=None):
     ap.add_argument("--mesh", default="1,1,1",
                     help="pod,data,model; more than one rank runs under "
                          "torchrun with pod*data*model processes")
+    ap.add_argument("--sp", type=int, default=1,
+                    help="sequence-parallel axis size; carves a 'seq' axis "
+                         "out of the data axis (data must stay divisible). "
+                         "Attention crosses it via the 'sp=' codec path "
+                         "(--comm-spec \"sp=taco:folded\")")
+    ap.add_argument("--sp-mode", default="ulysses", dest="sp_mode",
+                    choices=["ulysses", "ring"],
+                    help="sp attention flavor: Ulysses heads<->sequence "
+                         "all-to-all, or blockwise ring over compressed "
+                         "KV ppermute hops")
     ap.add_argument("--ckpt", default=None,
                     help="checkpoint dir: the state is saved every "
                          "max(steps/4, 10) steps and at the last (default: "
@@ -86,28 +109,43 @@ def build_trainer(args, group=None, mesh=None):
     the JAX launcher's (lr_min = lr/10, warmup max(steps/20, 5)).  The
     process groups are ``mesh``'s when given (a ``launch.mesh.Mesh``), or
     ``group`` as the TP group of a ``1,1,P`` mesh, else joined from the
-    ``torchrun`` environment when the mesh has more than one rank, else
-    none (this process alone).  The groups must match ``--mesh``."""
+    ``torchrun`` environment when the mesh has more than one rank (the
+    seq mesh under ``--sp`` > 1), else none (this process alone).  The
+    groups must match ``--mesh`` and ``--sp``; a ``mesh`` with a seq axis
+    of one rank threads that group through.  An ``--sp`` that does not
+    divide the data axis or ``--seq`` exits, as the JAX launcher does."""
     shape = parse_mesh(args.mesh)
+    sp = args.sp
+    if sp > 1 and shape[1] % sp:
+        raise SystemExit(f"--sp {sp} must divide the data axis "
+                         f"size {shape[1]}")
+    seq = args.seq or (64 if args.smoke else 4096)
+    if seq % sp:
+        raise SystemExit(f"--seq {seq} must be divisible by --sp {sp}")
     plan = from_spec(args.comm_spec)
     if mesh is None and group is None and shape[0] * shape[1] * shape[2] > 1:
-        mesh = init_mesh(shape, args.device or "cuda")
+        mesh_shape, axes = ((shape[0], shape[1] // sp, sp, shape[2]),
+                            SP_AXES) if sp > 1 else (shape, AXES)
+        mesh = init_mesh(mesh_shape, args.device or "cuda", axes=axes)
     if mesh is not None:
-        ctx = mesh.parallel_ctx(plan)
+        ctx = mesh.parallel_ctx(plan, args.sp_mode)
     else:
-        ctx = ParallelCtx(plan=plan, group=group)
-    if (ctx.fsdp_size, ctx.tp_size) != (shape[0] * shape[1], shape[2]):
+        ctx = ParallelCtx(plan=plan, group=group, sp_mode=args.sp_mode)
+    if (ctx.fsdp_size * ctx.sp_size(), ctx.tp_size, ctx.sp_size()) != \
+            (shape[0] * shape[1], shape[2], sp):
         raise ValueError(
-            f"mesh {args.mesh} wants {shape[0] * shape[1]} fsdp x "
-            f"{shape[2]} TP ranks, the process groups have "
-            f"{ctx.fsdp_size} x {ctx.tp_size}")
+            f"mesh {args.mesh} at --sp {sp} wants "
+            f"{shape[0] * shape[1] // sp} fsdp x {sp} seq x {shape[2]} TP "
+            f"ranks, the process groups have {ctx.fsdp_size} x "
+            f"{ctx.sp_size()} x {ctx.tp_size}")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
     model = Model(cfg, make_plan(cfg, ctx.tp_size, ctx.fsdp_size),
                   device=args.device, tp_rank=ctx.tp_rank,
-                  fsdp_rank=ctx.fsdp_rank)
-    seq = args.seq or (64 if args.smoke else 4096)
+                  fsdp_rank=ctx.fsdp_rank,
+                  sp_axis=SP_AXIS if ctx.sp_active else None,
+                  sp=ctx.sp_size(), sp_rank=ctx.sp_index())
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                   global_batch=args.batch), cfg)
     oc = OptConfig(lr_max=args.lr, lr_min=args.lr / 10,
@@ -141,7 +179,9 @@ def main(argv=None):
     warm = hist[1:] or hist
     print(f"{cfg.name}: loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f} "
           f"({len(hist)} steps, comm_spec={to_spec(trainer.ctx.plan)}, "
-          f"device={trainer.model.device}, mesh={args.mesh}); after "
+          f"device={trainer.model.device}, mesh={args.mesh}"
+          f"{f', sp={args.sp} {args.sp_mode}' if args.sp > 1 else ''}); "
+          "after "
           f"the first step: "
           f"{statistics.mean(h['ms'] for h in warm):.1f} ms/step, "
           f"{statistics.mean(h['tok_per_s'] for h in warm):.1f} tok/s")

@@ -6,6 +6,14 @@ Head layout as in the JAX package: q heads padded to a multiple of tp; kv
 heads group-padded and sharded alongside q when n_kv >= tp, else stored
 replicated and each rank selects the kv head(s) its local q heads map to.
 Dead (padding) q heads are masked out of the output.
+
+Under an active seq group (``ctx.sp_active``) the training path's
+sequence is this rank's shard of it, and attention crosses the seq group
+(:func:`sp_attention`): DeepSpeed-Ulysses (one all-to-all of q, k and v
+from sequence-sharded to head-sharded, the monolithic core on the whole
+sequence, the inverse all-to-all back) or ring attention (each peer's KV
+block arrives by one permute and is folded into an online softmax).
+Every hop goes through the plan's ``sp`` codec, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -162,17 +170,160 @@ def attention_core(q, k, v, *, causal: bool, window: int | None,
     return out.transpose(1, 2).to(COMPUTE_DTYPE)
 
 
+# --------------------------------------------------------------------------
+# sequence parallelism over the seq group (Ulysses all-to-all / ring)
+# --------------------------------------------------------------------------
+
+def ulysses_attention(q, k, v, ctx, *, causal, window):
+    """DeepSpeed-Ulysses attention over the seq group.
+
+    q, k, v arrive sequence-sharded ``(B, S/sp, H, hd)``, rope applied at
+    the global positions.  ONE compressed all-to-all — q, k and v joined
+    along the feature dim into one wire buffer — splits the heads and
+    joins the sequence (the transposed ``all_to_all_c`` layout), so the
+    monolithic :func:`attention_core` runs on the whole sequence with
+    ``H/sp`` heads; the inverse hop brings the output back.  Both hops
+    take the plan's ``sp`` codec, and each one's backward is the other
+    hop (straight-through cotangent compression)."""
+    sp = ctx.sp_size()
+    if sp == 1:
+        return attention_core(q, k, v, causal=causal, window=window)
+    h = q.shape[2]
+    if h % sp:
+        raise ValueError(
+            f"Ulysses attention: local head count {h} not divisible by "
+            f"the seq group of size {sp}")
+    qkv = torch.cat([q, k, v], dim=-1)              # (B, S/sp, H, 3 hd)
+    qkv = ctx.sp_all_to_all(qkv, 2, 1)              # (B, S, H/sp, 3 hd)
+    qf, kf, vf = torch.chunk(qkv, 3, dim=-1)
+    out = attention_core(qf, kf, vf, causal=causal, window=window)
+    return ctx.sp_all_to_all(out, 1, 2)             # (B, S/sp, H, hd)
+
+
+def _block_bias(q_pos, kv_pos, *, causal, window):
+    """Additive (Sq, Sk) f32 mask between global q and kv positions."""
+    bad = torch.zeros((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        bad |= kv_pos[None, :] > q_pos[:, None]
+    if window is not None:
+        bad |= kv_pos[None, :] <= q_pos[:, None] - window
+    return torch.where(bad, NEG_INF, 0.0).to(torch.float32)
+
+
+def _block_partial(qf, kb, vb, bias):
+    """Online-softmax partial of pre-scaled f32 q ``(B, H, Sq, hd)``
+    against one KV block ``(B, H, Sk, hd)``: ``(acc, m, l)``.  A fully
+    masked block (a future block under causal masking) gives exactly
+    ``(0, NEG_INF, 0)``, which merges as a no-op."""
+    s_ = torch.einsum("bhqd,bhkd->bhqk", qf, kb.float()) + bias[None, None]
+    m = s_.amax(dim=-1)
+    finite = m > NEG_INF * 0.5
+    msafe = torch.where(finite, m, 0.0)
+    p_ = torch.where(finite[..., None], torch.exp(s_ - msafe[..., None]),
+                     0.0)
+    acc = torch.einsum("bhqk,bhkd->bhqd", p_, vb.float())
+    return acc, torch.where(finite, m, NEG_INF), p_.sum(dim=-1)
+
+
+def _merge_partial(a, b):
+    """Fold two online-softmax partials (rescale and add; associative)."""
+    acc1, m1, l1 = a
+    acc2, m2, l2 = b
+    m = torch.maximum(m1, m2)
+    c1 = torch.exp(m1 - m)
+    c2 = torch.exp(m2 - m)
+    # both empty: exp(0) = 1, but acc and l are exactly 0: still a no-op
+    return (acc1 * c1[..., None] + acc2 * c2[..., None], m,
+            l1 * c1 + l2 * c2)
+
+
+def ring_attention(q, k, v, ctx, *, causal, window):
+    """Blockwise ring attention over the seq group.
+
+    q stays sequence-local ``(B, S/sp, H, hd)``; the KV block of the peer
+    ``t`` ranks behind arrives by ONE compressed permute (k and v joined
+    along the feature dim into one wire buffer, sent straight to the peer
+    ``t`` ahead) and is folded into an online-softmax accumulator under
+    global-position masks.  The hops are emitted by
+    ``core/overlap.run_ring`` under the ``sp`` codec's ``schedule``
+    (pipelined or serial, bit-identical), as the JAX package does.  The
+    output matches the monolithic core within the re-association of the
+    online softmax (blocks fold in arrival order, which differs per
+    rank)."""
+    sp = ctx.sp_size()
+    if sp == 1:
+        return attention_core(q, k, v, causal=causal, window=window)
+    from repro_torch.core import overlap
+    b, s_loc, h, hd = q.shape
+    i = ctx.sp_index()
+    dev = q.device
+    q_pos = i * s_loc + torch.arange(s_loc, device=dev)
+    qf = q.transpose(1, 2).float() / np.sqrt(hd)
+    kv = torch.cat([k, v], dim=-1)                 # one wire buffer a hop
+
+    def partial_for(block, src):
+        kb, vb = torch.chunk(block, 2, dim=-1)
+        kv_pos = src * s_loc + torch.arange(s_loc, device=dev)
+        bias = _block_bias(q_pos, kv_pos, causal=causal, window=window)
+        return _block_partial(qf, kb.transpose(1, 2), vb.transpose(1, 2),
+                              bias)
+
+    def transfer(t):
+        perm = tuple((r, (r + t) % sp) for r in range(sp))
+        return lambda blk: ([ctx.sp_permute(blk, perm)], ())
+
+    def decode(t):
+        return lambda moved: partial_for(moved[0][0], (i - t) % sp)
+
+    parts = overlap.run_ring(
+        [kv] * (sp - 1), encode=lambda blk: blk,
+        transfer=[transfer(t) for t in range(1, sp)],
+        decode=[decode(t) for t in range(1, sp)],
+        schedule=overlap.ring_schedule(ctx.plan.sp))
+    state = partial_for(kv, i)                     # this rank's own block
+    for part in parts:
+        state = _merge_partial(state, part)
+    acc, _, l = state
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2).to(COMPUTE_DTYPE)
+
+
+def sp_attention(q, k, v, ctx, *, causal, window):
+    """The seq group's attention flavour (``ctx.sp_mode``)."""
+    if ctx.sp_mode == "ring":
+        return ring_attention(q, k, v, ctx, causal=causal, window=window)
+    if ctx.sp_mode != "ulysses":
+        raise ValueError(f"unknown sp_mode {ctx.sp_mode!r}")
+    return ulysses_attention(q, k, v, ctx, causal=causal, window=window)
+
+
 def attention_apply(x_full, p, cfg, plan, ctx, *, causal=True, window=None,
-                    positions=None):
+                    positions=None, kv_source=None):
     """x_full (B, S, D) -> tp-partial output (B, S, D) (the caller
-    reduces).  ``positions`` defaults to 0..S-1."""
+    reduces).  ``positions`` defaults to 0..S-1, offset by the seq rank's
+    shard under an active seq group, where S is the shard's length and
+    attention crosses the group (:func:`sp_attention`).  ``kv_source``
+    (cross-attention keys and values) comes with the encoder-decoder
+    slice; under sequence parallelism it is refused as the JAX package
+    refuses it."""
     b, s, _ = x_full.shape
+    if kv_source is not None:
+        if ctx.sp_active:
+            raise NotImplementedError(
+                "cross-attention under an active sp axis is not supported")
+        raise NotImplementedError(
+            "cross-attention is ported in the encoder-decoder slice")
     if positions is None:
-        positions = torch.arange(s, device=x_full.device)
+        positions = ctx.sp_index() * s + torch.arange(s,
+                                                      device=x_full.device)
     q, k, v = qkv_project(x_full, p, cfg, plan, ctx, positions)
     k = _expand_kv(k, plan, ctx, cfg)
     v = _expand_kv(v, plan, ctx, cfg)
-    out = attention_core(q, k, v, causal=causal, window=window)
+    if ctx.sp_active:
+        out = sp_attention(q, k, v, ctx, causal=causal, window=window)
+    else:
+        out = attention_core(q, k, v, causal=causal, window=window)
     out = out * head_mask(plan, ctx, cfg.n_heads, x_full.device)[None, None,
                                                                  :, None]
     wo = ctx.weight_gather(p["wo"], 1)

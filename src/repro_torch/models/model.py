@@ -21,6 +21,12 @@ the positions, the final norm and the head stay whole on every stage.  So
 every mesh starts from the same weights wherever the padded global shapes
 agree.  The batch is split the same way: fsdp rank f takes rows ``[f *
 B/F, (f + 1) * B/F)`` of the global batch (``batch_slice``).
+
+On the seq mesh (``sp_axis="seq"``, ``sp`` ranks) every parameter is
+replicated over the seq axis, and seq rank i takes positions ``[i * S/sp,
+(i + 1) * S/sp)`` of its rows: the JAX package's ``batch_pspecs`` shard
+the sequence dim over the sp axis.  Its grads are summed over the seq
+group once the backward is done (``replicated_grad_axes``).
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, RunPlan
 from repro_torch.core import collectives as cc
 from repro_torch.core.collectives import Identity, all_gather_c
-from repro_torch.core.parallel import FSDP_AXES, TP_AXIS
+from repro_torch.core.parallel import FSDP_AXES, SP_AXIS, TP_AXIS
 from repro_torch.data import pipeline as data_pipeline
 from repro_torch.models import transformer
 from repro_torch.models.layers import (COMPUTE_DTYPE, ParamSpec,
@@ -86,8 +92,19 @@ class Model:
     def __init__(self, cfg: ArchConfig, plan: RunPlan, *, device=None,
                  tp_rank: int = 0, fsdp_rank: int = 0,
                  fsdp_axes: tuple = FSDP_AXES, pipe: int = 1,
-                 pipe_rank: int = 0):
+                 pipe_rank: int = 0, sp_axis: str | None = None,
+                 sp: int = 1, sp_rank: int = 0):
+        if sp_axis is not None and (cfg.family == "encdec"
+                                    or cfg.frontend == "patches"):
+            raise NotImplementedError(
+                "sequence parallelism supports the decoder-only token "
+                "frontend (encdec/patches sequence composition is not "
+                "sp-sharded)")
         transformer.check_family(cfg)
+        if sp_axis not in (None, SP_AXIS) or (sp_axis is None and sp != 1) \
+                or not 0 <= sp_rank < sp:
+            raise ValueError(f"sp rank {sp_rank} of {sp} on axis "
+                             f"{sp_axis!r}: want the {SP_AXIS!r} axis")
         if cfg.n_layers % pipe or not 0 <= pipe_rank < pipe:
             raise ValueError(f"pipe rank {pipe_rank} of {pipe} stages: "
                              f"{cfg.n_layers} layers must split evenly")
@@ -101,6 +118,7 @@ class Model:
         self.tp_rank, self.fsdp_rank = tp_rank, fsdp_rank
         self.fsdp_axes = tuple(fsdp_axes)
         self.pipe, self.pipe_rank = pipe, pipe_rank
+        self.sp_axis, self.sp, self.sp_rank = sp_axis, sp, sp_rank
         self.device = resolve_device(device)
 
     def specs(self):
@@ -130,12 +148,15 @@ class Model:
         """Mesh axes over which this param's grads are summed after the
         backward (params replicated over an axis but used divergently:
         norm scales and replicated kv weights over the model axis;
-        params with no ``fsdp_dim`` over the fsdp axes as well)."""
+        params with no ``fsdp_dim`` over the fsdp axes as well; every
+        param over the seq axis, whose ranks saw other positions)."""
         axes = []
         if spec.tp_dim is None:
             axes.append(self.tp_axis)
         if spec.fsdp_dim is None:
             axes.extend(self.fsdp_axes)
+        if self.sp_axis is not None:
+            axes.append(self.sp_axis)
         return tuple(axes)
 
     def init(self, seed: int = 0, dtype=COMPUTE_DTYPE):
@@ -212,8 +233,20 @@ class Model:
         """This rank's rows of a global batch: the batch is sharded over
         the fsdp axes on dim 0, pod-major (the JAX package's
         ``batch_pspecs``); every TP rank of a data rank takes the same
-        rows."""
-        return data_pipeline.dp_rows(batch, self.fsdp_rank, self.plan.fsdp)
+        rows.  On the seq mesh, this seq rank's shard of the sequence dim
+        (dim 1) of those rows."""
+        rows = data_pipeline.dp_rows(batch, self.fsdp_rank, self.plan.fsdp)
+        if self.sp_axis is None:
+            return rows
+        out = {}
+        for k, v in rows.items():
+            if v.shape[1] % self.sp:
+                raise ValueError(f"batch {k}: sequence {v.shape[1]} does "
+                                 f"not split over sp {self.sp}")
+            w = v.shape[1] // self.sp
+            lo = self.sp_rank * w
+            out[k] = v[:, lo:lo + w].contiguous()
+        return out
 
     def batch_shape(self, seq_len: int, global_batch: int) -> dict:
         """Train-batch ``(shape, dtype)`` by key, as the data pipeline

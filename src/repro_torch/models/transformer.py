@@ -8,7 +8,8 @@ The training forward runs Megatron-SP, as the JAX package: the residual
 stream is sequence-sharded over the TP group, each block enters through a
 compressed all-gather (``tp_enter``) and leaves through a compressed
 reduce-scatter (``tp_exit``), and the embedding's exit and the final
-entry are TACO sites too.  Layers run one after another in a Python loop
+entry are TACO sites too.  Under an active seq group the sequence is this
+seq rank's shard, at its global positions.  Layers run one after another in a Python loop
 (the JAX package scans them), each under ``torch.utils.checkpoint`` when
 the plan asks for full recompute.
 """
@@ -187,19 +188,24 @@ def add_positional(x_shard, params, cfg, ctx, seq: int):
         return x_shard
     s_loc = x_shard.shape[1]
     start = ctx.tp_rank * s_loc if ctx.tp_mode == "sp" else 0
+    # under an active seq group, seq is the seq shard's length: offset to
+    # the global positions
+    start += ctx.sp_index() * seq
     if cfg.pos == "learned":
         table = ctx.weight_gather(params["pos_embed"], 0)
         pe = table[start:start + s_loc]
     else:
-        pe = torch.from_numpy(sinusoid_pos(seq, cfg.d_model)[
+        pe = torch.from_numpy(sinusoid_pos(seq * ctx.sp_size(), cfg.d_model)[
             start:start + s_loc]).to(x_shard.device, COMPUTE_DTYPE)
     return x_shard + pe[None].to(x_shard.dtype)
 
 
 def forward_train(params, batch, cfg, plan, ctx):
-    """batch: tokens (B, S), labels (B, S), mask (B, S).  Returns
-    ``(loss_sum, token_count, aux)`` as f32 scalars, local to this rank
-    (aux, the MoE balance loss, is 0 for the dense family)."""
+    """batch: tokens (B, S), labels (B, S), mask (B, S) — under an active
+    seq group this rank's shard of the sequence, at positions offset by
+    ``sp_index() * S``.  Returns ``(loss_sum, token_count, aux)`` as f32
+    scalars, local to this rank (aux, the MoE balance loss, is 0 for the
+    dense family)."""
     check_family(cfg)
     tokens, labels, mask = batch["tokens"], batch["labels"], batch["mask"]
     # embedding (vocab-parallel; TACO reduce-scatter site)
@@ -207,7 +213,7 @@ def forward_train(params, batch, cfg, plan, ctx):
     seq = partial.shape[1]
     x = tp_exit(partial, ctx)
     x = add_positional(x, params, cfg, ctx, seq)
-    positions = torch.arange(seq, device=x.device)
+    positions = ctx.sp_index() * seq + torch.arange(seq, device=x.device)
     x = run_segments(x, params["segments"], layer_segments(cfg), cfg, plan,
                      ctx, positions=positions, causal=True)
     x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
@@ -217,10 +223,13 @@ def forward_train(params, batch, cfg, plan, ctx):
     return loss_sum, count, torch.zeros((), device=loss_sum.device)
 
 
-def tp_hops_per_step(cfg, plan, comm_plan) -> dict:
-    """Compressed TP hops that one Megatron-SP training step runs, by kind:
+def tp_hops_per_step(cfg, plan, comm_plan, sp: int = 1,
+                     sp_mode: str = "ulysses") -> dict:
+    """Compressed hops that one Megatron-SP training step runs, by kind:
     each all-gather hop runs one compress and one decompress, each
-    reduce-scatter hop one compress and one decompress-reduce.
+    reduce-scatter hop one compress and one decompress-reduce, and each
+    sequence-parallel hop (an all-to-all or a permute over a seq group of
+    ``sp`` ranks) one compress and one decompress.
 
     Forward: every compressed layer enters twice and exits twice, plus the
     embedding's exit and the final entry.  Backward: each forward hop's
@@ -229,7 +238,14 @@ def tp_hops_per_step(cfg, plan, comm_plan) -> dict:
     last saved activation, i.e. both entries and the attention exit; the
     MLP exit saves nothing, so ``torch.utils.checkpoint`` stops before it.
     Hops whose codec is the identity (``skip_first`` / ``skip_last``
-    layers, an uncompressed direction) run no codec and are not counted."""
+    layers, an uncompressed direction) run no codec and are not counted.
+
+    The sp hops of a layer's attention: Ulysses' two all-to-alls, or the
+    ring's ``sp - 1`` permutes; the backward runs each one's conjugate
+    (an all-to-all, a permute) and full recompute runs them again (they
+    come before the attention exit).  At ``sp = 1`` both flavours run the
+    monolithic core, with no hop, and so does an identity ``sp`` codec
+    count none."""
     n = cfg.n_layers
     layers = sum(c for c, p in comm_plan.layer_spans(0, n, n)
                  if not p.tp_identity)
@@ -238,4 +254,9 @@ def tp_hops_per_step(cfg, plan, comm_plan) -> dict:
     remat = plan.remat and plan.remat_policy != "none"
     ag = f * (2 * layers + 1) + f * remat * 2 * layers + b * (2 * layers + 1)
     rs = f * (2 * layers + 1) + f * remat * layers + b * (2 * layers + 1)
-    return {"all_gather": ag, "reduce_scatter": rs}
+    on = sp > 1 and not isinstance(comm_plan.sp, IdentityCodec)
+    per_layer = on * (2 if sp_mode == "ulysses" else sp - 1)
+    sp_hops = per_layer * n * (2 + remat)
+    return {"all_gather": ag, "reduce_scatter": rs,
+            "all_to_all": sp_hops if sp_mode == "ulysses" else 0,
+            "permute": sp_hops if sp_mode == "ring" else 0}

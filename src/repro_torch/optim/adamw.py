@@ -15,7 +15,8 @@ state (ZeRO-1: the state is sharded as the parameters are).
 an axis but used divergently (norm scales on the sequence-sharded
 residual and replicated kv heads over the TP group; every parameter with
 no ``fsdp_dim`` over the fsdp groups, whose ranks saw other rows of the
-batch): the JAX package's ``replicated_grad_axes``.  The fsdp-sharded
+batch; every parameter over the seq group, whose ranks saw other
+positions): the JAX package's ``replicated_grad_axes``.  The fsdp-sharded
 grads arrive summed already: they are the output of the weight gather's
 backward, the ``grad_rs`` reduce-scatter.  ``global_grad_norm`` sums the
 squares of each sharding class over the groups it is sharded on and
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import collectives as cc
-from repro_torch.core.parallel import PIPE_AXIS
+from repro_torch.core.parallel import PIPE_AXIS, SP_AXIS
 from repro_torch.models.layers import tree_map
 
 
@@ -80,20 +81,25 @@ def init_opt_state(params) -> dict:
             "step": 0}
 
 
-def _axis_groups(model, group, fsdp_groups) -> dict:
+def _axis_groups(model, group, fsdp_groups, sp_group=None) -> dict:
     """Mesh axis name -> what the collectives move over along it (the
-    model's fsdp axes, one group each)."""
+    model's fsdp axes, one group each; the seq axis on the seq mesh)."""
     fsdp = tuple(fsdp_groups) or (None,) * len(model.fsdp_axes)
-    return {model.tp_axis: group,
-            **dict(zip(model.fsdp_axes, fsdp, strict=True))}
+    out = {model.tp_axis: group,
+           **dict(zip(model.fsdp_axes, fsdp, strict=True))}
+    if getattr(model, "sp_axis", None) is not None:
+        out[SP_AXIS] = sp_group
+    return out
 
 
-def finalize_grads(grads, model, group=None, fsdp_groups=(), pipe_group=None):
+def finalize_grads(grads, model, group=None, fsdp_groups=(), pipe_group=None,
+                   sp_group=None):
     """Sum the grads of replicated-but-divergently-used parameters over the
     mesh axes they are replicated on (``model.replicated_grad_axes``):
     over the TP ``group`` and the ``fsdp_groups`` (one per axis of
-    ``model.fsdp_axes``), and, when ``pipe_group`` moves, every grad that
-    is not a layer stack's over the pipe group as well (the JAX package's
+    ``model.fsdp_axes``), over the seq group ``sp_group`` (every grad, on
+    the seq mesh), and, when ``pipe_group`` moves, every grad that is not
+    a layer stack's over the pipe group as well (the JAX package's
     ``_finalize_pipe_grads``).  Per-rank autograd covers only this rank's
     use of them.
 
@@ -104,7 +110,7 @@ def finalize_grads(grads, model, group=None, fsdp_groups=(), pipe_group=None):
     once to its own dtype.  The f32 sum of a few bf16 peers is exact
     unless their magnitudes lie more than ~16 binades apart, so the result
     is the reference's bit for bit, and within one bf16 ulp at worst."""
-    by_axis = _axis_groups(model, group, fsdp_groups)
+    by_axis = _axis_groups(model, group, fsdp_groups, sp_group)
     flat, specs = list(leaves(grads)), leaves(model.specs())
     axes = [model.replicated_grad_axes(s) for s in specs]
     if cc.moves(pipe_group):

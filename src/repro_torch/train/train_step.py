@@ -32,8 +32,10 @@ from repro_torch.optim import adamw
 
 def dp_axes(model) -> tuple:
     """Mesh axes the scalar loss and token count are summed over: the fsdp
-    data axes (the batch is sharded over them)."""
-    return model.fsdp_axes
+    data axes (the batch's rows are sharded over them) and, on the seq
+    mesh, the seq axis (its sequence is)."""
+    sp = getattr(model, "sp_axis", None)
+    return tuple(model.fsdp_axes) + ((sp,) if sp is not None else ())
 
 
 def check_fsdp_axes(model, ctx) -> None:
@@ -44,6 +46,16 @@ def check_fsdp_axes(model, ctx) -> None:
         raise ValueError(f"the model is cut over the fsdp axes "
                          f"{model.fsdp_axes}, the ctx's groups are over "
                          f"{ctx.fsdp_axes}")
+
+
+def check_sp(model, ctx) -> None:
+    """The model's seq axis (how its batch is cut, what its grads are
+    summed over) must match the ctx's seq group."""
+    sp = model.sp if getattr(model, "sp_axis", None) is not None else None
+    want = ctx.sp_size() if ctx.sp_active else None
+    if sp != want:
+        raise ValueError(f"the model is cut over a seq axis of {sp} ranks, "
+                         f"the ctx's seq group has {want}")
 
 
 class TrainStep:
@@ -69,7 +81,7 @@ def backward_grads(params, loss, model, ctx, pipe_group=None):
     loss.backward()
     grads = adamw.finalize_grads(tree_map(
         lambda p: torch.zeros_like(p) if p.grad is None else p.grad,
-        params), model, ctx.comm, ctx.fsdp_groups, pipe_group)
+        params), model, ctx.comm, ctx.fsdp_groups, pipe_group, ctx.sp_group)
     for p in flat:
         p.grad = None
     return grads
@@ -90,6 +102,7 @@ def build_train_step(model, ctx, oc: adamw.OptConfig) -> TrainStep:
     bf16 leaf tensors; ``grads`` marks them as requiring grad and runs
     ``backward()``."""
     check_fsdp_axes(model, ctx)
+    check_sp(model, ctx)
 
     def grads(params, batch):
         for p in adamw.leaves(params):

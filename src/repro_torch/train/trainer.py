@@ -125,7 +125,10 @@ class Trainer:
         gathered to its global (padded) array on the host
         (``Model.gather_params``; every rank of the mesh takes part), the
         step count as it is; rank 0 of the world writes, and every rank
-        returns once the checkpoint is committed."""
+        returns once the checkpoint is committed.  On the seq mesh every
+        seq rank holds the same parameters and state, so the gathers run
+        over the pipe, fsdp and TP groups only and the state is written
+        once; a restore cuts every seq rank the same leaves."""
         def host(tree):
             return self.model.gather_params(tree, self.ctx)
         state = {"params": host(params),

@@ -836,3 +836,84 @@ def test_err_probe_on_card_adds_one_decompress_launch(card, rng):
     cc.drain_probes()
     (_, err), = esc._obs
     assert 0.0 < err < 0.1
+
+
+# --------------------------------------------------------------------------
+# the sp hops (sequence parallelism): K1 then K3 at the full-width shapes a
+# rank of sp = 2 sends, and the hops through a 1-rank NCCL group
+# --------------------------------------------------------------------------
+
+#: full-width qwen2-0.5b at sp = 2, batch 4 x seq 2048 (chip_smoke.py
+#: phase 10): (hop, the rank's tensor, wire rows it encodes)
+SP_SHAPES = [("ulysses in", (4, 1024, 14, 192), 2),
+             ("ulysses out", (4, 2048, 7, 64), 2),
+             ("ring kv", (4, 1024, 14, 128), 1)]
+
+
+@pytest.mark.parametrize("hop,shape,slots", SP_SHAPES,
+                         ids=[s[0].replace(" ", "-") for s in SP_SHAPES])
+def test_sp_hop_kernels_match_plain(card, hop, shape, slots, rng):
+    """The hop's wire rows (``slots`` rows of the rank's tensor) through K1
+    against the plain version by the parity rule, K3's decode of them (in
+    the codec's f32 compute dtype) against the plain decode, one launch
+    each."""
+    codec = codec_from_spec("taco:folded")
+    cfg = codec.cfg
+    n = int(np.prod(shape)) // slots
+    x = torch.from_numpy(tp_like(rng, (slots, n))).to(card, torch.bfloat16)
+    before = (ash_compress.compress_blocks.launches,
+              ash_decompress.decompress_blocks.launches)
+    wire = codec.encode_wire(x)
+    dec = codec.decode_wire(wire, n, torch.float32)
+    assert (ash_compress.compress_blocks.launches - before[0],
+            ash_decompress.decompress_blocks.launches - before[1]) == (1, 1)
+    ref.check_wire_parity(wire, codec.encode_wire(x.cpu()), n, cfg)
+    ref.check_decoded_close(dec, codec.decode_wire(wire.cpu(), n,
+                                                   torch.float32), cfg)
+
+
+def test_sp_hops_through_a_one_rank_nccl_group(card, tmp_path, rng,
+                                               monkeypatch):
+    """``all_to_all_c`` (both dim orders) and ``ppermute_c`` over a 1-rank
+    NCCL group under ``taco:folded``, on the block route of full-width
+    hops: one K1 and one K3 each way, the output the decode of the card's
+    wire; Ulysses and the ring at sp = 1 are the monolithic core."""
+    import torch.distributed as dist
+
+    from repro_torch.core import collectives as cc
+    from repro_torch.core.parallel import CommPlan, ParallelCtx, init_tp_group
+    from repro_torch.models import attention as ta
+    monkeypatch.setattr(ops, "WIRE_FUSED_MAX_SLOT_ELEMS", 0)
+    group = init_tp_group("cuda", init_method=f"file://{tmp_path}/store",
+                          world_size=1, rank=0, timeout_s=60)
+    try:
+        c = codec_from_spec("taco:folded")
+        x = torch.from_numpy(tp_like(rng, (2, 64, 4, 48))).to(
+            card, torch.bfloat16)
+        for fn, lead in ((lambda v: cc.all_to_all_c(v, group, 2, 1, c, c), 2),
+                         (lambda v: cc.all_to_all_c(v, group, 1, 2, c, c), 1),
+                         (lambda v: cc.ppermute_c(v, group, ((0, 0),), c, c),
+                          0)):
+            xx = x.clone().requires_grad_(True)
+            before = (ash_compress.compress_blocks.launches,
+                      ash_decompress.decompress_blocks.launches)
+            y = fn(xx)
+            y.backward(x)
+            assert (ash_compress.compress_blocks.launches - before[0],
+                    ash_decompress.decompress_blocks.launches - before[1]) \
+                == (2, 2)
+            rows = torch.movedim(x, lead, 0).reshape(1, -1)
+            dec = c.decode_wire(c.encode_wire(rows), rows.shape[-1],
+                                torch.bfloat16)
+            assert torch.equal(torch.movedim(y.detach(), lead, 0)
+                               .reshape(1, -1), dec)
+        q, k, v = (torch.from_numpy(tp_like(rng, (2, 64, 4, 16))).to(
+            card, torch.bfloat16) for _ in range(3))
+        core = ta.attention_core(q, k, v, causal=True, window=None)
+        for mode in ("ulysses", "ring"):
+            ctx = ParallelCtx(plan=CommPlan(sp=c), sp_group=group,
+                              sp_mode=mode)
+            assert torch.equal(ta.sp_attention(q, k, v, ctx, causal=True,
+                                               window=None), core)
+    finally:
+        dist.destroy_process_group()

@@ -317,9 +317,11 @@ def test_hops_per_step_are_the_derived_count(remat, spec, budget,
     if spec == "taco":
         layers = cfg.n_layers
         assert hops == ({"all_gather": 6 * layers + 2,
-                         "reduce_scatter": 5 * layers + 2} if remat else
+                         "reduce_scatter": 5 * layers + 2,
+                         "all_to_all": 0, "permute": 0} if remat else
                         {"all_gather": 4 * layers + 2,
-                         "reduce_scatter": 4 * layers + 2})
+                         "reduce_scatter": 4 * layers + 2,
+                         "all_to_all": 0, "permute": 0})
 
 
 def test_train_launcher_on_cpu_and_without_a_card(capsys, monkeypatch):

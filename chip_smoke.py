@@ -83,10 +83,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      (loss 1e-3, grad norm 5e-2) and makes no ``torch.distributed`` call
      for its boundary hops (no peer at pipe = 1), and the card equals the
      CPU under ``taco3d`` and ``weight_ag=int8``; then full-width
-     gpt-2.7b (d 2560, vocab 51200) cut to 16 of its 32 layers, batch 4
+     gpt-2.7b (d 2560, vocab 51200) cut to 8 of its 32 layers, batch 4
      x seq 2048 in 4 microbatches, 2 warm + 6 timed steps, under
      ``baseline`` and ``taco3d``: launches 4 x phase 3's per-microbatch
-     counts (at 16 layers 720 K1, 392 K3, 328 K4), losses within 5e-2 of
+     counts (at 8 layers 368 K1, 200 K3, 168 K4), losses within 5e-2 of
      baseline's, and one step's
      boundary hops (TahQuant) and weight gathers (``Int8Codec``) replayed
      at full width, card against CPU (codes apart from ties, scales bit
@@ -144,9 +144,29 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      2e-2, the JAX package's ``check_sp.py`` contract); 10e, phase 3's
      taco cell through the train launcher with the seq mesh's 1-rank
      groups, ``--sp-mode ulysses`` and ``ring``, 3 steps each: phase 3's
-     launches every step and its first losses bit for bit.
+     launches every step and its first losses bit for bit;
+ 11. the MoE family: grok-1-314b at full width (d 6144, 48 / 8 heads of
+     128, 8 experts of d_ff 32768, top-2, geglu, vocab 131072) cut to 2
+     of its 64 layers (11.45 B weights, drawn once from seed 0 and shared
+     by every run).  11a: serving as phase 2 (6 requests, prompt 16, 16
+     new tokens, max batch 4, 16 req/s) through the serve launcher's
+     engine (``launch.serve.make_engine``; the launcher has no depth
+     flag) under ``baseline`` and ``taco``: every taco decode attempt
+     launches 10 K2, 5 K5 and 5 K6 (2 x 2 + 1 hops), prefill as phase 2
+     counts it, no block kernel, no plain route, every token in range, one
+     tick profiled.  11b: ``build_train_step(...).grads`` (every hop, no
+     update: AdamW's f32 state would not fit the card) on two SyntheticLM
+     batches of 2 x 2048 (one dispatch group, capacity 1281 an expert)
+     under ``baseline`` and ``taco``: every call launches 26 K1, 14 K3
+     and 12 K4, no plain route, losses and balance losses finite, taco's
+     loss within 5e-2 of baseline's, peak memory printed and one call
+     profiled.  11c: ``moe_apply`` card against CPU at d 256 (8 experts,
+     top-2, 512 tokens): routing equal but for tokens within a bf16 ulp of
+     a tie (counted), rows that route alike within 2e-2, the balance loss
+     within 1e-5.  Phase 1 times K2/K5/K6 at the grok decode hop (4 x
+     6144) and phase 1b K1/K3/K4 at its training hop (2 x 2048 x 6144).
 
-Every training and serving run of phases 2, 3, 5, 6, 7, 8, 9 and 10 must
+Every training and serving run of phases 2, 3, 5, 6, 7, 8, 9, 10 and 11 must
 take only kernels: ``ops.plain_routes`` stays 0.  Nothing is caught: any
 failure exits non-zero.  The line before the last is the kernel table as
 JSON; the last is
@@ -191,9 +211,10 @@ RING_SPEC = "tp=taco:folded:chunks=4"     # the paper's spec: the chunked ring
 DP_SPEC = "tp=taco,grad_rs=sdp4bit"       # TACO on TP, SDP4bit on the data axes
 PIPE_SPEC = "taco3d"                      # + TahQuant at the stage boundaries
 PIPE_ARCH, PIPE_MICRO = "gpt-2.7b", 4     # phase 7: full width, 4 microbatches
-#: phase 7's depth: half of gpt-2.7b's 32 layers, so that the whole script
-#: stays well inside its 1200 s limit (phase 7 is its longest phase)
-PIPE_LAYERS = 16
+#: phase 7's depth: a quarter of gpt-2.7b's 32 layers, so that the whole
+#: script stays well inside its 1200 s limit (phase 7 carries its own
+#: baseline, so its depth is the one to cut)
+PIPE_LAYERS = 8
 #: one TP hop of phase 7's step: a microbatch (batch / M rows) x d 2560
 PIPE_N = TRAIN_BATCH // PIPE_MICRO * TRAIN_SEQ * 2560
 TRAIN_SIZE = "--no-smoke"                 # full width and depth
@@ -218,6 +239,15 @@ SP_HOPS = (("ulysses in", (TRAIN_BATCH, TRAIN_SEQ // 2, 14, 192), (2, 1)),
            ("ulysses out", (TRAIN_BATCH, TRAIN_SEQ, 7, 64), (1, 2)),
            ("ring kv", (TRAIN_BATCH, TRAIN_SEQ // 2, 14, 128), None))
 SP_TRAIN_STEPS = 3
+#: phase 11: grok-1-314b at full width cut to MOE_LAYERS of its 64 layers;
+#: its decode hop (max-batch 4 x d 6144) and training hop (2 x 2048 x
+#: 6144: MOE_BATCH x MOE_SEQ tokens, one dispatch group of 4096)
+MOE_ARCH, MOE_LAYERS = "grok-1-314b", 2
+MOE_BATCH, MOE_SEQ, MOE_CALLS = 2, 2048, 2
+MOE_SERVE_N = 4 * 6144
+MOE_TRAIN_N = MOE_BATCH * MOE_SEQ * 6144
+#: 11c: moe_apply card vs CPU at a small width
+MOE_SMALL = dict(d=256, experts=8, top_k=2, tokens=512)
 
 
 def fail(msg: str) -> None:
@@ -449,6 +479,9 @@ def phase_kernels() -> dict:
         case(f"taco:b{b}:cdbfloat16:folded", SERVE_N, torch.bfloat16, 4)
     case("taco:cdbfloat16:int8:g32", SERVE_N, torch.float32, 4)
     case("taco", LARGE_N, torch.bfloat16, 4, timed=True, label="large")
+    # phase 11's decode hop: grok-1-314b at max-batch 4 (d 6144)
+    case("taco", MOE_SERVE_N, torch.bfloat16, 1, timed=True,
+         label="grok decode")
     case("taco:seps1e-20", 1024, torch.float32, 1)
     z = torch.zeros((1, 1024), device=dev)       # all-zero blocks: s floor
     cfg = codec_from_spec("taco").cfg
@@ -696,6 +729,9 @@ def phase_blocks() -> dict:
     case("taco", TRAIN_N // 4, torch.bfloat16, 4, timed=True, label="tp4 hop")
     # a TP hop of phase 7's gpt-2.7b pipeline step (tp=taco of taco3d)
     case("taco", PIPE_N, torch.bfloat16, 1, timed=True, label="pipe hop")
+    # a TP hop of phase 11's grok-1-314b gradient step
+    case("taco", MOE_TRAIN_N, torch.bfloat16, 1, timed=True,
+         label="grok train")
     # phase 10c: the stacks a rank of sp = 2 decodes (two peers' slots of
     # each sp hop of SP_HOPS)
     for label, shape, dims in SP_HOPS:
@@ -2113,6 +2149,221 @@ def phase_sp_train(counters, trained, mesh) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 11: the MoE family (grok-1-314b at full width, MOE_LAYERS layers)
+# --------------------------------------------------------------------------
+
+def moe_model():
+    """Full-width grok-1-314b cut to MOE_LAYERS of its 64 layers, its
+    weights drawn once (seed 0) on the card: (serve model, train model,
+    params).  Both models take the same weights: their plans differ only
+    in recompute (the serve launcher's and the train launcher's)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, make_plan
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    serve_model = Model(cfg, make_plan(cfg, 1, 1, remat=False))
+    train_model = Model(cfg, make_plan(cfg, 1, 1))
+    return serve_model, train_model, serve_model.init(0)
+
+
+def phase_moe(kernels, smi: str) -> dict:
+    """Phase 11: the weights drawn once, then 11a, 11b and 11c.  11b holds
+    the weights (21.3 GiB), their bf16 grads and a recomputed layer's
+    saved tensors (its f32 attention ~13 GiB), so the allocator grows its
+    segments in place from here on: no fragmentation left over from the
+    earlier phases."""
+    from repro_torch.optim import adamw
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    t0 = time.monotonic()
+    serve_model, train_model, params = moe_model()
+    torch.cuda.synchronize()
+    print(f"  {MOE_ARCH}, {MOE_LAYERS} layers: "
+          f"{sum(p.numel() for p in adamw.leaves(params)) / 1e9:.3f} B "
+          f"weights, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, drawn in "
+          f"{time.monotonic() - t0:.1f} s")
+    served = phase_serve(kernels, [("moe base", "baseline", None),
+                                   ("moe taco", "taco", None)],
+                         arch=MOE_ARCH, make=moe_engine(serve_model, params))
+    print(f"  {smi}: moe serving peak memory "
+          f"{[round(r['engine_peak_mib'], 1) for r in served.values()]} MiB")
+    grads = phase_moe_grads(kernels, train_model, params, smi)
+    del params, serve_model, train_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = phase_moe_small(smi)
+    print(f"  phase 11 took {time.monotonic() - t0:.1f} s")
+    return {"served": served, "grads": grads, "small": small}
+
+
+def moe_engine(model, params):
+    """``make`` of :func:`phase_serve` for phase 11: the serve launcher's
+    engine (``launch.serve.make_engine``) around ``model`` and the weights
+    drawn once.  The launcher has no depth flag (nor has the JAX
+    package's), so the engine is built from its pieces."""
+    from repro_torch.core.parallel import ParallelCtx
+    from repro_torch.core.registry import from_spec
+    from repro_torch.launch import serve
+
+    def make(args, group):
+        ctx = ParallelCtx(plan=from_spec(serve.resolve_comm_spec(args)),
+                          group=group)
+        return serve.make_engine(args, model, ctx, params), model.cfg
+    return make
+
+
+def phase_moe_grads(counters, model, params, smi: str) -> dict:
+    """11b: ``train_step.build_train_step(...).grads`` (every hop of a step,
+    no update: AdamW's f32 state of 11.45 B weights does not fit one card)
+    on MOE_CALLS SyntheticLM batches of MOE_BATCH x MOE_SEQ, under
+    ``baseline`` and ``taco``: every call launches :func:`want_per_step`'s
+    block kernels (one dispatch group of 4096 tokens; per-layer
+    recompute, phase 3's plan), no plain route; losses and the balance
+    loss finite, taco's loss within 5e-2 of baseline's; one more call
+    profiled."""
+    from repro_torch.core.parallel import ParallelCtx
+    from repro_torch.core.registry import from_spec
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import build_train_step
+    cfg = model.cfg
+    data = SyntheticLM(DataConfig(cfg.vocab_size, MOE_SEQ, MOE_BATCH), cfg)
+    batches = [data.place(data.batch(i), model.device)
+               for i in range(MOE_CALLS)]
+    names = list(counters)
+    out = {}
+    for label in ("baseline", "taco"):
+        ctx = ParallelCtx(plan=from_spec(label))
+        step = build_train_step(model, ctx, adamw.OptConfig())
+        want = want_per_step(cfg, model.plan, ctx.plan)
+        auxes = []
+        inner = model.loss_parts
+
+        def loss_parts(p, b, c, inner=inner, auxes=auxes):
+            parts = inner(p, b, c)
+            auxes.append(parts[2].detach())
+            return parts
+        model.loss_parts = loss_parts
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        for k in ops.plain_routes:
+            ops.plain_routes[k] = 0
+        rows, losses, walls = [], [], []
+        for b in batches:
+            before = [counters[k].launches for k in names]
+            t0 = time.perf_counter()
+            loss = step.grads(params, b)[1]      # the grads go at once
+            losses.append(float(loss.detach()))
+            walls.append((time.perf_counter() - t0) * 1e3)
+            rows.append({k: counters[k].launches - n
+                         for k, n in zip(names, before)})
+        launches = {k: counters[k].launches for k in names}
+        no_plain_routes(f"moe grads {label}")
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        if any(row != want for row in rows):
+            raise AssertionError(f"moe grads {label}: launches a call "
+                                 f"{rows}, want {want}")
+        aux = [float(a) for a in auxes]
+        if not all(np.isfinite(v) for v in losses + aux):
+            raise AssertionError(f"moe grads {label}: losses {losses}, "
+                                 f"aux {aux}")
+
+        def one(step=step):
+            step.grads(params, batches[0])
+        torch.cuda.synchronize()
+        prof = device_profile(one, iters=1, sessions=1, warm=False)
+        model.loss_parts = inner
+        busy = sum(prof.values())
+        taco_ms = sum(v for k, v in prof.items() if "compress" in k)
+        top = [(k[:50], round(v, 3))
+               for k, v in sorted(prof.items(), key=lambda kv: -kv[1])[:6]]
+        print(f"  {smi}: moe grads {label}: losses {losses} (the "
+              f"cross-entropy), aux {aux} (summed over the layers), wall "
+              f"{[round(w, 3) for w in walls]} ms a call, launches a call "
+              f"{rows[0]}, peak memory {peak:.1f} MiB; one profiled call: "
+              f"device busy {busy:.3f} ms, TACO kernels {taco_ms:.3f} ms; "
+              f"top {top}")
+        out[label] = {"losses": losses, "aux": aux, "walls_ms": walls,
+                      "launches": launches, "per_call": rows[0],
+                      "peak_mib": peak, "device_ms": busy,
+                      "taco_kernels_ms": taco_ms}
+        del step, one
+        gc.collect()
+        torch.cuda.empty_cache()
+    for p in adamw.leaves(params):
+        p.requires_grad_(False)
+    for a, b in zip(out["baseline"]["losses"], out["taco"]["losses"]):
+        if abs(b - a) / abs(a) > 5e-2:
+            raise AssertionError(f"moe grads: taco loss {b} vs baseline {a}")
+    return out
+
+
+def phase_moe_small(smi: str) -> dict:
+    """11c: ``moe_apply`` on the card against the CPU at a small width
+    (MOE_SMALL: d 256, 8 experts, top-2, 512 tokens, geglu, one group):
+    every token routes alike (its experts, in order, and which choices
+    are kept) but those whose CPU logits lie within one bf16 ulp of a tie
+    (the gap between neighbours among its top k + 1, against 2^-8 of its
+    largest |logit|), which are counted; the rows that route alike agree
+    within 2e-2 relative, the balance loss within 1e-5."""
+    import types
+
+    from repro_torch.configs.base import MoeConfig
+    from repro_torch.core.parallel import ParallelCtx
+    from repro_torch.models import moe
+    d, e, k, t = (MOE_SMALL[n] for n in ("d", "experts", "top_k", "tokens"))
+    cfg = types.SimpleNamespace(moe=MoeConfig(e, k), mlp="geglu")
+    gen = np.random.default_rng(11)
+
+    def bf16(shape, scale):
+        return torch.from_numpy((gen.normal(size=shape) * scale)
+                                .astype(np.float32)).bfloat16()
+    x = bf16((1, t, d), 1.0)
+    p = {"router": bf16((d, e), 0.01), "w1": bf16((e, d, 4 * d), 0.02),
+         "w3": bf16((e, d, 4 * d), 0.02), "w2": bf16((e, 4 * d, d), 0.02)}
+    ctx = ParallelCtx()
+    cap = moe._capacity(t, e, k, cfg.moe.capacity_factor)
+
+    def run(dev):
+        xx = x.to(dev)
+        pp = {n: v.to(dev) for n, v in p.items()}
+        out, aux = moe.moe_apply(xx, pp, cfg, None, ctx)
+        _, _, top_e, _ = moe.route(xx[0], pp["router"], e, k)
+        _, _, keep, order = moe.dispatch(top_e, t, e, k, cap)
+        kept = torch.empty_like(keep)
+        kept[order] = keep
+        return (out[0].float().cpu(), float(aux), top_e.cpu(),
+                kept.reshape(t, k).cpu())
+    oc, ac, ec, kc = run("cpu")
+    og, ag, eg, kg = run("cuda")
+    logits = x[0].float() @ p["router"].float()
+    srt = logits.sort(-1, descending=True).values
+    gap = (srt[:, :k] - srt[:, 1:k + 1]).min(-1).values
+    near = gap < logits.abs().max(-1).values * 2.0 ** -8
+    alike = (ec == eg).all(-1) & (kc == kg).all(-1)
+    if bool((~alike & ~near).any()):
+        raise AssertionError(f"moe_apply card vs CPU: tokens "
+                             f"{torch.nonzero(~alike & ~near).flatten()} "
+                             "route apart, not within a bf16 ulp of a tie")
+    err = ((og - oc).norm(dim=-1) / oc.norm(dim=-1).clamp_min(1e-30))[alike]
+    if float(err.max()) > 2e-2 or abs(ag - ac) > 1e-5:
+        raise AssertionError(f"moe_apply card vs CPU: worst alike row "
+                             f"{float(err.max())}, aux {ag} vs {ac}")
+    r = {"tokens": t, "apart": int((~alike).sum()),
+         "near_ties": int(near.sum()), "worst_rel": float(err.max()),
+         "aux_apart": abs(ag - ac), "dropped": int((~kc).sum())}
+    print(f"  {smi}: 11c moe_apply card vs CPU (d {d}, {e} experts, top-{k},"
+          f" {t} tokens): {r}")
+    return r
+
+
 def check_losses(base: dict, other: dict, label: str) -> float:
     """``other``'s loss within 5e-2 relative of ``base``'s at every step;
     returns the worst relative difference."""
@@ -2208,28 +2459,31 @@ def count_decode_attempts(eng, counters, rows: list) -> None:
     pe._build = lambda plan: wrap(plan, build(plan))
 
 
-def phase_serve(kernels, runs) -> dict:
-    """Full-width qwen2-0.5b serving through the serve launcher's entry
-    points, one run per ``(label, spec, group)``: every decode attempt
-    (a tick, or a replayed tick) and every prefill forward of a
-    compressed run launches :func:`serve_want`'s wire kernels for the
-    plan it ran (per hop of the decode path, 24 layers x 2 + 1 = 49
-    AllReduce hops, and ring chunk: two compress, one decompress-reduce
-    and one decompress; prefill runs the declared plan), and no block
-    kernel."""
+def phase_serve(kernels, runs, arch: str = "qwen2-0.5b",
+                make=None) -> dict:
+    """Full-width serving of ``arch`` (default qwen2-0.5b) through the
+    serve launcher's entry points, one run per ``(label, spec, group)``,
+    the engine built by ``make(args, group) -> (engine, cfg)`` (default:
+    the launcher's ``build_engine``): every decode attempt (a tick, or a
+    replayed tick) and every prefill forward of a compressed run launches
+    :func:`serve_want`'s wire kernels for the plan it ran (per hop of the
+    decode path, layers x 2 + 1 AllReduce hops (49 on qwen2-0.5b), and
+    ring chunk: two compress, one decompress-reduce and one decompress;
+    prefill runs the declared plan), and no block kernel."""
     from repro_torch.core import collectives as cc
     from repro_torch.core.registry import from_spec
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     counters = [kernels["compress_wire"], kernels["decompress_reduce_wire"],
                 kernels["decompress_wire"]]
+    make = make or serve.build_engine
     out = {}
     for label, spec, group in runs:
         args = serve.parse_args([
-            "--arch", "qwen2-0.5b", "--no-smoke", "--comm-spec", spec,
+            "--arch", arch, "--no-smoke", "--comm-spec", spec,
             "--max-batch", "4", "--requests", "6", "--prompt-len", "16",
             "--gen", "16", "--qps", "16", "--seed", "0"])
-        eng, cfg = serve.build_engine(args, group=group)
+        eng, cfg = make(args, group)
         attempts = []
         count_decode_attempts(eng, counters, attempts)
         torch.cuda.synchronize()
@@ -2285,6 +2539,8 @@ def phase_serve(kernels, runs) -> dict:
               f"{prof['idle_share']:.3f}, taco kernels "
               f"{prof['taco_kernels_ms']:.4f} ms; top {prof['top']}")
         out[label] = dict(s, wall_s=wall, launches=launches, tick=prof,
+                          engine_peak_mib=torch.cuda.max_memory_allocated()
+                          / 2**20,
                           attempts=attempts, engine_metrics=eng.policy.metrics())
         eng.policy._fns = eng.policy._build = None  # break the self-cycle
         del eng
@@ -2479,7 +2735,15 @@ def main() -> None:
     sp_fold = phase_sp_fold(smi)
     sp_train = phase_sp_train(kernels, trained,
                               init_mesh((1, 1, 1, 1), "cuda", axes=SP_AXES))
+    # phase 11 needs no group; the groups' NCCL buffers go first
     dist.destroy_process_group()
+    print(f"phase 11 ({time.monotonic() - t_start:.0f} s): the MoE family, "
+          f"{MOE_ARCH} at full width cut to {MOE_LAYERS} of its 64 layers "
+          "(d 6144, 48 / 8 heads of 128, 8 experts of d_ff 32768, top-2, "
+          "vocab 131072), weights drawn once: 11a serving under baseline "
+          "and taco, 11b TrainStep.grads under baseline and taco, 11c "
+          "moe_apply card vs CPU")
+    moe = phase_moe(kernels, smi)
     meta = {
         "compress_blocks": ("src/repro_torch/kernels/csrc/ash_compress.cu",
                             "src/repro/kernels/ash_compress.py:76", "train"),
@@ -2516,7 +2780,10 @@ def main() -> None:
         "serve policy": dict(zip(wire_names, policy_serve["launches"])),
         "sp": sp_hops["launches"],
         "train sp ulysses": sp_train["ulysses"],
-        "train sp ring": sp_train["ring"]}
+        "train sp ring": sp_train["ring"],
+        "serve moe": dict(zip(wire_names,
+                              moe["served"]["moe taco"]["launches"])),
+        "train moe": moe["grads"]["taco"]["launches"]}
     launches = dict(by_path["serve taco"])
     launches.update({k: by_path["train taco"][k]
                      for k in ("compress_blocks", "decompress_blocks",
@@ -2539,6 +2806,8 @@ def main() -> None:
     print(f"train hop routes: {json.dumps(blocks['hops'])}")
     print(f"phase 9 ZLE hop: {json.dumps(zle_hop)}")
     print(f"phase 10 sp: {json.dumps({'hops': sp_hops, 'fold': sp_fold})}")
+    print(f"phase 11 moe: "
+          f"{json.dumps({k: moe[k] for k in ('grads', 'small')})}")
     print(f"chip_smoke: {time.monotonic() - t_start:.1f}s in all")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -300,6 +300,14 @@ class ParallelCtx:
         return cc.all_gather_c(w, self.fsdp_groups, dim,
                                self.plan.weight_ag, self.plan.grad_rs)
 
+    def ep_all_to_all(self, x, split_dim: int, concat_dim: int):
+        """The MoE expert-parallel dispatch (the paper's compressed
+        all-to-all): one all-to-all over the TP group through the
+        ``tp_fwd`` codec, its backward the inverse hop through
+        ``tp_bwd``."""
+        return cc.all_to_all_c(x, self.comm, split_dim, concat_dim,
+                               self.plan.tp_fwd, self.plan.tp_bwd)
+
     # ---- sequence parallelism over the seq group --------------------------
     @property
     def sp_active(self) -> bool:

@@ -123,12 +123,18 @@ def build_engine(args, group=None):
     if args.ckpt:
         params = restore_params(args.ckpt, model, params,
                                 verbose=ctx.tp_rank == 0)
+    return make_engine(args, model, ctx, params), cfg
+
+
+def make_engine(args, model, ctx, params):
+    """The launcher's ``ServeEngine`` for ``model`` and its ``params``:
+    the slot table, cache length and prefill buckets of ``args``."""
     max_len = max(args.max_len, args.prompt_len + args.gen + 1)
     buckets = tuple(sorted({min(8, args.prompt_len),
                             min(32, max(args.prompt_len, 1))}))
     return ServeEngine(model, ctx, params, max_batch=args.max_batch,
                        max_len=max_len, prefill_buckets=buckets,
-                       device=args.device), cfg
+                       device=args.device)
 
 
 def restore_params(ckpt_dir: str, model, params, verbose: bool = True):

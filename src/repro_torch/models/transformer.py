@@ -2,7 +2,9 @@
 specs, the LM-head table, and the training forward (decode lives in
 ``repro_torch/serve/serve_step.py``).  The port covers the dense family
 (rmsnorm or layernorm; swiglu, geglu or gelu; rope, learned or sinusoid
-positions; sliding-window attention); the other families raise.
+positions; sliding-window attention) and the MoE family
+(``models/moe.py``: the block's MLP is a top-k routed expert layer); the
+other families raise.
 
 The training forward runs Megatron-SP, as the JAX package: the residual
 stream is sequence-sharded over the TP group, each block enters through a
@@ -22,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.codecs import IdentityCodec
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 # embed_partial and mlp_apply are re-exported where the JAX package has them
 from repro_torch.models.layers import (  # noqa: F401
     COMPUTE_DTYPE, ParamBuilder, apply_norm, embed_partial, embed_specs,
@@ -29,15 +32,14 @@ from repro_torch.models.layers import (  # noqa: F401
     vocab_parallel_xent)
 
 #: the later slice that ports each non-dense family
-LATER_SLICE = {"moe": "the MoE slice (models/moe.py, ep_all_to_all)",
-               "rwkv": "the SSM/RWKV slice (models/rwkv.py)",
+LATER_SLICE = {"rwkv": "the SSM/RWKV slice (models/rwkv.py)",
                "hybrid": "the SSM/RWKV slice (models/ssm.py)",
                "encdec": "the encoder-decoder slice (cross-attention)"}
 
 
 def check_family(cfg) -> None:
     """Raise for what this port does not cover yet."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is ported in "
             f"{LATER_SLICE.get(cfg.family, 'a later slice')}")
@@ -69,7 +71,10 @@ def block_specs(cfg, plan) -> dict:
     norm_specs(pb, "norm1", d, cfg.norm)
     norm_specs(pb, "norm2", d, cfg.norm)
     attn_mod.attn_specs(pb, "attn", cfg, plan)
-    mlp_specs(pb, "mlp", d, cfg.d_ff, cfg.mlp)
+    if cfg.family == "moe":
+        moe_mod.moe_specs(pb, "moe", cfg, plan)
+    else:
+        mlp_specs(pb, "mlp", d, cfg.d_ff, cfg.mlp)
     return pb.specs
 
 
@@ -125,8 +130,9 @@ def seq_slice(x_full, ctx, tp: int):
 
 def block_apply(x_shard, lp, cfg, plan, ctx, *, attn_kind: str, positions,
                 causal=True):
-    """One dense transformer block on the seq-sharded residual stream:
-    four TACO sites (two entries, two exits)."""
+    """One transformer block on the seq-sharded residual stream: four TACO
+    sites (two entries, two exits).  Returns ``(x_shard, aux)``: aux is
+    the MoE layer's balance loss (f32), None for a dense MLP."""
     window = cfg.window if attn_kind == "swa" else None
     h = apply_norm(x_shard, lp["norm1"], cfg.norm, cfg.norm_eps)
     h_full = tp_enter(h, ctx)
@@ -136,15 +142,22 @@ def block_apply(x_shard, lp, cfg, plan, ctx, *, attn_kind: str, positions,
     x_shard = x_shard + tp_exit(partial, ctx)
     h = apply_norm(x_shard, lp["norm2"], cfg.norm, cfg.norm_eps)
     h_full = tp_enter(h, ctx)
-    out = tp_exit(mlp_apply(h_full, lp["mlp"], cfg.mlp, ctx), ctx)
+    aux = None
+    if cfg.family == "moe":
+        partial, aux = moe_mod.moe_apply(h_full, lp["moe"], cfg, plan, ctx)
+    else:
+        partial = mlp_apply(h_full, lp["mlp"], cfg.mlp, ctx)
+    out = tp_exit(partial, ctx)
     if cfg.mlp == "gelu":
         out = out + lp["mlp"]["b2"].to(out.dtype)
-    return x_shard + out
+    return x_shard + out, aux
 
 
 def run_segments(x_shard, seg_params, segments, cfg, plan, ctx, *,
                  positions, causal=True):
-    """Run each segment's stacked layers in order on the residual stream.
+    """Run each segment's stacked layers in order on the residual stream;
+    returns ``(x_shard, aux_sum)``, the layers' MoE balance losses summed
+    (f32; 0 for the dense family).
 
     Per-layer CommPlan overrides (``skip_first`` / ``skip_last``) are
     resolved into spans of layers sharing one plan.  With ``plan.remat``
@@ -160,6 +173,7 @@ def run_segments(x_shard, seg_params, segments, cfg, plan, ctx, *,
             f"remat_policy={plan.remat_policy!r} is not ported; the port "
             "recomputes whole layers (remat_policy='full') or none")
     n_total = max(s.start + s.count for s in segments)
+    aux_total = torch.zeros((), device=x_shard.device)
     for seg, sp_ in zip(segments, seg_params):
         for span_n, span_ctx, sp_span in iter_layer_spans(
                 ctx, seg.start, seg.count, n_total, sp_):
@@ -171,11 +185,13 @@ def run_segments(x_shard, seg_params, segments, cfg, plan, ctx, *,
             for i in range(span_n):
                 lp = tree_map(lambda a, i=i: a[i], sp_span)
                 if remat:
-                    x_shard = checkpoint(blk, x_shard, lp,
-                                         use_reentrant=False)
+                    x_shard, a = checkpoint(blk, x_shard, lp,
+                                            use_reentrant=False)
                 else:
-                    x_shard = blk(x_shard, lp)
-    return x_shard
+                    x_shard, a = blk(x_shard, lp)
+                if a is not None:
+                    aux_total = aux_total + a
+    return x_shard, aux_total
 
 
 # --------------------------------------------------------------------------
@@ -204,8 +220,8 @@ def forward_train(params, batch, cfg, plan, ctx):
     """batch: tokens (B, S), labels (B, S), mask (B, S) — under an active
     seq group this rank's shard of the sequence, at positions offset by
     ``sp_index() * S``.  Returns ``(loss_sum, token_count, aux)`` as f32
-    scalars, local to this rank (aux, the MoE balance loss, is 0 for the
-    dense family)."""
+    scalars, local to this rank (aux, the layers' summed MoE balance loss,
+    is 0 for the dense family)."""
     check_family(cfg)
     tokens, labels, mask = batch["tokens"], batch["labels"], batch["mask"]
     # embedding (vocab-parallel; TACO reduce-scatter site)
@@ -214,13 +230,13 @@ def forward_train(params, batch, cfg, plan, ctx):
     x = tp_exit(partial, ctx)
     x = add_positional(x, params, cfg, ctx, seq)
     positions = ctx.sp_index() * seq + torch.arange(seq, device=x.device)
-    x = run_segments(x, params["segments"], layer_segments(cfg), cfg, plan,
-                     ctx, positions=positions, causal=True)
+    x, aux = run_segments(x, params["segments"], layer_segments(cfg), cfg,
+                          plan, ctx, positions=positions, causal=True)
     x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     x_full = tp_enter(x, ctx)                          # TACO gather site
     loss_sum, count = vocab_parallel_xent(x_full, head_table(params, cfg),
                                           labels, mask, ctx, plan)
-    return loss_sum, count, torch.zeros((), device=loss_sum.device)
+    return loss_sum, count, aux
 
 
 def tp_hops_per_step(cfg, plan, comm_plan, sp: int = 1,

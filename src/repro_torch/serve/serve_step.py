@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.core.parallel import iter_layer_spans
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (COMPUTE_DTYPE, apply_norm,
                                        distributed_argmax, lm_head_logits,
                                        tree_map)
@@ -69,7 +70,12 @@ def _decode_block(x, lp, cache_l, cfg, plan, ctx, *, kind, pos):
                                         cache_l, pos)
     x = x + ctx.tp_g(partial)
     h = ctx.tp_f(apply_norm(x, lp["norm2"], cfg.norm, cfg.norm_eps))
-    out = ctx.tp_g(mlp_apply(h, lp["mlp"], cfg.mlp, ctx))
+    if cfg.family == "moe":
+        # the balance loss is a training term: decode drops it
+        partial, _ = moe_mod.moe_apply(h, lp["moe"], cfg, plan, ctx)
+    else:
+        partial = mlp_apply(h, lp["mlp"], cfg.mlp, ctx)
+    out = ctx.tp_g(partial)
     if cfg.mlp == "gelu":
         out = out + lp["mlp"]["b2"].to(out.dtype)
     return x + out

@@ -62,14 +62,17 @@ class PipeConfig:
 def _stage_forward(x_shard, seg_params_local, model, ctx, positions):
     """Run this stage's local layer slice (stacked dim = L/P) on the
     residual stream, each layer under ``torch.utils.checkpoint`` when the
-    plan recomputes (``transformer.run_segments``)."""
+    plan recomputes (``transformer.run_segments``).  The MoE balance loss
+    is dropped, as the JAX package's ``_stage_forward`` drops it: the
+    pipeline step trains on the cross-entropy alone."""
     cfg = model.cfg
     seg = transformer.layer_segments(cfg)[0]
     count = cfg.n_layers // model.pipe
     local = transformer.Segment(seg.kind, 0, count)
-    return transformer.run_segments(x_shard, seg_params_local, [local], cfg,
-                                    model.plan, ctx, positions=positions,
-                                    causal=True)
+    x_shard, _ = transformer.run_segments(
+        x_shard, seg_params_local, [local], cfg, model.plan, ctx,
+        positions=positions, causal=True)
+    return x_shard
 
 
 def build_pipeline_train_step(model, ctx, oc: adamw.OptConfig,

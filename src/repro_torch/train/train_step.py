@@ -23,9 +23,11 @@ starts from untouched state.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.core.collectives import psum_exact
+from repro_torch.core.collectives import group_size, psum_exact
 from repro_torch.models.layers import tree_map
 from repro_torch.optim import adamw
 
@@ -107,11 +109,17 @@ def build_train_step(model, ctx, oc: adamw.OptConfig) -> TrainStep:
     def grads(params, batch):
         for p in adamw.leaves(params):
             p.requires_grad_(True)
-        loss_sum, count, _ = model.loss_parts(params, batch, ctx)
+        loss_sum, count, aux = model.loss_parts(params, batch, ctx)
         dp = tuple(ctx.axis_group(a) for a in dp_axes(model))
         loss_sum = psum_exact(loss_sum, dp)
         count = psum_exact(count.detach(), dp)
         loss = loss_sum / torch.clamp_min(count, 1.0)
-        return backward_grads(params, loss, model, ctx), loss
+        objective = loss
+        if model.cfg.moe is not None:
+            # the MoE balance loss joins what is differentiated; the
+            # reported loss stays the cross-entropy (the JAX package's)
+            n_dp = math.prod(group_size(g) for g in dp)
+            objective = loss + 0.01 * psum_exact(aux, dp) / n_dp
+        return backward_grads(params, objective, model, ctx), loss
 
     return TrainStep(grads, update_step(model, ctx, oc))

@@ -44,10 +44,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      and 49 decompress wire kernels and no block kernel, and none under
      ``baseline``; one decode tick is profiled;
   3. training: drives the train launcher (``repro_torch.launch.train``) on
-     full-width qwen2-0.5b, batch 4 x seq 2048, seed 0, lr 3e-4, under
-     ``baseline`` and ``taco``, 2 warm + 6 timed steps each; every taco
+     full-width qwen2-0.5b, cut to ``QWEN_LAYERS`` (12) of its 24 layers
+     (the script's time; every later qwen2-0.5b training run shares that
+     depth), batch 4 x seq 2048, seed 0, lr 3e-4, under
+     ``baseline`` and ``taco``, 2 warm + 4 timed steps each; every taco
      step must launch exactly the block-kernel counts derived from the
-     code (``want_per_step``: 268 K1, 146 K3, 122 K4) and no wire kernel,
+     code (``want_per_step``: 136 K1, 74 K3, 62 K4) and no wire kernel,
      ``baseline`` none; every loss finite, taco's within 5e-2 relative of
      baseline's at every step; one more step each is profiled (wall,
      device busy, idle share, TACO kernel time);
@@ -59,9 +61,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      ``tp=taco:folded:chunks=4`` (pipelined and serial) must equal the
      monolithic ``tp=taco:folded`` bit for bit; then full-width training
      (as phase 3) and serving (as phase 2) run under that spec with the
-     group passed: four times the block-kernel launches per step (one per
-     ring chunk), four times the wire-kernel launches per tick, losses
-     within 5e-2 of phase 3's baseline;
+     group passed, both at ``QWEN_LAYERS``: four times the block-kernel
+     launches per step (one per ring chunk), four times the wire-kernel
+     launches per tick, losses within 5e-2 of phase 3's baseline;
   6. data parallelism: 1-rank NCCL groups for pod, data and model
      (``launch.mesh.init_mesh``), so that every hop of both fsdp stages
      goes through ``torch.distributed``.  At smoke size under
@@ -83,15 +85,15 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      (loss 1e-3, grad norm 5e-2) and makes no ``torch.distributed`` call
      for its boundary hops (no peer at pipe = 1), and the card equals the
      CPU under ``taco3d`` and ``weight_ag=int8``; then full-width
-     gpt-2.7b (d 2560, vocab 51200) cut to 8 of its 32 layers, batch 4
-     x seq 2048 in 4 microbatches, 2 warm + 6 timed steps, under
+     gpt-2.7b (d 2560, vocab 51200) cut to 4 of its 32 layers, batch 4
+     x seq 2048 in 4 microbatches, 2 warm + 4 timed steps, under
      ``baseline`` and ``taco3d``: launches 4 x phase 3's per-microbatch
-     counts (at 8 layers 368 K1, 200 K3, 168 K4), losses within 5e-2 of
+     counts (at 4 layers 192 K1, 104 K3, 88 K4), losses within 5e-2 of
      baseline's, and one step's
      boundary hops (TahQuant) and weight gathers (``Int8Codec``) replayed
      at full width, card against CPU (codes apart from ties, scales bit
      for bit) and profiled;
-  8. checkpoint and restart: full-width qwen2-0.5b through the train
+  8. checkpoint and restart: qwen2-0.5b as phase 3 through the train
      launcher (``--ckpt``) on phase 6's groups under
      ``tp=taco,grad_rs=sdp4bit``, 6 steps with a checkpoint every 3 in a
      temporary directory (the global state gathered through NCCL, one
@@ -164,9 +166,35 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      top-2, 512 tokens): routing equal but for tokens within a bf16 ulp of
      a tie (counted), rows that route alike within 2e-2, the balance loss
      within 1e-5.  Phase 1 times K2/K5/K6 at the grok decode hop (4 x
-     6144) and phase 1b K1/K3/K4 at its training hop (2 x 2048 x 6144).
+     6144) and phase 1b K1/K3/K4 at its training hop (2 x 2048 x 6144);
+ 12. the recurrent families at full width: hymba-1.5b (hybrid: 32 layers
+     in five segments, full [0], swa [1-14], full [15], swa [16-30], full
+     [31]; d 1600, 25 / 5 heads of 64, window 1024, SSM d_state 16) and
+     rwkv6-1.6b (24 layers, d 2048, 32 heads of 64, d_ff 7168), the f32
+     matmul switches printed and held off (the recurrences are f32
+     einsums).  For each, 12a: serving as phase 2 at full depth (the serve
+     launcher, baseline and taco): every taco decode attempt and prefill
+     call launches 2 x (2L + 1) K2, 2L + 1 K6 and 2L + 1 K5 (130 / 65 / 65
+     hymba, 98 / 49 / 49 rwkv), no block kernel, no plain route; rwkv also
+     through a forced overflow under ``ZLE_SPEC`` (one replayed
+     tick, from the state the failed run read), its greedy tokens those
+     of the static stack's engine.  12b: training through the train
+     launcher (batch 4 x seq 2048, per-layer recompute, SyntheticLM seed
+     1234, ``REC_WARM`` warm + ``SP_TRAIN_STEPS`` timed steps, layers as
+     ``REC_TRAIN_LAYERS``) under baseline and taco: every attempt launches
+     ``want_per_step``'s K1 / K3 / K4 (356 / 194 / 162 hymba; rwkv 268 /
+     146 / 122 at 24 layers, 92 / 50 / 42 at 8), no plain route, taco's
+     losses within 5e-2 of baseline's, peak memory and one profiled step
+     (busy, idle share, top ops).  12c:
+     smoke size, card against CPU: a taco step's loss and grad norm
+     within 1e-3 and 5e-2 (both routes), taco decode logits within 5e-2,
+     and the f32 recurrent state after a 16-token prefill within 1e-3.
+     12d: the device time of one layer's SSM scan and RWKV chunk
+     recurrence at full width, forward and forward + backward.
+     Phase 1 times K2/K5/K6 at the decode hops (4 x 1600, 4 x 2048), phase
+     1b K1/K3/K4 at the training hops (4 x 2048 x 1600, 4 x 2048 x 2048).
 
-Every training and serving run of phases 2, 3, 5, 6, 7, 8, 9, 10 and 11 must
+Every training and serving run of phases 2, 3, 5, 6, 7, 8, 9, 10, 11 and 12 must
 take only kernels: ``ops.plain_routes`` stays 0.  Nothing is caught: any
 failure exits non-zero.  The line before the last is the kernel table as
 JSON; the last is
@@ -175,6 +203,7 @@ JSON; the last is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -198,7 +227,12 @@ ODD_N = 1792               # folded, mb G = 7 odd: total = 4 mod 8
 BLOCK_SIZES = (32, 64, 128, 256, 512)     # the kernels' (ash_compress)
 F1_SPECS = ("taco:hadamard", "taco:notransform", "taco:tensorscale",
             "taco:b128", "taco:cdbfloat16")
-TRAIN_WARM, TRAIN_STEPS = 2, 8            # 2 warm steps, then 6 timed
+TRAIN_WARM, TRAIN_STEPS = 2, 6            # 2 warm steps, then 4 timed
+#: the depth of every qwen2-0.5b training run (phases 3, 5, 6, 8, 9 and
+#: 10, at full width) and of phase 5's ring serving: half of its 24 layers,
+#: so that the script with phase 12 stays inside its limit;
+#: the runs compared with phase 3's share its depth
+QWEN_LAYERS = 12
 #: the __global__ function each kernel wrapper launches
 KERNEL_FN = {"compress_wire": "compress_wire_kernel",
              "decompress_wire": "decompress_wire_kernel",
@@ -211,10 +245,10 @@ RING_SPEC = "tp=taco:folded:chunks=4"     # the paper's spec: the chunked ring
 DP_SPEC = "tp=taco,grad_rs=sdp4bit"       # TACO on TP, SDP4bit on the data axes
 PIPE_SPEC = "taco3d"                      # + TahQuant at the stage boundaries
 PIPE_ARCH, PIPE_MICRO = "gpt-2.7b", 4     # phase 7: full width, 4 microbatches
-#: phase 7's depth: a quarter of gpt-2.7b's 32 layers, so that the whole
+#: phase 7's depth: an eighth of gpt-2.7b's 32 layers, so that the whole
 #: script stays well inside its 1200 s limit (phase 7 carries its own
 #: baseline, so its depth is the one to cut)
-PIPE_LAYERS = 8
+PIPE_LAYERS = 4
 #: one TP hop of phase 7's step: a microbatch (batch / M rows) x d 2560
 PIPE_N = TRAIN_BATCH // PIPE_MICRO * TRAIN_SEQ * 2560
 TRAIN_SIZE = "--no-smoke"                 # full width and depth
@@ -248,6 +282,19 @@ MOE_SERVE_N = 4 * 6144
 MOE_TRAIN_N = MOE_BATCH * MOE_SEQ * 6144
 #: 11c: moe_apply card vs CPU at a small width
 MOE_SMALL = dict(d=256, experts=8, top_k=2, tokens=512)
+#: phase 12: the recurrent families at full width, hymba-1.5b (hybrid: 32
+#: layers in five full / SWA segments) and rwkv6-1.6b (24 layers); their
+#: decode hops (max-batch 4 x d) and training hops (batch x seq x d)
+REC_ARCHS = ("hymba-1.5b", "rwkv6-1.6b")
+HYMBA_SERVE_N, RWKV_SERVE_N = 4 * 1600, 4 * 2048
+HYMBA_TRAIN_N = TRAIN_BATCH * TRAIN_SEQ * 1600
+RWKV_TRAIN_N = TRAIN_BATCH * TRAIN_SEQ * 2048
+#: 12b: the layers each family trains (None: its full depth).  rwkv is one
+#: segment, so its depth is the first to cut for the script's time; hymba
+#: runs all 32 layers, its five segments being what the slice brings
+REC_TRAIN_LAYERS = {"hymba-1.5b": None, "rwkv6-1.6b": 8}
+#: 12b: one warm step, then SP_TRAIN_STEPS timed ones
+REC_WARM, REC_STEPS = 1, 1 + SP_TRAIN_STEPS
 
 
 def fail(msg: str) -> None:
@@ -482,6 +529,11 @@ def phase_kernels() -> dict:
     # phase 11's decode hop: grok-1-314b at max-batch 4 (d 6144)
     case("taco", MOE_SERVE_N, torch.bfloat16, 1, timed=True,
          label="grok decode")
+    # phase 12's decode hops: hymba-1.5b and rwkv6-1.6b at max-batch 4
+    case("taco", HYMBA_SERVE_N, torch.bfloat16, 1, timed=True,
+         label="hymba decode")
+    case("taco", RWKV_SERVE_N, torch.bfloat16, 1, timed=True,
+         label="rwkv decode")
     case("taco:seps1e-20", 1024, torch.float32, 1)
     z = torch.zeros((1, 1024), device=dev)       # all-zero blocks: s floor
     cfg = codec_from_spec("taco").cfg
@@ -732,6 +784,11 @@ def phase_blocks() -> dict:
     # a TP hop of phase 11's grok-1-314b gradient step
     case("taco", MOE_TRAIN_N, torch.bfloat16, 1, timed=True,
          label="grok train")
+    # the TP hops of phase 12's training steps
+    case("taco", HYMBA_TRAIN_N, torch.bfloat16, 1, timed=True,
+         label="hymba train")
+    case("taco", RWKV_TRAIN_N, torch.bfloat16, 1, timed=True,
+         label="rwkv train")
     # phase 10c: the stacks a rank of sp = 2 decodes (two peers' slots of
     # each sp hop of SP_HOPS)
     for label, shape, dims in SP_HOPS:
@@ -998,10 +1055,27 @@ def nccl_calls():
             setattr(dist, n, fn)
 
 
-def launcher_trainer(spec, groups):
-    """Full-width qwen2-0.5b through the train launcher's entry points
-    (``groups``: a TP process group, a ``launch.mesh.Mesh`` or None):
-    (trainer, launches a step as derived)."""
+@contextlib.contextmanager
+def depth(launcher, layers):
+    """Within the block, the launcher module's config lookup
+    (``launcher.get_config``) gives the arch cut to ``layers`` layers
+    (None: its full depth); the launchers have no depth flag, as the JAX
+    package's have none."""
+    full = launcher.get_config
+    if layers is not None:
+        launcher.get_config = lambda name: dataclasses.replace(
+            full(name), n_layers=layers)
+    try:
+        yield
+    finally:
+        launcher.get_config = full
+
+
+def launcher_trainer(spec, groups, layers=QWEN_LAYERS):
+    """Full-width qwen2-0.5b cut to ``layers`` layers through the train
+    launcher's entry points (``groups``: a TP process group, a
+    ``launch.mesh.Mesh`` or None): (trainer, launches a step as
+    derived)."""
     from repro_torch.launch import train
     from repro_torch.launch.mesh import Mesh
     args = train.parse_args([
@@ -1010,20 +1084,32 @@ def launcher_trainer(spec, groups):
         str(TRAIN_BATCH), "--lr", "3e-4", "--seed", "0"])
     mesh = groups if isinstance(groups, Mesh) else None
     group = None if mesh is not None else groups
-    trainer, cfg = train.build_trainer(args, group=group, mesh=mesh)
+    with depth(train, layers):
+        trainer, cfg = train.build_trainer(args, group=group, mesh=mesh)
     return trainer, lambda plan: want_per_step(cfg, trainer.model.plan, plan)
 
 
+def ring_engine(args, group):
+    """``make`` of :func:`phase_serve` for phase 5: the serve launcher's
+    engine on qwen2-0.5b cut to QWEN_LAYERS layers."""
+    from repro_torch.launch import serve
+    with depth(serve, QWEN_LAYERS):
+        return serve.build_engine(args, group)
+
+
 def phase_train(counters, runs, make=launcher_trainer,
-                sessions: int = 3, replay=None) -> dict:
+                sessions: int = 1, replay=None, steps: int = TRAIN_STEPS,
+                warm: int = TRAIN_WARM) -> dict:
     """Training runs, one per ``(label, spec, groups)``, each built by
     ``make(spec, groups) -> (trainer, launches a step)`` (default: the
-    train launcher on full-width qwen2-0.5b; the launches a dict, or a
+    train launcher on qwen2-0.5b as phase 3; the launches a dict, or a
     function of the plan variant an attempt ran): per-attempt launches,
     losses, wall and peak memory, and one step profiled ``sessions``
     times; under a compressed ``grad_rs`` codec also the codec's device
     time a step (:func:`grad_codec_profile`), and ``replay(ctx,
-    one_step)`` when given (its dict under ``"replay"``)."""
+    one_step)`` when given (its dict under ``"replay"``).  ``make``'s
+    trainer runs ``steps`` steps, of which the first ``warm`` are not
+    timed."""
     from repro_torch.core.codecs import IdentityCodec
     from repro_torch.kernels import ops
     names = list(counters)
@@ -1048,7 +1134,7 @@ def phase_train(counters, runs, make=launcher_trainer,
         want_row = [want_of(trainer.ctx.plan)[k] for k in names]
         per_step = [row for _, row in attempts]
         wants = [[want_of(plan)[k] for k in names] for plan, _ in attempts]
-        if per_step != wants or len(attempts) < TRAIN_STEPS:
+        if per_step != wants or len(attempts) < steps:
             raise AssertionError(f"{label}: per-attempt launches "
                                  f"{per_step}, want {wants} ({names})")
         if [launches[k] for k in names] != \
@@ -1060,7 +1146,7 @@ def phase_train(counters, runs, make=launcher_trainer,
             print(f"  {label:8s} step {h['step']} loss {h['loss']:.6f} "
                   f"grad_norm {h['grad_norm']:.6f} lr {h['lr']:.3e} "
                   f"wall {h['ms']:.3f} ms tok/s {h['tok_per_s']:.1f}")
-        timed = hist[TRAIN_WARM:]
+        timed = hist[warm:]
         mean_ms = sum(h["ms"] for h in timed) / len(timed)
         print(f"  {label:8s} ({spec}, groups "
               f"{'none' if groups is None else type(groups).__name__}, "
@@ -1069,15 +1155,15 @@ def phase_train(counters, runs, make=launcher_trainer,
               f" ms/step, {TRAIN_BATCH * TRAIN_SEQ / mean_ms * 1e3:.1f} tok/s"
               f", peak memory {peak:.1f} MiB, launches/step "
               f"{dict(zip(names, want_row))}, torch.distributed calls per "
-              f"step {({k: v / TRAIN_STEPS for k, v in calls.items() if v})}")
+              f"step {({k: v / steps for k, v in calls.items() if v})}")
         # one more step, timed alone and then profiled
-        batch = trainer.data.place(trainer.data.batch(TRAIN_STEPS),
+        batch = trainer.data.place(trainer.data.batch(steps),
                                    trainer.model.device)
-        fn = inner(TRAIN_STEPS)
+        fn = inner(steps)
 
         def one():
             fn(params, opt, batch)
-        one()
+        # the run's steps warmed this step function
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         one()
@@ -1563,7 +1649,8 @@ def restart_trainer(mesh, ckpt_dir: str, injector=None):
         "--arch", "qwen2-0.5b", TRAIN_SIZE, "--comm-spec", DP_SPEC,
         "--steps", str(RESTART_STEPS), "--seq", str(TRAIN_SEQ), "--batch",
         str(TRAIN_BATCH), "--lr", "3e-4", "--seed", "0", "--ckpt", ckpt_dir])
-    trainer, cfg = train.build_trainer(args, mesh=mesh)
+    with depth(train, QWEN_LAYERS):
+        trainer, cfg = train.build_trainer(args, mesh=mesh)
     trainer.tc.ckpt_every, trainer.tc.keep_last = RESTART_EVERY, 1
     trainer.injector = injector
     return trainer, want_per_step(cfg, trainer.model.plan, trainer.ctx.plan)
@@ -1720,7 +1807,8 @@ def phase_restart(counters, mesh, smi: str) -> dict:
             "--max-batch", str(RESTART_REQUESTS), "--requests",
             str(RESTART_REQUESTS), "--prompt-len", "16", "--gen",
             str(RESTART_GEN), "--seed", "0", "--ckpt", f"{root}/run"])
-        eng, cfg = serve.build_engine(args)
+        with depth(serve, QWEN_LAYERS):
+            eng, cfg = serve.build_engine(args)
         mem = ServeEngine(eng.model, eng.ctx, params,
                           max_batch=eng.max_batch, max_len=eng.max_len,
                           prefill_buckets=eng.buckets)
@@ -1871,31 +1959,38 @@ def print_policy_run(label: str, r: dict) -> None:
 def phase_policy_serve(kernels, smi: str) -> dict:
     """Serving under ``POLICY_SERVE_SPEC`` through the serve launcher (as
     phase 2; every decode attempt's launches match its resolved plan),
-    then two engines on the same params and prompts: one under
-    ``tp=taco+zle:slot=auto`` with a shared controller seeded from a
-    mostly-zero sample (its first negotiated tick is too narrow for the
-    dense decode hop: one overflow, one replay), one under the static
-    ``tp=taco+zle``, each serving ``RESTART_REQUESTS`` requests of
-    ``RESTART_GEN`` tokens on a table of 4 slots.  Their greedy tokens
-    must be equal."""
-    from repro_torch.core import collectives as cc
-    from repro_torch.core.parallel import ParallelCtx
-    from repro_torch.core.registry import from_spec, to_spec
-    from repro_torch.launch import serve
-    from repro_torch.serve.engine import ServeEngine
+    then :func:`forced_replay` on qwen2-0.5b."""
     run = phase_serve(kernels, [("policy", POLICY_SERVE_SPEC, None)])
     r = run["policy"]
     states = [("esc" if plan.tp_identity else "taco", row)
               for plan, row in r["attempts"]]
     print(f"    policy ticks (plan, [compress, reduce, decompress]): "
           f"{states}; {r['engine_metrics']}")
+    forced_replay("qwen2-0.5b", smi, seed=10)
+    return r
+
+
+def forced_replay(arch: str, smi: str, seed: int) -> dict:
+    """Two engines on the same full-width ``arch`` and prompts: one under
+    ``ZLE_SPEC`` with a shared controller seeded from a mostly-zero
+    sample (its first negotiated tick is too narrow for the dense decode
+    hop: one overflow, one replay at the static bound, from the cache the
+    failed run read), one under the static stack, each serving
+    ``RESTART_REQUESTS`` requests of ``RESTART_GEN`` tokens on a table of
+    4 slots.  Their greedy tokens must be equal."""
+    from repro_torch.core import collectives as cc
+    from repro_torch.core.parallel import ParallelCtx
+    from repro_torch.core.registry import from_spec, to_spec
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ServeEngine
     args = serve.parse_args([
-        "--arch", "qwen2-0.5b", "--no-smoke", "--comm-spec", "tp=taco+zle",
-        "--max-batch", "4", "--requests", str(RESTART_REQUESTS),
-        "--prompt-len", "16", "--gen", str(RESTART_GEN), "--seed", "0"])
+        "--arch", arch, "--no-smoke", "--comm-spec",
+        ZLE_SPEC.replace(":slot=auto", ""), "--max-batch", "4",
+        "--requests", str(RESTART_REQUESTS), "--prompt-len", "16", "--gen",
+        str(RESTART_GEN), "--seed", "0"])
     static, cfg = serve.build_engine(args)
     shared = cc.SlotController()
-    auto_plan = from_spec("tp=taco+zle:slot=auto")
+    auto_plan = from_spec(ZLE_SPEC)
     sample = torch.zeros((1, static.max_batch * cfg.d_model),
                          device=DEVICE, dtype=torch.bfloat16)
     sample[0, :256] = 0.02
@@ -1907,20 +2002,22 @@ def phase_policy_serve(kernels, smi: str) -> dict:
                        static.params, max_batch=static.max_batch,
                        max_len=static.max_len, prefill_buckets=static.buckets,
                        device=static.device.type, slot_controller=shared)
-    gen = np.random.default_rng(10)
+    gen = np.random.default_rng(seed)
     prompts = [gen.integers(0, cfg.vocab_size, 16).astype(np.int32)
                for _ in range(RESTART_REQUESTS)]
     t_auto, t_static = _greedy(auto, prompts), _greedy(static, prompts)
     if shared.resyncs != 1 or t_auto != t_static:
-        raise AssertionError(f"replayed engine: {shared.resyncs} resyncs, "
-                             f"tokens {t_auto} vs {t_static}")
-    print(f"  {smi}: seeded frac {frac}: {shared.overflows} overflow, "
-          f"{shared.resyncs} replayed tick; greedy tokens == the static "
-          f"{to_spec(static.ctx.plan)} engine's: {t_auto}")
+        raise AssertionError(f"{arch} replayed engine: {shared.resyncs} "
+                             f"resyncs, tokens {t_auto} vs {t_static}")
+    print(f"  {smi}: {arch} under {ZLE_SPEC}: seeded frac {frac}: "
+          f"{shared.overflows} overflow, {shared.resyncs} replayed tick; "
+          f"greedy tokens == the static {to_spec(static.ctx.plan)} "
+          f"engine's: {t_auto}")
     auto = static = None
     gc.collect()
     torch.cuda.empty_cache()
-    return r
+    return {"overflows": shared.overflows, "resyncs": shared.resyncs,
+            "frac": list(frac), "tokens": t_auto}
 
 
 # --------------------------------------------------------------------------
@@ -2111,7 +2208,8 @@ def phase_sp_train(counters, trained, mesh) -> dict:
             f"tp=taco,{SP_SPEC}", "--steps", str(SP_TRAIN_STEPS), "--seq",
             str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--lr", "3e-4",
             "--seed", "0", "--sp-mode", mode])
-        trainer, cfg = train.build_trainer(args, mesh=mesh)
+        with depth(train, QWEN_LAYERS):
+            trainer, cfg = train.build_trainer(args, mesh=mesh)
         if not trainer.ctx.sp_active or trainer.ctx.sp_size() != 1:
             raise AssertionError(f"sp {mode}: no 1-rank seq group")
         want = want_per_step(cfg, trainer.model.plan, trainer.ctx.plan,
@@ -2364,6 +2462,197 @@ def phase_moe_small(smi: str) -> dict:
     return r
 
 
+# --------------------------------------------------------------------------
+# phase 12: the recurrent families (hymba-1.5b and rwkv6-1.6b at full width)
+# --------------------------------------------------------------------------
+
+def tf32_switches() -> dict:
+    """The switches that would let f32 matmuls (the recurrences' einsums)
+    run in TF32 on the card; every one must be off."""
+    sw = {"matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    print(f"  f32 matmul switches: {sw}")
+    if sw["matmul.allow_tf32"] or sw["float32_matmul_precision"] != "highest":
+        raise AssertionError(f"f32 matmuls may run in TF32: {sw}")
+    return sw
+
+
+def rec_trainer(arch: str, layers):
+    """``make`` of :func:`phase_train` for 12b: ``arch`` at full width
+    through the train launcher's entry points (batch TRAIN_BATCH x seq
+    TRAIN_SEQ, REC_STEPS steps, per-layer recompute, SyntheticLM tokens
+    from its seed 1234), cut to ``layers`` layers when given
+    (:func:`depth`)."""
+    from repro_torch.launch import train
+
+    def make(spec, groups):
+        args = train.parse_args([
+            "--arch", arch, TRAIN_SIZE, "--comm-spec", spec, "--steps",
+            str(REC_STEPS), "--seq", str(TRAIN_SEQ), "--batch",
+            str(TRAIN_BATCH), "--lr", "3e-4", "--seed", "0"])
+        with depth(train, layers):
+            trainer, cfg = train.build_trainer(args, group=groups)
+        if trainer.data.dc.seed != 1234:
+            raise AssertionError(f"{arch}: data seed {trainer.data.dc.seed}")
+        return trainer, lambda plan: want_per_step(cfg, trainer.model.plan,
+                                                   plan)
+    return make
+
+
+def rec_state_error(arch: str) -> dict:
+    """12c, the state: smoke ``arch`` in f32 under ``baseline``, a
+    16-token prefill (batch 2, token by token through ``decode_forward``)
+    on the card and on the CPU from the same weights: each recurrent
+    state leaf's relative error (Frobenius)."""
+    import repro_torch.models.attention as ta
+    import repro_torch.models.layers as tl
+    import repro_torch.models.rwkv as trwkv
+    import repro_torch.models.ssm as tssm
+    import repro_torch.models.transformer as ttr
+    import repro_torch.serve.serve_step as ss
+    from repro_torch.configs import get_config, make_plan, smoke_config
+    from repro_torch.core.parallel import ParallelCtx
+    from repro_torch.core.registry import from_spec
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import Model
+    mods = (tl, ta, ttr, trwkv, tssm, ss)
+    saved = [m.COMPUTE_DTYPE for m in mods]
+    for m in mods:
+        m.COMPUTE_DTYPE = torch.float32
+    try:
+        cfg = smoke_config(get_config(arch))
+        plan = make_plan(cfg, 1, 1, remat=False)
+        ctx = ParallelCtx(plan=from_spec("baseline"))
+        cpu, gpu = Model(cfg, plan, device="cpu"), Model(cfg, plan)
+        p_cpu = cpu.init(0, dtype=torch.float32)
+        p_gpu = tree_map(lambda a: a.to(gpu.device), p_cpu)
+        c_cpu, c_gpu = ss.init_cache(cpu, 2, 32), ss.init_cache(gpu, 2, 32)
+        toks = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (2, 16)))
+        for t in range(16):
+            ss.decode_forward(p_cpu, toks[:, t:t + 1], c_cpu, t, cpu, ctx)
+            ss.decode_forward(p_gpu, toks[:, t:t + 1].cuda(), c_gpu, t, gpu,
+                              ctx)
+        errs = {}
+        for i, (a, b) in enumerate(zip(c_cpu, c_gpu)):
+            for k in sorted(a):
+                if k in ss.STATE_LEAVES:
+                    errs[f"seg{i}.{k}"] = float(
+                        (b[k].cpu().float() - a[k].float()).norm()
+                        / a[k].float().norm())
+    finally:
+        for m, dt in zip(mods, saved):
+            m.COMPUTE_DTYPE = dt
+    return errs
+
+
+def phase_rec_reference(arch: str) -> dict:
+    """12c: smoke ``arch`` on the card (kernels) against the CPU (plain
+    versions), the same weights: one taco train step at seq 128 (two RWKV
+    chunks) by both routes and teacher-forced taco decode logits, at
+    phase 4's bounds (:func:`phase_reference_train`,
+    :func:`phase_reference`); the recurrent state after a 16-token prefill
+    within 1e-3 (:func:`rec_state_error`)."""
+    out = {"step": phase_reference_train(arch, seq=128),
+           "logits": phase_reference(arch), "state": rec_state_error(arch)}
+    if not out["state"] or max(out["state"].values()) > 1e-3:
+        raise AssertionError(f"{arch}: card vs CPU state {out['state']}")
+    print(f"  smoke {arch}: f32 state after a 16-token prefill, card vs "
+          f"CPU {out['state']} (bound 1e-3)")
+    return out
+
+
+def rec_layer_ms(smi: str) -> dict:
+    """12d: the device time of one layer's recurrence at full width, the
+    forward alone and forward + backward: the SSM scan
+    (``ssm._assoc_scan_chunked``, chunk 256) on hymba-1.5b's f32 decay and
+    drive (TRAIN_BATCH x TRAIN_SEQ x 1600 x 16), and the RWKV chunk
+    recurrence (``rwkv._chunk_recurrence``, chunk 64) on rwkv6-1.6b's r,
+    k, v (bf16) and log decays (f32), TRAIN_BATCH x TRAIN_SEQ x 32 heads
+    x 64.  A training step runs each layer's forward twice (full
+    recompute) and its backward once."""
+    from repro_torch.models import rwkv, ssm
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(25)
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+
+    def draw(shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=DEVICE) * scale) \
+            .to(dtype).requires_grad_(True)
+    decay = torch.rand((b, s, 1600, 16), generator=gen, device=DEVICE) \
+        .mul_(0.5).add_(0.5).requires_grad_(True)
+    drive, h0 = draw((b, s, 1600, 16), scale=0.1), draw((b, 1600, 16))
+    r, k, v = (draw((b, s, 32, 64), torch.bfloat16) for _ in range(3))
+    logw = (-torch.exp(torch.randn((b, s, 32, 64), generator=gen,
+                                   device=DEVICE) * 0.5 - 3.0)) \
+        .requires_grad_(True)
+    u, s0 = draw((32, 64)), draw((b, 32, 64, 64))
+    calls = {
+        "ssm scan": lambda: ssm._assoc_scan_chunked(decay, drive, h0, 256)[0],
+        "rwkv recurrence": lambda: rwkv._chunk_recurrence(
+            r, k, v, logw, u, s0, 64)[0]}
+    out = {}
+    for name, fn in calls.items():
+        with torch.no_grad():
+            fwd = device_ms(fn, iters=3)
+
+        def both(fn=fn):
+            fn().float().sum().backward()
+        out[name] = {"forward_ms": fwd, "fwd_bwd_ms": device_ms(both,
+                                                               iters=3)}
+        print(f"  {smi}: {name}, one layer at full width: forward "
+              f"{out[name]['forward_ms']:.3f} ms, forward + backward "
+              f"{out[name]['fwd_bwd_ms']:.3f} ms of device time")
+    del decay, drive, h0, r, k, v, logw, u, s0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_recurrent(kernels, smi: str) -> dict:
+    """Phase 12: for each of REC_ARCHS, 12a serving at full width and
+    depth as phase 2 (the serve launcher's engine, 6 requests, baseline
+    and taco: every taco decode attempt launches 2 x (2L + 1) K2, 2L + 1
+    K6 and 2L + 1 K5, no block kernel, no plain route); then rwkv's forced
+    overflow replay (:func:`forced_replay`); 12b training through the train
+    launcher (:func:`rec_trainer`) under baseline and taco, every attempt
+    launching :func:`want_per_step`'s block kernels, no plain route, taco's
+    losses within 5e-2 of baseline's, peak memory and one profiled step;
+    each family's models freed before the next; 12c
+    (:func:`phase_rec_reference`); then 12d (:func:`rec_layer_ms`)."""
+    t0 = time.monotonic()
+    out = {"tf32": tf32_switches()}
+    for arch in REC_ARCHS:
+        t1 = time.monotonic()
+        served = phase_serve(kernels, [(f"{arch} base", "baseline", None),
+                                       (f"{arch} taco", "taco", None)],
+                             arch=arch)
+        replay = forced_replay(arch, smi, seed=12) \
+            if arch == "rwkv6-1.6b" else None
+        layers = REC_TRAIN_LAYERS[arch]
+        trained = phase_train(kernels, [("base", "baseline", None),
+                                        ("taco", "taco", None)],
+                              make=rec_trainer(arch, layers), sessions=1,
+                              steps=REC_STEPS, warm=REC_WARM)
+        check_losses(trained["base"], trained["taco"], f"{arch} taco")
+        for label, r in trained.items():
+            prof = r["step_profile"]
+            print(f"  {smi}: {arch} ({layers or 'all'} layers) {label}: "
+                  f"{r['mean_ms']:.3f} ms/step, {r['tok_per_s']:.1f} tok/s, "
+                  f"peak {r['peak_mib']:.1f} MiB, one step device busy "
+                  f"{prof['device_ms']:.3f} ms, idle share "
+                  f"{prof['idle_share']:.3f}")
+        ref = phase_rec_reference(arch)
+        out[arch] = {"served": served, "replay": replay, "trained": trained,
+                     "reference": ref, "seconds": time.monotonic() - t1}
+        print(f"  {arch} took {out[arch]['seconds']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["layer_ms"] = rec_layer_ms(smi)
+    print(f"  phase 12 took {time.monotonic() - t0:.1f} s")
+    return out
+
+
 def check_losses(base: dict, other: dict, label: str) -> float:
     """``other``'s loss within 5e-2 relative of ``base``'s at every step;
     returns the worst relative difference."""
@@ -2380,11 +2669,12 @@ def check_losses(base: dict, other: dict, label: str) -> float:
     return worst
 
 
-def phase_reference_train() -> float:
-    """Smoke-size qwen2-0.5b, one taco train step on the card (kernels,
-    both routes) against the CPU (plain versions), same weights and batch:
-    loss within 1e-3 and grad norm within 5e-2 relative, the bounds of
-    tests/test_torch_train.py."""
+def phase_reference_train(arch: str = "qwen2-0.5b", seq: int = 64) -> tuple:
+    """Smoke-size ``arch``, one taco train step at ``seq`` on the card
+    (kernels, both routes) against the CPU (plain versions), same weights
+    and batch: loss within 1e-3 and grad norm within 5e-2 relative, the
+    bounds of tests/test_torch_train.py.  Returns the worst (loss, grad
+    norm) differences."""
     from repro_torch.configs import get_config, make_plan, smoke_config
     from repro_torch.core.parallel import ParallelCtx
     from repro_torch.core.registry import from_spec
@@ -2393,35 +2683,34 @@ def phase_reference_train() -> float:
     from repro_torch.models.model import Model
     from repro_torch.optim import adamw
     from repro_torch.train.train_step import build_train_step
-    cfg = smoke_config(get_config("qwen2-0.5b"))
+    cfg = smoke_config(get_config(arch))
     plan = make_plan(cfg, 1, 1)
     ctx = ParallelCtx(plan=from_spec("taco"))
     oc = adamw.OptConfig(lr_max=1e-3, lr_min=1e-4, warmup_steps=2,
                          total_steps=10)
-    batch = SyntheticLM(DataConfig(cfg.vocab_size, 64, 2)).batch(0)
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, seq, 2)).batch(0)
     cpu, gpu = Model(cfg, plan, device="cpu"), Model(cfg, plan)
     init = cpu.init(0)
-    worst = 0.0
+    worst = (0.0, 0.0)
     for route, budget in (("wire", 1 << 62), ("blocks", 0)):
         with wire_budget(budget):
             res = {}
-            for model in (cpu, gpu):
+            for where, model in (("cpu", cpu), ("card", gpu)):
                 params = tree_map(lambda a: a.to(model.device).clone(), init)
                 step = build_train_step(model, ctx, oc)
                 _, _, m = step(params, adamw.init_opt_state(params),
                                SyntheticLM.place(batch, model.device))
-                res[model.device.type] = (float(m["loss"]),
-                                          float(m["grad_norm"]))
-        (lc, gc_), (lg, gg) = res["cpu"], res["cuda"]
+                res[where] = (float(m["loss"]), float(m["grad_norm"]))
+        (lc, gc_), (lg, gg) = res["cpu"], res["card"]
         if not (np.isfinite(lg) and np.isfinite(gg)):
-            raise AssertionError("non-finite train step on the card")
+            raise AssertionError(f"{arch}: non-finite train step on the card")
         rl, rg = abs(lg - lc) / lc, abs(gg - gc_) / gc_
         if rl > 1e-3 or rg > 5e-2:
-            raise AssertionError(f"{route}: card vs CPU loss {rl:.3e}, grad "
-                                 f"norm {rg:.3e} relative")
-        print(f"  smoke qwen2-0.5b taco train step, {route} route: card vs "
-              f"CPU loss {rl:.3e}, grad norm {rg:.3e} relative")
-        worst = max(worst, rl)
+            raise AssertionError(f"{arch} {route}: card vs CPU loss {rl:.3e},"
+                                 f" grad norm {rg:.3e} relative")
+        print(f"  smoke {arch} taco train step at seq {seq}, {route} route: "
+              f"card vs CPU loss {rl:.3e}, grad norm {rg:.3e} relative")
+        worst = (max(worst[0], rl), max(worst[1], rg))
     return worst
 
 
@@ -2549,16 +2838,16 @@ def phase_serve(kernels, runs, arch: str = "qwen2-0.5b",
     return out
 
 
-def phase_reference() -> float:
-    """Smoke-size qwen2-0.5b, taco: teacher-forced decode logits on the
-    card (kernels) against the CPU run (plain versions), same weights."""
+def phase_reference(arch: str = "qwen2-0.5b") -> float:
+    """Smoke-size ``arch``, taco: teacher-forced decode logits on the card
+    (kernels) against the CPU run (plain versions), same weights."""
     from repro_torch.configs import get_config, make_plan, smoke_config
     from repro_torch.core.parallel import ParallelCtx
     from repro_torch.core.registry import from_spec
     from repro_torch.models.layers import tree_map
     from repro_torch.models.model import Model
     from repro_torch.serve import serve_step as ss
-    cfg = smoke_config(get_config("qwen2-0.5b"))
+    cfg = smoke_config(get_config(arch))
     plan = make_plan(cfg, 1, 1, remat=False)
     ctx = ParallelCtx(plan=from_spec("taco"))
     cpu, gpu = Model(cfg, plan, device="cpu"), Model(cfg, plan)
@@ -2574,16 +2863,16 @@ def phase_reference() -> float:
         _, lg = ss.decode_forward(p_gpu, toks[:, t:t + 1].cuda(), c_gpu, t,
                                   gpu, ctx, return_logits=True)
         lg = lg.cpu()
-        if not torch.isfinite(lg).all():
-            raise AssertionError("non-finite logits on the card")
+        if not (torch.isfinite(lg).all() and torch.isfinite(lc).all()):
+            raise AssertionError(f"{arch}: non-finite logits")
         rel = float((lg - lc).norm() / lc.norm())
         worst = max(worst, rel)
     # bf16 matmuls round differently on the card and the CPU; the taco
     # hop then re-quantizes slightly different inputs (see
     # tests/test_torch_model.py for the same bound against JAX)
     if worst > 5e-2:
-        raise AssertionError(f"card vs CPU logits rel err {worst}")
-    print(f"  smoke qwen2-0.5b taco: card vs CPU logits rel err {worst:.3e}")
+        raise AssertionError(f"{arch}: card vs CPU logits rel err {worst}")
+    print(f"  smoke {arch} taco: card vs CPU logits rel err {worst:.3e}")
     return worst
 
 
@@ -2633,7 +2922,8 @@ def main() -> None:
     served = phase_serve(kernels, [("baseline", "baseline", None),
                                    ("taco", "taco", None)])
     print(f"phase 3 ({time.monotonic() - t_start:.0f} s): training "
-          f"full-width qwen2-0.5b, batch {TRAIN_BATCH} x "
+          f"full-width qwen2-0.5b at {QWEN_LAYERS} layers, batch "
+          f"{TRAIN_BATCH} x "
           f"seq {TRAIN_SEQ}, {TRAIN_WARM} warm + "
           f"{TRAIN_STEPS - TRAIN_WARM} timed steps")
     trained = phase_train(kernels, [("baseline", "baseline", None),
@@ -2651,7 +2941,8 @@ def main() -> None:
     phase_group_parity(group)
     ring_train = phase_train(kernels, [("ring", RING_SPEC, group)])["ring"]
     check_losses(trained["baseline"], ring_train, "ring")
-    ring_serve = phase_serve(kernels, [("ring", RING_SPEC, group)])["ring"]
+    ring_serve = phase_serve(kernels, [("ring", RING_SPEC, group)],
+                             make=ring_engine)["ring"]
     print(f"phase 6 ({time.monotonic() - t_start:.0f} s): 1-rank NCCL "
           f"groups for pod, data and model on the card, "
           f"{DP_SPEC}")
@@ -2699,7 +2990,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"phase 8 ({time.monotonic() - t_start:.0f} s): checkpoint, "
           "restart after an injected failure and serving from the "
-          f"checkpoint, full-width qwen2-0.5b on the phase 6 groups, "
+          f"checkpoint, qwen2-0.5b as phase 3 on the phase 6 groups, "
           f"{DP_SPEC}")
     restart = phase_restart(kernels, mesh, smi)
     print(f"phase 9 ({time.monotonic() - t_start:.0f} s): the policy layer "
@@ -2744,6 +3035,17 @@ def main() -> None:
           "and taco, 11b TrainStep.grads under baseline and taco, 11c "
           "moe_apply card vs CPU")
     moe = phase_moe(kernels, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 12 ({time.monotonic() - t_start:.0f} s): the recurrent "
+          "families at full width, hymba-1.5b (32 layers: full [0], swa "
+          "[1-14], full [15], swa [16-30], full [31]; d 1600, SSM d_state "
+          "16) and rwkv6-1.6b (24 layers, d 2048, 32 heads of 64): 12a "
+          "serving under baseline and taco (and rwkv's forced overflow "
+          f"replay under {ZLE_SPEC}), 12b training under baseline "
+          f"and taco (layers {REC_TRAIN_LAYERS}), 12c card vs CPU at smoke "
+          "size")
+    rec = phase_recurrent(kernels, smi)
     meta = {
         "compress_blocks": ("src/repro_torch/kernels/csrc/ash_compress.cu",
                             "src/repro/kernels/ash_compress.py:76", "train"),
@@ -2784,6 +3086,11 @@ def main() -> None:
         "serve moe": dict(zip(wire_names,
                               moe["served"]["moe taco"]["launches"])),
         "train moe": moe["grads"]["taco"]["launches"]}
+    for arch in REC_ARCHS:
+        short = arch.split("-")[0][:5]
+        by_path[f"serve {short}"] = dict(zip(
+            wire_names, rec[arch]["served"][f"{arch} taco"]["launches"]))
+        by_path[f"train {short}"] = rec[arch]["trained"]["taco"]["launches"]
     launches = dict(by_path["serve taco"])
     launches.update({k: by_path["train taco"][k]
                      for k in ("compress_blocks", "decompress_blocks",
@@ -2808,6 +3115,17 @@ def main() -> None:
     print(f"phase 10 sp: {json.dumps({'hops': sp_hops, 'fold': sp_fold})}")
     print(f"phase 11 moe: "
           f"{json.dumps({k: moe[k] for k in ('grads', 'small')})}")
+    print("phase 12 recurrent: " + json.dumps({
+        arch: {"trained": {k: {kk: r[kk] for kk in (
+            "per_step", "peak_mib", "mean_ms", "tok_per_s", "step_profile")}
+            for k, r in rec[arch]["trained"].items()},
+            "served": {k: {kk: r[kk] for kk in (
+                "launches", "wall_s", "decode_ms_per_tok_p50",
+                "decode_ms_per_tok_p99", "tick", "engine_peak_mib")}
+                for k, r in rec[arch]["served"].items()},
+            "replay": rec[arch]["replay"], "reference": rec[arch]["reference"],
+            "seconds": rec[arch]["seconds"]} for arch in REC_ARCHS} | {
+                "layer_ms": rec["layer_ms"]}))
     print(f"chip_smoke: {time.monotonic() - t_start:.1f}s in all")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -44,6 +44,9 @@ from repro_torch.models import transformer
 from repro_torch.models.layers import (COMPUTE_DTYPE, ParamSpec,
                                        init_params, tree_map)
 
+#: the families whose layers carry a state along the sequence
+RECURRENT = ("rwkv", "hybrid")
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means CUDA.  A CUDA device without a card raises."""
@@ -100,6 +103,18 @@ class Model:
                 "sequence parallelism supports the decoder-only token "
                 "frontend (encdec/patches sequence composition is not "
                 "sp-sharded)")
+        if sp_axis is not None and cfg.family in RECURRENT:
+            raise NotImplementedError(
+                f"{cfg.name}: sequence parallelism is refused for the "
+                f"{cfg.family!r} family.  Its recurrence and token shift "
+                "carry state along the sequence, and the JAX package "
+                "starts each seq shard from zeros, so its result is not the "
+                "unsharded model's: --smoke --steps 1 --seq 32 --batch 2 "
+                "--mesh 1,2,1 --comm-spec baseline on four host devices "
+                "gives a first-step loss / grad norm of 6.2953 / 1.908 at "
+                "sp = 1 and 6.2966 / 1.887 at sp = 2 for rwkv6-1.6b-smoke, "
+                "6.3247 / 2.707 and 6.3251 / 2.708 for hymba-1.5b-smoke "
+                "(qwen2-0.5b-smoke: 6.2506 / 3.391 at both)")
         transformer.check_family(cfg)
         if sp_axis not in (None, SP_AXIS) or (sp_axis is None and sp != 1) \
                 or not 0 <= sp_rank < sp:

@@ -2,9 +2,12 @@
 specs, the LM-head table, and the training forward (decode lives in
 ``repro_torch/serve/serve_step.py``).  The port covers the dense family
 (rmsnorm or layernorm; swiglu, geglu or gelu; rope, learned or sinusoid
-positions; sliding-window attention) and the MoE family
-(``models/moe.py``: the block's MLP is a top-k routed expert layer); the
-other families raise.
+positions; sliding-window attention), the MoE family (``models/moe.py``:
+the block's MLP is a top-k routed expert layer), the RWKV family
+(``models/rwkv.py``: time mix and channel mix in place of attention and
+MLP) and the hybrid family (``models/ssm.py``: a selective SSM beside the
+attention, the two summed through a learned gate, the layers cut into
+full / sliding-window segments); the encoder-decoder raises.
 
 The training forward runs Megatron-SP, as the JAX package: the residual
 stream is sequence-sharded over the TP group, each block enters through a
@@ -25,6 +28,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.codecs import IdentityCodec
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 # embed_partial and mlp_apply are re-exported where the JAX package has them
 from repro_torch.models.layers import (  # noqa: F401
     COMPUTE_DTYPE, ParamBuilder, apply_norm, embed_partial, embed_specs,
@@ -32,14 +37,15 @@ from repro_torch.models.layers import (  # noqa: F401
     vocab_parallel_xent)
 
 #: the later slice that ports each non-dense family
-LATER_SLICE = {"rwkv": "the SSM/RWKV slice (models/rwkv.py)",
-               "hybrid": "the SSM/RWKV slice (models/ssm.py)",
-               "encdec": "the encoder-decoder slice (cross-attention)"}
+LATER_SLICE = {"encdec": "the encoder-decoder slice (cross-attention)"}
+
+#: the families this port runs
+FAMILIES = ("dense", "moe", "rwkv", "hybrid")
 
 
 def check_family(cfg) -> None:
     """Raise for what this port does not cover yet."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is ported in "
             f"{LATER_SLICE.get(cfg.family, 'a later slice')}")
@@ -57,11 +63,25 @@ class Segment:
 
 
 def layer_segments(cfg) -> list[Segment]:
-    """Maximal runs of layers with one structure; a dense model is one
-    segment (hybrid models' full/SWA interleave comes with their slice)."""
-    check_family(cfg)
+    """Maximal runs of layers with one structure: a hybrid model's layers
+    listed in ``hybrid_full_attn`` run full attention and the others
+    sliding-window attention (hymba-1.5b: full [0], swa [1-14], full
+    [15], swa [16-30], full [31]); every other model is one segment.
+    The structure alone: it holds for families the port does not run."""
+    n = cfg.n_layers
+    if cfg.family == "hybrid" and cfg.hybrid_full_attn:
+        fulls = set(cfg.hybrid_full_attn)
+        segs, cur = [], 0
+        while cur < n:
+            kind = "full" if cur in fulls else "swa"
+            end = cur
+            while end < n and ("full" if end in fulls else "swa") == kind:
+                end += 1
+            segs.append(Segment(kind, cur, end - cur))
+            cur = end
+        return segs
     kind = "swa" if cfg.window is not None else "full"
-    return [Segment(kind, 0, cfg.n_layers)]
+    return [Segment(kind, 0, n)]
 
 
 def block_specs(cfg, plan) -> dict:
@@ -70,11 +90,19 @@ def block_specs(cfg, plan) -> dict:
     d = cfg.d_model
     norm_specs(pb, "norm1", d, cfg.norm)
     norm_specs(pb, "norm2", d, cfg.norm)
+    if cfg.family == "rwkv":
+        rwkv_mod.rwkv_specs(pb, "blk", cfg, plan)
+        specs = pb.specs
+        specs.update(specs.pop("blk"))
+        return specs
     attn_mod.attn_specs(pb, "attn", cfg, plan)
     if cfg.family == "moe":
         moe_mod.moe_specs(pb, "moe", cfg, plan)
     else:
         mlp_specs(pb, "mlp", d, cfg.d_ff, cfg.mlp)
+    if cfg.family == "hybrid":
+        ssm_mod.ssm_specs(pb, "ssm", cfg, plan)
+        pb.add("branch_gate", (2,), init="zeros")  # learned attn/ssm balance
     return pb.specs
 
 
@@ -132,13 +160,29 @@ def block_apply(x_shard, lp, cfg, plan, ctx, *, attn_kind: str, positions,
                 causal=True):
     """One transformer block on the seq-sharded residual stream: four TACO
     sites (two entries, two exits).  Returns ``(x_shard, aux)``: aux is
-    the MoE layer's balance loss (f32), None for a dense MLP."""
+    the MoE layer's balance loss (f32), None for a dense MLP.
+
+    An RWKV block's time mix and channel mix take the attention's and
+    the MLP's sites; a hybrid block adds the SSM branch to the attention's
+    partial output through the learned gate, before the exit."""
     window = cfg.window if attn_kind == "swa" else None
+    if cfg.family == "rwkv":
+        h_full = tp_enter(apply_norm(x_shard, lp["norm1"], cfg.norm,
+                                     cfg.norm_eps), ctx)
+        out, _ = rwkv_mod.time_mix_apply(h_full, lp, cfg, plan, ctx)
+        x_shard = x_shard + tp_exit(out, ctx)
+        h_full = tp_enter(apply_norm(x_shard, lp["norm2"], cfg.norm,
+                                     cfg.norm_eps), ctx)
+        out, _ = rwkv_mod.channel_mix_apply(h_full, lp, cfg, plan, ctx)
+        return x_shard + tp_exit(out, ctx), None
     h = apply_norm(x_shard, lp["norm1"], cfg.norm, cfg.norm_eps)
     h_full = tp_enter(h, ctx)
     partial = attn_mod.attention_apply(h_full, lp["attn"], cfg, plan, ctx,
                                        causal=causal, window=window,
                                        positions=positions)
+    if cfg.family == "hybrid":
+        ssm_out, _ = ssm_mod.ssm_apply(h_full, lp["ssm"], cfg, plan, ctx)
+        partial = gated_sum(partial, ssm_out, lp["branch_gate"])
     x_shard = x_shard + tp_exit(partial, ctx)
     h = apply_norm(x_shard, lp["norm2"], cfg.norm, cfg.norm_eps)
     h_full = tp_enter(h, ctx)
@@ -151,6 +195,14 @@ def block_apply(x_shard, lp, cfg, plan, ctx, *, attn_kind: str, positions,
     if cfg.mlp == "gelu":
         out = out + lp["mlp"]["b2"].to(out.dtype)
     return x_shard + out, aux
+
+
+def gated_sum(partial, ssm_out, gate):
+    """The hybrid block's mix of its two branches: ``partial *
+    sigmoid(gate)[0] + ssm_out * sigmoid(gate)[1]``, the gates rounded to
+    the compute dtype."""
+    gates = torch.sigmoid(gate.float()).to(COMPUTE_DTYPE)
+    return partial * gates[0] + ssm_out * gates[1]
 
 
 def run_segments(x_shard, seg_params, segments, cfg, plan, ctx, *,

@@ -27,10 +27,17 @@ codec on error spikes, and a tick whose negotiated bound overflowed is
 replayed at the static bound.  The replay needs no copy of the KV cache:
 the tick writes each layer's k/v at every slot's position before that
 layer reads the cache, so the replay overwrites exactly the positions
-the failed run wrote.  Prefill runs the base plan (the static bound,
-never negotiated); its probes feed the controllers too.  PyTorch runs
-eagerly, so a plan variant is a decode function closed over its plan,
-with nothing compiled, and the summary has no retrace counter.
+the failed run wrote.  That does not hold for a recurrent state (RWKV's
+token shifts and ``s``, the SSM's ``conv`` and ``h``): the tick reads
+the state and overwrites all of it, so a replay from the failed run's
+state would apply the recurrence twice.  So when a replay is possible
+the engine keeps a copy of the state leaves before the tick and puts it
+back before a replay, which then starts from the state the failed run
+read, as the JAX package's functional decode does.  Prefill runs the
+base plan (the static bound, never negotiated); its probes feed the
+controllers too.  PyTorch runs eagerly, so a plan variant is a decode
+function closed over its plan, with nothing compiled, and the summary has
+no retrace counter.
 """
 from __future__ import annotations
 
@@ -175,9 +182,20 @@ class ServeEngine:
         pos = torch.as_tensor(self.slot_pos, dtype=torch.long,
                               device=self.device)
         t0 = time.perf_counter()
+        kept = self._state_leaves(copy=True) if self.policy.replayable \
+            else []
+        attempts = 0
+
+        def invoke(fn):
+            nonlocal attempts
+            if attempts:                 # a replay: restore the read state
+                for leaf, old in zip(self._state_leaves(), kept):
+                    leaf.copy_(old)
+            attempts += 1
+            return fn(tok, pos)
         # resolve this tick's plan, run it, tick the controllers, and
         # replay a tick whose negotiated bound overflowed
-        out, _ = self.policy.run(None, lambda fn: fn(tok, pos))
+        out, _ = self.policy.run(None, invoke)
         nxt, logits = out if self.collect_logits else (out, None)
         nxt = nxt.cpu().numpy()                 # waits for the device
         dt = time.perf_counter() - t0
@@ -201,6 +219,12 @@ class ServeEngine:
             else:                                 # out of cache: truncate
                 req.max_new = len(req.tokens)
         self.reporter.count("serve/decode_ticks")
+
+    def _state_leaves(self, copy: bool = False) -> list:
+        """The slot table's recurrent state leaves (none for attention
+        caches), or copies of them."""
+        return [leaf.clone() if copy else leaf for seg in self.cache
+                for k, leaf in sorted(seg.items()) if k in ss.STATE_LEAVES]
 
     # ---- the engine loop ---------------------------------------------------
     def tick(self, now: float | None = None) -> bool:

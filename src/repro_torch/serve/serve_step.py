@@ -6,10 +6,15 @@ residual stream is replicated and every block output goes through the
 compressed two-shot AllReduce ``ctx.tp_g`` — the paper's primary
 configuration: a token crosses ``n_layers * 2 + 1`` hops.
 
-Cache layout (one dict per layer segment, layer-major):
-  k, v : (L, B, S_cache, kv_local, hd) in bf16
+Cache layout (one dict per layer segment, layer-major; local shapes):
+  attention : k, v (L, B, S_cache, kv_local, hd) in bf16
+  hybrid    : + conv (L, B, 2, di_local) in bf16, h (L, B, di_local, N) f32
+  rwkv      : shift_tm, shift_cm (L, B, 1, D) in bf16,
+              s (L, B, H_local, hd, hd) f32, and no k / v
 SWA segments keep a ring buffer of width ``window`` instead of S_cache.
-The decode step writes the new k/v into this cache IN PLACE.
+The decode step writes this cache IN PLACE: the new k/v at the token's
+position, and the recurrent state leaves (:data:`STATE_LEAVES`) over
+their old values.
 """
 from __future__ import annotations
 
@@ -21,12 +26,18 @@ import torch
 from repro_torch.core.parallel import iter_layer_spans
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (COMPUTE_DTYPE, apply_norm,
                                        distributed_argmax, lm_head_logits,
                                        tree_map)
 from repro_torch.models.transformer import (check_family, embed_partial,
-                                            head_table, layer_segments,
-                                            mlp_apply)
+                                            gated_sum, head_table,
+                                            layer_segments, mlp_apply)
+
+#: cache leaves that a decode step overwrites with the recurrence's new
+#: state (the k / v leaves it writes at one position only)
+STATE_LEAVES = ("shift_tm", "shift_cm", "s", "conv", "h")
 
 
 def _seg_cache_len(cfg, kind: str, max_len: int) -> int:
@@ -39,13 +50,25 @@ def cache_shapes(model, global_batch: int, max_len: int) -> list:
     """Per-segment ``{name: (shape, dtype)}`` of the decode cache."""
     cfg, plan = model.cfg, model.plan
     check_family(cfg)
+    b, hd = global_batch, cfg.hd
     kv = plan.kv_pad if plan.kv_mode == "sharded" else cfg.n_kv_heads
     kv_local = kv // plan.tp if plan.kv_mode == "sharded" else kv
     segs = []
     for seg in layer_segments(cfg):
+        n = seg.count
+        if cfg.family == "rwkv":
+            shift = ((n, b, 1, cfg.d_model), COMPUTE_DTYPE)
+            segs.append({"shift_tm": shift, "shift_cm": shift,
+                         "s": ((n, b, plan.q_local, hd, hd), torch.float32)})
+            continue
         sc = _seg_cache_len(cfg, seg.kind, max_len)
-        shape = (seg.count, global_batch, sc, kv_local, cfg.hd)
-        segs.append({"k": (shape, COMPUTE_DTYPE), "v": (shape, COMPUTE_DTYPE)})
+        shape = (n, b, sc, kv_local, hd)
+        entry = {"k": (shape, COMPUTE_DTYPE), "v": (shape, COMPUTE_DTYPE)}
+        if cfg.family == "hybrid":
+            di_local = cfg.d_model * cfg.ssm.expand // plan.tp
+            entry["conv"] = ((n, b, 2, di_local), COMPUTE_DTYPE)
+            entry["h"] = ((n, b, di_local, cfg.ssm.d_state), torch.float32)
+        segs.append(entry)
     return segs
 
 
@@ -61,6 +84,19 @@ def _no_window(cfg):
 
 def _decode_block(x, lp, cache_l, cfg, plan, ctx, *, kind, pos):
     """x (B,1,D) replicated over tp; writes the layer's cache in place."""
+    if cfg.family == "rwkv":
+        h = ctx.tp_f(apply_norm(x, lp["norm1"], cfg.norm, cfg.norm_eps))
+        out, st = rwkv_mod.time_mix_apply(
+            h, lp, cfg, plan, ctx,
+            state={"shift": cache_l["shift_tm"], "s": cache_l["s"]})
+        cache_l["shift_tm"].copy_(st["shift"])
+        cache_l["s"].copy_(st["s"])
+        x = x + ctx.tp_g(out)
+        h = ctx.tp_f(apply_norm(x, lp["norm2"], cfg.norm, cfg.norm_eps))
+        out, st = rwkv_mod.channel_mix_apply(
+            h, lp, cfg, plan, ctx, state={"shift": cache_l["shift_cm"]})
+        cache_l["shift_cm"].copy_(st["shift"])
+        return x + ctx.tp_g(out)
     h = ctx.tp_f(apply_norm(x, lp["norm1"], cfg.norm, cfg.norm_eps))
     # attention_decode switches ring-buffer vs full-cache semantics on
     # cfg.window
@@ -68,6 +104,13 @@ def _decode_block(x, lp, cache_l, cfg, plan, ctx, *, kind, pos):
         else _no_window(cfg)
     partial = attn_mod.attention_decode(h, lp["attn"], cfg_dec, plan, ctx,
                                         cache_l, pos)
+    if cfg.family == "hybrid":
+        ssm_out, st = ssm_mod.ssm_apply(
+            h, lp["ssm"], cfg, plan, ctx,
+            state={"conv": cache_l["conv"], "h": cache_l["h"]})
+        cache_l["conv"].copy_(st["conv"])
+        cache_l["h"].copy_(st["h"])
+        partial = gated_sum(partial, ssm_out, lp["branch_gate"])
     x = x + ctx.tp_g(partial)
     h = ctx.tp_f(apply_norm(x, lp["norm2"], cfg.norm, cfg.norm_eps))
     if cfg.family == "moe":

@@ -1,0 +1,855 @@
+"""The RWKV family of the port (RWKV6 "Finch": attention-free, with
+data-dependent decay) held against the JAX package: the time mix and
+channel mix (``src/repro_torch/models/rwkv.py``), the transformer's rwkv
+branch, the decode path with its recurrent state, the engine's replayed
+tick, the pipeline step, the mesh step, the sp refusal and the launchers.
+
+Module tests, in f32 on numpy inputs (``COMPUTE_DTYPE`` f32 in both
+packages), at rtol 1e-4 / atol 1e-5:
+
+  * ``_group_norm`` (the population variance, as ``jnp.var``);
+    ``_chunk_recurrence`` at chunk 8 of 32 (the state crosses 3 chunk
+    boundaries), at one chunk, at the fallback (30 steps, chunk 8), with
+    slow decays and with decays fast enough that the -60 clips bind;
+  * ``time_mix_apply`` and ``channel_mix_apply`` on a sequence and in an
+    ``s == 1`` decode from a drawn state; token-by-token decode ends in
+    the sequence path's final state (``shift`` and ``s``) with its
+    outputs.
+
+Whole model, smoke rwkv6-1.6b (2 layers, d 64, 4 heads of 16, d_ff 192,
+vocab 503, layernorm, no positions), weights carried across by
+``Model.from_jax_params``, in f32:
+
+  * tp = 1 in this process: one step's loss and finalized gradients at
+    seq 128 (two chunks of 64 in the time mix) under ``baseline`` and
+    ``tp=taco`` (``tests/test_torch_moe.py``'s ``TP_BOUNDS``; measured 0 /
+    4.8e-5 and 3.8e-5 / 5.5e-2), and teacher-forced decode logits at 6
+    steps (its ``DECODE_TOL``; measured 2.0e-6 and 4.5e-7) with the
+    recurrent state after them.
+  * against the JAX package on four forced host devices in a subprocess,
+    the port on gloo worlds spawned as ``tests/test_torch_dist.py`` does:
+    tp = 2 (the same step and decode at the same bounds, the taco
+    gradients at :data:`TP2_BOUNDS`; measured 1.4e-7 / 2.6e-5 and 1.0e-4
+    / 1.0e-1, decode 1.9e-6 and 6.5e-7: the replicated
+    ``mu_x``, ``mu``, ``lora_a``, ``lora_b``, ``wa`` and the channel mix's
+    ``wr`` are summed over the model axis, and the channel-mix gate
+    multiplies a TP-partial product); mesh (1, 2, 2) under
+    ``tp=taco,grad_rs=sdp4bit`` (``tests/test_torch_moe.py``'s
+    ``MESH_BOUNDS``; measured 2.3e-5 / 1.1e-1 / 2.8e-3); the pipeline step
+    at pipe mesh (2, 1, 1) under the identity plan (rwkv is one segment;
+    measured 7.1e-8 / 1.6e-5 / 5.7e-6; its gradients within
+    :data:`PIPE_SELF_GRADS` of the port's own plain step).
+
+The reference path the port does not mirror: the JAX package runs rwkv
+under a seq axis, each seq shard starting its recurrence and token shift
+from zeros, so its loss at sp = 2 differs from sp = 1 (asserted here, on
+the JAX package); the port refuses a seq axis for the recurrent families.
+A forced-overflow decode tick under ``tp=taco+zle:slot=auto`` replays
+from the state the failed run read (tokens and logits equal a static
+engine's).  The launchers train and serve smoke rwkv.
+"""
+from __future__ import annotations
+
+import os
+import pathlib
+import pickle
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config, make_plan, smoke_config
+from repro.core.parallel import ParallelCtx
+from repro.models import rwkv as jrwkv
+from repro.models import transformer as jtr
+from repro_torch import configs as tconfigs
+from repro_torch.core.parallel import ParallelCtx as TCtx
+from repro_torch.core.registry import from_spec as tfrom_spec
+from repro_torch.models import rwkv as trwkv
+from repro_torch.models import transformer as ttr
+from test_torch_ssm import (DECODE_BATCH, DECODE_STEPS, DECODE_TOL, OPT,
+                            TP_BOUNDS, _batch, _check_decode, _decode_tokens,
+                            _flat, _jax_decode, _jax_step_grads, _port_decode,
+                            _port_step, _t, _tbatch, rel,
+                            replay_against_static)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+RWKV = "rwkv6-1.6b"
+RTOL, ATOL = 1e-4, 1e-5
+MESH = (1, 2, 2)
+MESH_SPECS = ("tp=taco,grad_rs=sdp4bit",)
+#: (loss, grads, master weights) at MESH (tests/test_torch_moe.py's)
+MESH_BOUNDS = {"tp=taco,grad_rs=sdp4bit": (1e-3, 2e-1, 2e-2)}
+#: (loss, grads) of a step at tp = 2: TP_BOUNDS, but the taco gradients
+#: held at 2e-1.  The JAX package's own taco step at tp = 2 moves its
+#: gradients 3.8e-1 when one norm scale of the first layer moves by 2^-9
+#: (measured, :func:`test_jax_taco_step_spreads_further_by_itself`): a
+#: TACO code flipped by a last-bit difference moves its block, and the
+#: decays carry it through the sequence.  The port against the JAX
+#: package: 1.0e-1 (at tp = 1: under 7.5e-2).
+TP2_BOUNDS = dict(TP_BOUNDS, **{"tp=taco": (1e-3, 2e-1)})
+PIPE = (2, 1, 1)
+#: the identity pipeline step: against the JAX package's pipeline step at
+#: TP_BOUNDS' baseline (loss, grads) and 1e-5 on the master weights;
+#: against the port's own plain step on the same batch, the grads within
+#: 1e-5 (tests/test_torch_pipeline.py's identity bound).  The two
+#: packages' recurrences reassociate their f32 sums apart (the port's
+#: pipeline and plain steps are both 1.55e-5 from the JAX package's,
+#: whose own pipeline and plain steps are 5.8e-7 apart; measured)
+PIPE_SELF_GRADS = 1e-5
+PIPE_BATCH, PIPE_SEQ, MICRO = 8, 32, 4
+JAX_TIMEOUT_S = 300
+
+
+def _close(port, ref, scale=1.0):
+    np.testing.assert_allclose(port.detach().numpy(), np.asarray(ref),
+                               rtol=RTOL, atol=ATOL * scale)
+
+
+def _truth(r, k, v, logw, u, s0):
+    """The recurrence step by step in f64: (o, S_final)."""
+    r, k, v, logw, u, s0 = (a.astype(np.float64)
+                            for a in (r, k, v, logw, u, s0))
+    s, o = s0.copy(), np.zeros_like(r)
+    for t in range(r.shape[1]):
+        kv = np.einsum("bhc,bhv->bhcv", k[:, t], v[:, t])
+        o[:, t] = np.einsum("bhc,bhcv->bhv", r[:, t],
+                            s + u[None, :, :, None] * kv)
+        s = np.exp(logw[:, t])[..., None] * s + kv
+    return o, s
+
+
+@pytest.fixture
+def f32(monkeypatch):
+    """Both packages' RWKV layers compute in f32."""
+    monkeypatch.setattr(jrwkv, "COMPUTE_DTYPE", jnp.float32)
+    monkeypatch.setattr(trwkv, "COMPUTE_DTYPE", torch.float32)
+
+
+# --------------------------------------------------------------------------
+# the layers
+# --------------------------------------------------------------------------
+
+def test_group_norm_matches_jax():
+    gen = np.random.default_rng(1)
+    o = gen.normal(2.0, 3.0, (2, 5, 4, 16)).astype(np.float32)
+    scale = gen.normal(0, 0.3, (64,)).astype(np.float32)
+    bias = gen.normal(0, 0.3, (64,)).astype(np.float32)
+    _close(trwkv._group_norm(_t(o), _t(scale), _t(bias)),
+           jrwkv._group_norm(jnp.asarray(o), jnp.asarray(scale),
+                             jnp.asarray(bias)))
+
+
+def _recurrence_inputs(s, decay, seed=2):
+    """r, k, v, logw (B, S, H, c), u (H, c), s0 (B, H, c, c); ``decay``
+    the mean of the log of ``-logw``: -3 decays slowly, 2 fast enough that
+    a chunk's cumulative decay passes the -60 clip."""
+    gen = np.random.default_rng(seed)
+    b, h, c = 2, 3, 8
+    r, k, v = (gen.normal(size=(b, s, h, c)).astype(np.float32)
+               for _ in range(3))
+    logw = -np.exp(gen.normal(decay, 0.5, (b, s, h, c))).astype(np.float32)
+    u = gen.normal(size=(h, c)).astype(np.float32)
+    s0 = gen.normal(size=(b, h, c, c)).astype(np.float32)
+    return r, k, v, logw, u, s0
+
+
+@pytest.mark.parametrize("decay", [-3.0, 2.0])
+@pytest.mark.parametrize("s,chunk", [(32, 8), (32, 32), (30, 8)])
+def test_chunk_recurrence_matches_jax(f32, s, chunk, decay):
+    """Both packages against each other, and each against the f64
+    recurrence.  With fast decays the ratio exp(logA_{t-1} - logA_j) is a
+    difference of two cumulative sums that reach -220 in a chunk of 30, so
+    each ratio carries about ulp(220) = 1.5e-5 of relative error in
+    either package, and outputs up to 25 differ by up to 1.6e-4 (both
+    packages are 6.0-7.0e-6 of the largest output from the f64 recurrence,
+    measured): there ``atol`` scales with the largest output."""
+    ins = _recurrence_inputs(s, decay)
+    o, sf = trwkv._chunk_recurrence(*(_t(a) for a in ins), chunk)
+    jo, jsf = jrwkv._chunk_recurrence(*(jnp.asarray(a) for a in ins), chunk)
+    fast = decay > 0
+    _close(o, jo, float(np.abs(jo).max()) if fast else 1.0)
+    _close(sf, jsf, float(np.abs(jsf).max()) if fast else 1.0)
+    to, ts = _truth(*ins)
+    for port, ref, want in ((o, jo, to), (sf, jsf, ts)):
+        err = np.abs(port.numpy() - want).max() / np.abs(want).max()
+        jerr = np.abs(np.asarray(ref) - want).max() / np.abs(want).max()
+        assert err < max(2 * jerr, 1e-6), (err, jerr)
+    if fast:
+        # the clip binds: a chunk's decay runs far below exp(-60)
+        assert np.cumsum(ins[3][:, :chunk], axis=1).min() < -60
+
+
+def _rwkv_case(seed=3):
+    """(cfg, plan, block params as numpy) of smoke rwkv with every weight
+    drawn (the JAX package's zero inits would hide the mixes)."""
+    cfg = smoke_config(get_config(RWKV))
+    plan = make_plan(cfg, 1, 1)
+    gen = np.random.default_rng(seed)
+    d, f = cfg.d_model, cfg.d_ff
+    sc = 0.1
+
+    def w(*shape, mean=0.0, s=sc):
+        return gen.normal(mean, s, shape).astype(np.float32)
+    tm = {"mu_x": w(d), "mu": w(trwkv.N_STREAMS, d),
+          "lora_a": w(d, trwkv.N_STREAMS * trwkv.LORA_MIX),
+          "lora_b": w(trwkv.N_STREAMS, trwkv.LORA_MIX, d),
+          "w0": w(d, mean=-2.0), "wa": w(d, trwkv.LORA_W),
+          "wb": w(trwkv.LORA_W, d), "u": w(d), "wr": w(d, d), "wk": w(d, d),
+          "wv": w(d, d), "wg": w(d, d), "wo": w(d, d), "ln_scale": w(d),
+          "ln_bias": w(d)}
+    cm = {"mu_k": w(d), "mu_r": w(d), "wk": w(d, f), "wv": w(f, d, s=0.1),
+          "wr": w(d, d)}
+    return cfg, plan, {"tm": tm, "cm": cm}
+
+
+def _tree(p, fn):
+    return {k: _tree(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in p.items()}
+
+
+def _both(kind, x, p, cfg, plan, state=None, **kw):
+    jfn = getattr(jrwkv, kind)
+    tfn = getattr(trwkv, kind)
+    jstate = None if state is None else _tree(state, jnp.asarray)
+    tstate = None if state is None else _tree(state, _t)
+    jo, js = jfn(jnp.asarray(x), _tree(p, jnp.asarray), cfg, plan,
+                 ParallelCtx(fsdp_axes=()), state=jstate, **kw)
+    to, ts = tfn(_t(x), _tree(p, _t), cfg, plan, TCtx(), state=tstate, **kw)
+    return (to, ts), (jo, js)
+
+
+@pytest.mark.parametrize("chunk", [8, 64])
+def test_time_mix_train_matches_jax(f32, chunk):
+    cfg, plan, p = _rwkv_case()
+    x = np.random.default_rng(4).normal(size=(2, 32, cfg.d_model)).astype(
+        np.float32)
+    (to, ts), (jo, js) = _both("time_mix_apply", x, p, cfg, plan,
+                               chunk=chunk)
+    _close(to, jo)
+    for k in ("shift", "s"):
+        _close(ts[k], js[k])
+
+
+def test_channel_mix_train_matches_jax():
+    cfg, plan, p = _rwkv_case()
+    x = np.random.default_rng(5).normal(size=(2, 32, cfg.d_model)).astype(
+        np.float32)
+    (to, ts), (jo, js) = _both("channel_mix_apply", x, p, cfg, plan)
+    _close(to, jo)
+    _close(ts["shift"], js["shift"])
+
+
+def _state(cfg, plan, b, seed=6):
+    gen = np.random.default_rng(seed)
+    return {"shift": gen.normal(size=(b, 1, cfg.d_model)).astype(np.float32),
+            "s": gen.normal(size=(b, plan.q_local, cfg.hd, cfg.hd)).astype(
+                np.float32)}
+
+
+@pytest.mark.parametrize("kind", ["time_mix_apply", "channel_mix_apply"])
+def test_decode_step_matches_jax(f32, kind):
+    cfg, plan, p = _rwkv_case()
+    x = np.random.default_rng(7).normal(size=(3, 1, cfg.d_model)).astype(
+        np.float32)
+    state = _state(cfg, plan, 3)
+    if kind == "channel_mix_apply":
+        state = {"shift": state["shift"]}
+    (to, ts), (jo, js) = _both(kind, x, p, cfg, plan, state=state)
+    _close(to, jo)
+    for k in ts:
+        _close(ts[k], js[k])
+
+
+def test_decode_steps_end_in_the_sequence_paths_state(f32):
+    """Token-by-token ``s == 1`` steps from a drawn state give the
+    sequence path's outputs and its final ``shift`` and ``s`` (chunk 8 of
+    24: the inter-chunk state)."""
+    cfg, plan, p = _rwkv_case()
+    tp = _tree(p, _t)
+    x = _t(np.random.default_rng(8).normal(size=(2, 24, cfg.d_model))
+           .astype(np.float32))
+    state = _tree(_state(cfg, plan, 2), _t)
+    out, st = trwkv.time_mix_apply(x, tp, cfg, plan, TCtx(), state=state,
+                                   chunk=8)
+    steps = []
+    for t in range(24):
+        o, state = trwkv.time_mix_apply(x[:, t:t + 1], tp, cfg, plan, TCtx(),
+                                        state=state)
+        steps.append(o)
+    np.testing.assert_allclose(torch.cat(steps, 1).numpy(), out.numpy(),
+                               rtol=RTOL, atol=ATOL)
+    for k in ("shift", "s"):
+        np.testing.assert_allclose(state[k].numpy(), st[k].numpy(),
+                                   rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+def test_rwkv_specs_and_param_count(tp):
+    """The RWKV block's specs are the JAX package's, shape for shape and
+    sharding for sharding.  rwkv6-1.6b's ``param_count`` (the config's
+    estimate) is 1,577,058,304; its specs hold 1,599,868,928 (the LoRA
+    mixes, decay LoRA, norms and biases)."""
+    from repro.models.model import Model
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import Model as TModel
+    cfg, tcfg = get_config(RWKV), tconfigs.get_config(RWKV)
+    jspecs = jax.tree_util.tree_leaves(
+        Model(cfg, make_plan(cfg, tp, 1)).specs(),
+        is_leaf=lambda s: hasattr(s, "tp_dim"))
+    flat: list = []
+    tree_map(flat.append, TModel(tcfg, tconfigs.make_plan(tcfg, tp, 1),
+                                 device="cpu").specs())
+    assert [(s.shape, s.fsdp_dim, s.tp_dim, s.init) for s in flat] == \
+        [(s.shape, s.fsdp_dim, s.tp_dim, s.init) for s in jspecs]
+    assert tcfg.param_count == cfg.param_count == 1_577_058_304
+    assert sum(int(np.prod(s.shape)) for s in flat) == 1_599_868_928
+
+
+# --------------------------------------------------------------------------
+# the whole model at tp = 1, in f32
+# --------------------------------------------------------------------------
+
+def _f32_both(monkeypatch):
+    import repro.models.attention as ja
+    import repro.models.layers as jl
+    import repro.serve.serve_step as jss
+    import repro_torch.models.attention as ta
+    import repro_torch.models.layers as tl
+    import repro_torch.serve.serve_step as tss
+    for mod in (jl, ja, jtr, jrwkv, jss):
+        monkeypatch.setattr(mod, "COMPUTE_DTYPE", jnp.float32)
+    for mod in (tl, ta, ttr, trwkv, tss):
+        monkeypatch.setattr(mod, "COMPUTE_DTYPE", torch.float32)
+
+
+def _f32_port():
+    import repro_torch.models.attention as ta
+    import repro_torch.models.layers as tl
+    import repro_torch.serve.serve_step as tss
+    for mod in (tl, ta, ttr, trwkv, tss):
+        mod.COMPUTE_DTYPE = torch.float32
+
+
+def _cfgs():
+    return (smoke_config(get_config(RWKV)),
+            tconfigs.smoke_config(tconfigs.get_config(RWKV)))
+
+
+def _drawn_params(model, seed=0):
+    """The JAX package's seeded init, with its zero-initialized leaves
+    drawn as well (the mixes, the decay LoRA, ``u``, the norms): at zero
+    they would leave the token shift and the decay's data dependence out
+    of the comparison."""
+    params = model.init(jax.random.PRNGKey(seed), dtype=jnp.float32)
+    gen = np.random.default_rng(seed)
+
+    def draw(a):
+        return jnp.asarray(np.asarray(a) + gen.normal(
+            0, 0.1, a.shape).astype(np.float32))
+    return jax.tree.map(draw, params)
+
+
+@pytest.mark.parametrize("spec", sorted(TP_BOUNDS))
+def test_tp1_train_step_matches_jax(monkeypatch, spec):
+    from repro.models.model import Model
+    from repro_torch.models.model import Model as TModel
+    _f32_both(monkeypatch)
+    cfg, tcfg = _cfgs()
+    model = Model(cfg, make_plan(cfg, 1, 1))
+    params = _drawn_params(model)
+    batch = _batch(cfg)
+    assert batch["tokens"].shape[1] == 128          # two chunks of 64
+    jloss, jgrads = _jax_step_grads(model, params, batch, spec)
+    tmodel = TModel(tcfg, tconfigs.make_plan(tcfg, 1, 1), device="cpu")
+    loss, grads = _port_step(tmodel, jax.device_get(params), _tbatch(batch),
+                             spec)
+    loss_tol, grad_tol = TP_BOUNDS[spec]
+    assert [g.shape for g in grads] == [g.shape for g in jgrads]
+    assert abs(loss - jloss) / jloss < loss_tol
+    assert rel(_flat(grads), _flat(jgrads)) < grad_tol
+
+
+@pytest.mark.parametrize("spec", sorted(DECODE_TOL))
+def test_tp1_decode_matches_jax(monkeypatch, spec):
+    """Teacher-forced logits; under ``baseline`` the state after the 6
+    tokens too."""
+    from repro.models.model import Model
+    from repro_torch.models.model import Model as TModel
+    _f32_both(monkeypatch)
+    cfg, tcfg = _cfgs()
+    model = Model(cfg, make_plan(cfg, 1, 1, remat=False))
+    params = _drawn_params(model)
+    toks = _decode_tokens(cfg.vocab_size)
+    jlogits, jcache = _jax_decode(model, params, spec, toks)
+    tmodel = TModel(tcfg, tconfigs.make_plan(tcfg, 1, 1, remat=False),
+                    device="cpu")
+    logits, cache = _port_decode(tmodel, jax.device_get(params), spec, toks)
+    _check_decode(logits, jlogits, spec)
+    for seg, jseg in zip(cache, jcache):
+        assert sorted(seg) == sorted(jseg) == ["s", "shift_cm", "shift_tm"]
+        if spec == "baseline":
+            for k in seg:
+                np.testing.assert_allclose(seg[k].numpy(), jseg[k],
+                                           rtol=1e-3, atol=1e-4)
+
+
+def test_step_runs_four_taco_sites_a_layer():
+    """A smoke rwkv step under ``taco`` with full recompute runs
+    ``tp_hops_per_step``'s all-gathers and reduce-scatters: the time mix
+    and the channel mix take the attention's and the MLP's sites, and the
+    recompute stops before the channel mix's exit."""
+    from repro_torch.core import collectives as cc
+    from repro_torch.models.model import Model as TModel
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import build_train_step
+    _, tcfg = _cfgs()
+    plan = tconfigs.make_plan(tcfg, 1, 1)
+    tmodel = TModel(tcfg, plan, device="cpu")
+    counts = {"_ag_impl": 0, "_rs_impl": 0}
+    saved = {name: getattr(cc, name) for name in counts}
+
+    def counted(name):
+        def impl(x, group, dim, codec):
+            counts[name] += not isinstance(codec, cc.IdentityCodec)
+            return saved[name](x, group, dim, codec)
+        return impl
+    ctx = TCtx(plan=tfrom_spec("taco"))
+    try:
+        for name in counts:
+            setattr(cc, name, counted(name))
+        build_train_step(tmodel, ctx, adamw.OptConfig(**OPT)).grads(
+            tmodel.init(0), _tbatch(_batch(_cfgs()[0], seq=32)))
+    finally:
+        for name, impl in saved.items():
+            setattr(cc, name, impl)
+    want = ttr.tp_hops_per_step(tcfg, plan, ctx.plan)
+    assert [counts["_ag_impl"], counts["_rs_impl"]] == \
+        [want["all_gather"], want["reduce_scatter"]] == [14, 12]
+
+
+# --------------------------------------------------------------------------
+# serving, the sp refusal, the launchers
+# --------------------------------------------------------------------------
+
+def test_replayed_tick_restarts_from_the_state_it_read():
+    """Eight slots, all busy (the decode hop is two TACO blocks, dense
+    enough to overflow the seeded bound)."""
+    shared, runs = replay_against_static(RWKV, 8, (4, 6, 3, 5, 7, 4, 4, 6))
+    assert shared.overflows >= 1 and shared.resyncs >= 1
+    assert runs["auto"][0] == runs["static"][0]
+    for a, b in zip(runs["auto"][1], runs["static"][1]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_a_seq_axis_is_refused_citing_the_reference():
+    from repro_torch.models.model import Model as TModel
+    _, tcfg = _cfgs()
+    with pytest.raises(NotImplementedError, match=r"6\.2953 / 1\.908"):
+        TModel(tcfg, tconfigs.make_plan(tcfg, 1, 1), device="cpu",
+               sp_axis="seq", sp=2, sp_rank=0)
+
+
+def test_serve_launcher_serves_rwkv_smoke(capsys):
+    from repro_torch.launch import serve
+    s = serve.main(["--arch", RWKV, "--smoke", "--device", "cpu",
+                    "--requests", "3", "--prompt-len", "4", "--gen", "5",
+                    "--max-batch", "2", "--comm-spec", "taco"])
+    assert s["requests"] == 3 and s["total_new_tokens"] == 15
+    assert "served 3 requests / 15 tokens" in capsys.readouterr().out
+
+
+def test_train_launcher_trains_rwkv_smoke():
+    from repro_torch.launch import train
+    args = train.parse_args(["--arch", RWKV, "--smoke", "--device", "cpu",
+                             "--steps", "2", "--seq", "32", "--batch", "2",
+                             "--comm-spec", "taco"])
+    trainer, cfg = train.build_trainer(args)
+    assert cfg.family == "rwkv"
+    _, _, hist = trainer.run()
+    assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
+
+
+# --------------------------------------------------------------------------
+# across processes, against the JAX package at four host devices
+# --------------------------------------------------------------------------
+
+def _jax_caught_step(build, model, mesh, ctx, params, batch, specs):
+    """One step of the JAX ``build(model, mesh, ctx, oc)``: (loss, grad
+    norm, finalized grads, master weights), the grads caught on their way
+    into AdamW; ``specs`` place the params."""
+    from jax.sharding import NamedSharding
+
+    from repro.optim import adamw
+    update = adamw.adamw_update
+
+    def spy(grads, opt_state, oc, model):
+        return (grads,) + tuple(update(grads, opt_state, oc, model)[1:])
+    adamw.adamw_update = spy
+    try:
+        step = build(model, mesh, ctx, adamw.OptConfig(**OPT))
+        placed = jax.tree.map(lambda a, s: jax.device_put(
+            a, NamedSharding(mesh, s)), params, specs)
+        bspecs = model.batch_pspecs()
+        grads, opt, m = step(placed, adamw.init_opt_state(params),
+                             {k: jax.device_put(v, NamedSharding(
+                                 mesh, bspecs[k])) for k, v in batch.items()})
+    finally:
+        adamw.adamw_update = update
+    leaves = jax.tree_util.tree_leaves
+    return (float(m["loss"]), float(m["grad_norm"]),
+            [np.asarray(g, np.float32) for g in leaves(grads)],
+            [np.asarray(w, np.float32) for w in leaves(opt["master"])])
+
+
+def _sp_losses(cfg):
+    """The JAX package's first-step loss on the launcher's mesh (1, 2, 1)
+    at sp = 1 and at sp = 2 (the seq axis carved out of data), baseline,
+    seq 32, batch 2."""
+    from repro.core.registry import from_spec
+    from repro.launch.mesh import (SP_AXIS, make_mesh, mesh_axis_info,
+                                   sp_axis_info)
+    from repro.models.model import Model
+    from repro.train.train_step import build_train_step
+    out = {}
+    for sp, shape, axes in (
+            (1, (1, 2, 1), ("pod", "data", "model")),
+            (2, (1, 1, 2, 1), ("pod", "data", SP_AXIS, "model"))):
+        mesh = make_mesh(shape, axes)
+        fsdp_axes, tp_axis, tp, fsdp = mesh_axis_info(mesh)
+        sp_axis, _ = sp_axis_info(mesh)
+        model = Model(cfg, make_plan(cfg, tp, fsdp), fsdp_axes=fsdp_axes,
+                      tp_axis=tp_axis, sp_axis=sp_axis)
+        ctx = ParallelCtx(tp_axis=tp_axis, fsdp_axes=fsdp_axes,
+                          plan=from_spec("baseline"), sp_axis=sp_axis)
+        out[sp] = _jax_caught_step(
+            lambda m, me, c, oc: build_train_step(m, me, c, oc,
+                                                  donate=False),
+            model, mesh, ctx, model.init(jax.random.PRNGKey(0)),
+            _batch(cfg, seq=32, batch=2), model.partition_specs())[:2]
+    return out
+
+
+def jax_reference(out: str) -> None:
+    """The JAX package on four forced host devices, in f32: at tp = 2 one
+    step and a decode per spec; at MESH one step per spec; the pipeline
+    step at PIPE; and (in bf16, as the launcher runs) the sp = 1 / sp = 2
+    losses."""
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import repro.models.attention as ja
+    import repro.models.layers as jl
+    import repro.serve.serve_step as jss
+    import repro.train.pipeline_parallel as jpl
+    from repro import compat
+    from repro.core.registry import from_spec
+    from repro.models.model import Model
+    from repro.train.train_step import build_train_step
+    assert len(jax.devices()) == 4
+    cfg, _ = _cfgs()
+    res = {"sp": _sp_losses(cfg)}
+    for mod in (jl, ja, jtr, jrwkv, jss, jpl):
+        mod.COMPUTE_DTYPE = jnp.float32
+    devs = jax.devices()[:2]
+    model = Model(cfg, make_plan(cfg, 2, 1))
+    params = _drawn_params(model)
+    batch = _batch(cfg)
+    res["tp tree"] = jax.device_get(params)
+    res["tp batch"] = {k: np.asarray(v) for k, v in batch.items()}
+    smodel = Model(cfg, make_plan(cfg, 2, 1, remat=False))
+    toks = _decode_tokens(cfg.vocab_size)
+    for spec in TP_BOUNDS:
+        res[("tp step", spec)] = _jax_step_grads(model, params, batch, spec,
+                                                 (1, 1, 2), devs)
+        res[("tp decode", spec)] = _jax_decode(smodel, params, spec, toks,
+                                               (1, 1, 2), devs)[0]
+    # the JAX package's own taco step, one norm scale nudged by 2^-9
+    scale = params["segments"][0]["norm1"]["scale"]
+    nudged = dict(params, segments=[dict(
+        params["segments"][0], norm1=dict(params["segments"][0]["norm1"],
+                                          scale=scale.at[0, 3].add(2.0 ** -9)))])
+    res["tp step nudged"] = _jax_step_grads(model, nudged, batch, "tp=taco",
+                                            (1, 1, 2), devs)
+    mesh = compat.make_mesh(MESH, ("pod", "data", "model"))
+    model = Model(cfg, make_plan(cfg, MESH[2], MESH[0] * MESH[1]))
+    params = _drawn_params(model)
+    batch = _batch(cfg, seq=32, batch=4)
+    res["mesh tree"] = jax.device_get(params)
+    res["mesh batch"] = {k: np.asarray(v) for k, v in batch.items()}
+    res["mesh devices"] = np.vectorize(lambda d: d.id)(mesh.devices)
+    for spec in MESH_SPECS:
+        res[("mesh step", spec)] = _jax_caught_step(
+            lambda m, me, c, oc: build_train_step(m, me, c, oc,
+                                                  donate=False),
+            model, mesh, ParallelCtx(plan=from_spec(
+                spec.replace("taco", "taco:jnp", 1))), params, batch,
+            model.partition_specs())
+    pipe, data, tp = PIPE
+    mesh = compat.make_mesh(PIPE, ("pipe", "data", "model"),
+                            devices=jax.devices()[:2])
+    model = Model(cfg, make_plan(cfg, tp, data), fsdp_axes=("data",),
+                  tp_axis="model")
+    params = _drawn_params(model)
+    batch = _batch(cfg, seq=PIPE_SEQ, batch=PIPE_BATCH)
+    pc = jpl.PipeConfig(stages=pipe, microbatches=MICRO)
+    res["pipe tree"] = jax.device_get(params)
+    res["pipe batch"] = {k: np.asarray(v) for k, v in batch.items()}
+    res["pipe plain"] = _jax_step_grads(Model(cfg, make_plan(cfg, 1, 1)),
+                                        params, batch, "baseline")
+    res["pipe step"] = _jax_caught_step(
+        lambda m, me, c, oc: jpl.build_pipeline_train_step(m, me, c, oc, pc),
+        model, mesh, ParallelCtx(tp_axis="model", fsdp_axes=("data",),
+                                 plan=from_spec("baseline")),
+        params, batch, jpl.pipe_partition_specs(model, pc))
+    with open(out, "wb") as fh:
+        pickle.dump(res, fh)
+
+
+def _port_caught_step(build, model, ctx, tree, batch):
+    """(loss, grad norm, finalized grads, master weights) of one step."""
+    from repro_torch.optim import adamw
+    params = model.from_jax_params(tree)
+    caught = {}
+    update = adamw.adamw_update
+
+    def spy(params, grads, *a, **k):
+        caught["grads"] = [g.float().numpy().copy()
+                           for g in adamw.leaves(grads)]
+        return update(params, grads, *a, **k)
+    adamw.adamw_update = spy
+    try:
+        step = build(model, ctx, adamw.OptConfig(**OPT))
+        _, opt, m = step(params, adamw.init_opt_state(params), batch)
+    finally:
+        adamw.adamw_update = update
+    return (float(m["loss"]), float(m["grad_norm"]), caught["grads"],
+            [w.numpy().copy() for w in adamw.leaves(opt["master"])])
+
+
+def _tp2_and_pipe_task(rank, p, group, pl):
+    """tp = 2 on the world of two, then the pipe mesh PIPE on it."""
+    res = _tp2(rank, group, pl)
+    res["pipe"] = _pipe(pl)
+    return res
+
+
+def _tp2(rank, group, pl):
+    from repro_torch.models.model import Model as TModel
+    _f32_port()
+    _, tcfg = _cfgs()
+    model = TModel(tcfg, tconfigs.make_plan(tcfg, 2, 1), device="cpu",
+                   tp_rank=rank)
+    smodel = TModel(tcfg, tconfigs.make_plan(tcfg, 2, 1, remat=False),
+                    device="cpu", tp_rank=rank)
+    toks = _decode_tokens(tcfg.vocab_size)
+    res = {}
+    for spec in TP_BOUNDS:
+        res[("step", spec)] = _port_step(model, pl["tp tree"],
+                                         _tbatch(pl["tp batch"]), spec, group)
+        res[("decode", spec)] = _port_decode(smodel, pl["tp tree"], spec,
+                                             toks, group)[0]
+    return res
+
+
+def _mesh_task(rank, p, group, pl):
+    from repro_torch.launch.mesh import init_mesh
+    from repro_torch.models.model import Model as TModel
+    from repro_torch.train.train_step import build_train_step
+    _f32_port()
+    _, tcfg = _cfgs()
+    mesh = init_mesh(MESH, "cpu")
+    model = TModel(tcfg, tconfigs.make_plan(tcfg, MESH[2],
+                                            MESH[0] * MESH[1]),
+                   device="cpu", **mesh.model_kwargs())
+    batch = model.batch_slice(_tbatch(pl["batch"]))
+    res = {"coords": mesh.coords}
+    for spec in MESH_SPECS:
+        res[spec] = _port_caught_step(
+            build_train_step, model, mesh.parallel_ctx(tfrom_spec(spec)),
+            pl["tree"], batch)
+    return res
+
+
+def _pipe(pl):
+    from repro_torch.launch.mesh import PIPE_AXES, init_mesh
+    from repro_torch.models.model import Model as TModel
+    from repro_torch.train import pipeline_parallel as tpl
+    _f32_port()
+    _, tcfg = _cfgs()
+    mesh = init_mesh(PIPE, "cpu", axes=PIPE_AXES)
+    model = TModel(tcfg, tconfigs.make_plan(tcfg, PIPE[2], PIPE[1]),
+                   device="cpu", **mesh.model_kwargs())
+    pc = tpl.PipeConfig(stages=PIPE[0], microbatches=MICRO)
+    out = _port_caught_step(
+        lambda m, c, oc: tpl.build_pipeline_train_step(m, c, oc, pc),
+        model, mesh.parallel_ctx(tfrom_spec("baseline")), pl["pipe tree"],
+        model.batch_slice(_tbatch(pl["pipe batch"])))
+    return out + (mesh.coords,)
+
+
+@pytest.fixture(scope="module")
+def both(tmp_path_factory):
+    from test_torch_dist import run_group
+    tmp = tmp_path_factory.mktemp("rwkv")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    proc = subprocess.run([sys.executable, __file__, str(tmp / "jax.pkl")],
+                          env=env, capture_output=True, text=True,
+                          timeout=JAX_TIMEOUT_S)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    with open(tmp / "jax.pkl", "rb") as fh:
+        ref = pickle.load(fh)
+    tp2 = run_group(tmp, 2, _tp2_and_pipe_task, {
+        k: ref[k] for k in ("tp tree", "tp batch", "pipe tree",
+                            "pipe batch")})
+    mesh = run_group(tmp, 4, _mesh_task, {"tree": ref["mesh tree"],
+                                          "batch": ref["mesh batch"]})
+    return ref, tp2, mesh, [r["pipe"] for r in tp2]
+
+
+def _specs(tp, fsdp):
+    from repro_torch.models.model import Model as TModel
+    from repro_torch.optim import adamw
+    _, tcfg = _cfgs()
+    return adamw.leaves(TModel(tcfg, tconfigs.make_plan(tcfg, tp, fsdp),
+                               device="cpu").specs())
+
+
+def _stacked(tp, fsdp):
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import Model as TModel
+    from repro_torch.optim import adamw
+    _, tcfg = _cfgs()
+    specs = TModel(tcfg, tconfigs.make_plan(tcfg, tp, fsdp),
+                   device="cpu").specs()
+    return adamw.leaves({k: tree_map(lambda _, k=k: k == "segments", v)
+                         for k, v in specs.items()})
+
+
+def _global(specs, per_rank, coords, shape, stacked=None):
+    """Global leaves from per-rank shard leaves: TP shards joined along
+    ``tp_dim``, fsdp shards (pod-major on the pod mesh) along
+    ``fsdp_dim``; on the pipe mesh (``stacked`` given) the stages of a
+    layer stack along dim 0, the rest from stage 0."""
+    by = {tuple(c): r for r, c in enumerate(coords)}
+    out = []
+    for i, spec in enumerate(specs):
+        stages = shape[0] if stacked is not None and stacked[i] else 1
+        pieces = []
+        for st in range(stages):
+            if stacked is None:
+                fs = range(shape[0] * shape[1]
+                           if spec.fsdp_dim is not None else 1)
+            else:
+                fs = range(shape[1] if spec.fsdp_dim is not None else 1)
+            rows = []
+            for f in fs:
+                cols = []
+                for m in range(shape[2] if spec.tp_dim is not None else 1):
+                    c = (f // shape[1], f % shape[1], m) if stacked is None \
+                        else (st, f, m)
+                    cols.append(per_rank[by[c]][i])
+                rows.append(cols[0] if len(cols) == 1
+                            else np.concatenate(cols, axis=spec.tp_dim))
+            pieces.append(rows[0] if len(rows) == 1
+                          else np.concatenate(rows, axis=spec.fsdp_dim))
+        out.append(pieces[0] if len(pieces) == 1
+                   else np.concatenate(pieces, axis=0))
+    return out
+
+
+def test_reference_sp2_loss_is_not_its_sp1_loss(both):
+    """The reference path the port does not mirror: each seq shard of the
+    JAX package starts its recurrence and token shift from zeros."""
+    ref = both[0]
+    (l1, g1), (l2, g2) = ref["sp"][1], ref["sp"][2]
+    assert np.isfinite([l1, l2]).all()
+    assert abs(l2 - l1) > 1e-4 and abs(g2 - g1) > 1e-3
+
+
+def test_jax_taco_step_spreads_further_by_itself(both):
+    """The JAX package's taco step at tp = 2 with one norm scale nudged
+    by 2^-9 lands further from its own unnudged step than the bound the
+    port is held to (measured 3.8e-1)."""
+    ref = both[0]
+    spread = rel(_flat(ref["tp step nudged"][1]),
+                 _flat(ref[("tp step", "tp=taco")][1]))
+    assert spread > TP2_BOUNDS["tp=taco"][1]
+
+
+@pytest.mark.parametrize("spec", sorted(TP2_BOUNDS))
+def test_tp2_train_step_matches_jax(both, spec):
+    """The replicated leaves (the mixes, ``lora_a``/``lora_b``, ``wa``,
+    the channel mix's ``wr``, the norms) are summed over the model axis
+    on both ranks alike."""
+    ref, ranks, _, _ = both
+    jloss, jgrads = ref[("tp step", spec)]
+    (l0, g0), (l1, g1) = ranks[0][("step", spec)], ranks[1][("step", spec)]
+    assert l0 == l1
+    specs = _specs(2, 1)
+    for s, a, b in zip(specs, g0, g1):
+        if s.tp_dim is None:
+            np.testing.assert_array_equal(a, b)
+    full = _global(specs, [g0, g1], [(0, 0, 0), (0, 0, 1)], (1, 1, 2))
+    loss_tol, grad_tol = TP2_BOUNDS[spec]
+    assert [g.shape for g in full] == [g.shape for g in jgrads]
+    assert abs(l0 - jloss) / jloss < loss_tol
+    assert rel(_flat(full), _flat(jgrads)) < grad_tol
+
+
+@pytest.mark.parametrize("spec", sorted(DECODE_TOL))
+def test_tp2_decode_matches_jax(both, spec):
+    ref, ranks, _, _ = both
+    port = [np.concatenate([ranks[r][("decode", spec)][t] for r in (0, 1)],
+                           axis=-1) for t in range(DECODE_STEPS)]
+    assert port[0].shape[0] == DECODE_BATCH
+    _check_decode(port, ref[("tp decode", spec)], spec)
+
+
+@pytest.mark.parametrize("spec", MESH_SPECS)
+def test_mesh_step_matches_jax(both, spec):
+    ref, _, mesh, _ = both
+    loss_tol, grad_tol, master_tol = MESH_BOUNDS[spec]
+    coords = [r["coords"] for r in mesh]
+    assert coords == [tuple(int(i) for i in np.argwhere(
+        ref["mesh devices"] == r)[0]) for r in range(4)]
+    jloss, jnorm, jgrads, jmaster = ref[("mesh step", spec)]
+    specs = _specs(MESH[2], MESH[0] * MESH[1])
+    grads = _global(specs, [r[spec][2] for r in mesh], coords, MESH)
+    master = _global(specs, [r[spec][3] for r in mesh], coords, MESH)
+    assert all(r[spec][0] == mesh[0][spec][0] for r in mesh)
+    assert abs(mesh[0][spec][0] - jloss) / jloss < loss_tol
+    assert rel(_flat(grads), _flat(jgrads)) < grad_tol
+    assert rel(_flat(master), _flat(jmaster)) < master_tol
+
+
+def test_pipeline_step_matches_jax(both, monkeypatch):
+    """rwkv is one segment, so it runs through the pipeline step, as in
+    the JAX package; stage s keeps layer s."""
+    from repro_torch.models.model import Model as TModel
+    ref, _, _, pipe = both
+    jloss, jnorm, jgrads, jmaster = ref["pipe step"]
+    coords = [r[4] for r in pipe]
+    specs = _specs(PIPE[2], PIPE[1])
+    stacked = _stacked(PIPE[2], PIPE[1])
+    grads = _global(specs, [r[2] for r in pipe], coords, PIPE, stacked)
+    master = _global(specs, [r[3] for r in pipe], coords, PIPE, stacked)
+    loss_tol, grad_tol = TP_BOUNDS["baseline"]
+    assert abs(pipe[0][0] - jloss) / jloss < loss_tol
+    assert abs(pipe[0][1] - jnorm) / jnorm < grad_tol
+    assert rel(_flat(grads), _flat(jgrads)) < grad_tol
+    assert rel(_flat(master), _flat(jmaster)) < 1e-5
+    # the pipeline adds nothing to the port's own plain step
+    _f32_both(monkeypatch)
+    _, tcfg = _cfgs()
+    tmodel = TModel(tcfg, tconfigs.make_plan(tcfg, 1, 1), device="cpu")
+    _, plain = _port_step(tmodel, ref["pipe tree"],
+                          _tbatch(ref["pipe batch"]), "baseline")
+    assert rel(_flat(grads), _flat(plain)) < PIPE_SELF_GRADS
+
+
+if __name__ == "__main__":
+    jax_reference(sys.argv[1])

@@ -193,12 +193,37 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      recurrence at full width, forward and forward + backward.
      Phase 1 times K2/K5/K6 at the decode hops (4 x 1600, 4 x 2048), phase
      1b K1/K3/K4 at the training hops (4 x 2048 x 1600, 4 x 2048 x 2048).
+ 13. the encoder-decoder and the patch frontend at full width:
+     whisper-small (12 encoder + 12 decoder layers, d 768, 12 heads of 64,
+     d_ff 3072, vocab 51865, layernorm, gelu, sinusoid positions; stub
+     frame embeddings, each decoder layer a cross-attention) and
+     internvl2-1b (24 layers, d 896, 14 / 2 heads of 64, vocab 151655; 256
+     stub patch embeddings in front of the tokens).  For each, 13a:
+     serving as phase 2 (the serve launcher, baseline and taco; whisper
+     at full depth, internvl at ``QWEN_LAYERS``): every taco decode
+     attempt and prefill call launches 2 x hops K2, hops K6 and hops K5,
+     hops = 3L + 1 for whisper (74 / 37 / 37) and 2L + 1 for internvl
+     (50 / 25 / 25 at 12 layers), no block kernel, no plain
+     route, one tick profiled; whisper decodes against its zero cross
+     cache, as the JAX package's engine does (its cross-attention adds 0,
+     its hops run).  13b: training through the train launcher (batch 4 x
+     seq 2048: whisper's encoder and decoder 1024 positions each, internvl
+     256 patches and 1792 tokens; per-layer recompute, SyntheticLM seed
+     1234, ``REC_WARM`` warm + ``SP_TRAIN_STEPS`` timed steps, layers as
+     ``FRONT_LAYERS``) under baseline and taco: every attempt
+     launches ``want_per_step``'s K1 / K3 / K4 (342 / 183 / 159 whisper,
+     136 / 74 / 62 internvl at 12 layers), no plain route, taco's losses
+     within 5e-2 of baseline's, peak memory and one profiled step.  13c:
+     smoke size, card against CPU: a taco step's loss and grad norm
+     within 1e-3 and 5e-2 (both routes), taco decode logits within 5e-2,
+     whisper's against a seeded nonzero cross cache.  Phase 1 times
+     K2/K5/K6 at whisper's decode hop (4 x 768), phase 1b K1/K3/K4 at its
+     training hop (4 x 1024 x 768).
 
-Every training and serving run of phases 2, 3, 5, 6, 7, 8, 9, 10, 11 and 12 must
-take only kernels: ``ops.plain_routes`` stays 0.  Nothing is caught: any
-failure exits non-zero.  The line before the last is the kernel table as
-JSON; the last is
-``{"ok": true, "device": {...}}``.
+Every training and serving run of phases 2, 3, 5, 6, 7, 8, 9, 10, 11, 12
+and 13 must take only kernels: ``ops.plain_routes`` stays 0.  Nothing is
+caught: any failure exits non-zero.  The line before the last is the
+kernel table as JSON; the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -295,6 +320,18 @@ RWKV_TRAIN_N = TRAIN_BATCH * TRAIN_SEQ * 2048
 REC_TRAIN_LAYERS = {"hymba-1.5b": None, "rwkv6-1.6b": 8}
 #: 12b: one warm step, then SP_TRAIN_STEPS timed ones
 REC_WARM, REC_STEPS = 1, 1 + SP_TRAIN_STEPS
+#: phase 13: the encoder-decoder (whisper-small) and the patch frontend
+#: (internvl2-1b) at full width; whisper's decode hop (max-batch 4 x d 768)
+#: and training hop (batch x seq/2 x d: its encoder and its decoder run
+#: half the sequence each); internvl's are qwen2-0.5b's
+FRONT_ARCHS = ("whisper-small", "internvl2-1b")
+WHISPER_SERVE_N = 4 * 768
+WHISPER_TRAIN_N = TRAIN_BATCH * TRAIN_SEQ // 2 * 768
+#: 13a / 13b: the layers each arch serves and trains at (None: its full
+#: depth); internvl2-1b at the depth its twin qwen2-0.5b trains at
+FRONT_LAYERS = {"whisper-small": None, "internvl2-1b": QWEN_LAYERS}
+#: the short names of the kernel line's launches by path
+FRONT_SHORT = {"whisper-small": "whisp", "internvl2-1b": "intvl"}
 
 
 def fail(msg: str) -> None:
@@ -534,6 +571,10 @@ def phase_kernels() -> dict:
          label="hymba decode")
     case("taco", RWKV_SERVE_N, torch.bfloat16, 1, timed=True,
          label="rwkv decode")
+    # phase 13's decode hop: whisper-small at max-batch 4 (internvl2-1b's
+    # is the serve hop)
+    case("taco", WHISPER_SERVE_N, torch.bfloat16, 1, timed=True,
+         label="whisper decode")
     case("taco:seps1e-20", 1024, torch.float32, 1)
     z = torch.zeros((1, 1024), device=dev)       # all-zero blocks: s floor
     cfg = codec_from_spec("taco").cfg
@@ -789,6 +830,10 @@ def phase_blocks() -> dict:
          label="hymba train")
     case("taco", RWKV_TRAIN_N, torch.bfloat16, 1, timed=True,
          label="rwkv train")
+    # the TP hop of phase 13's whisper-small step (internvl2-1b's is the
+    # train hop)
+    case("taco", WHISPER_TRAIN_N, torch.bfloat16, 1, timed=True,
+         label="whisper train")
     # phase 10c: the stacks a rank of sp = 2 decodes (two peers' slots of
     # each sp hop of SP_HOPS)
     for label, shape, dims in SP_HOPS:
@@ -1089,12 +1134,14 @@ def launcher_trainer(spec, groups, layers=QWEN_LAYERS):
     return trainer, lambda plan: want_per_step(cfg, trainer.model.plan, plan)
 
 
-def ring_engine(args, group):
-    """``make`` of :func:`phase_serve` for phase 5: the serve launcher's
-    engine on qwen2-0.5b cut to QWEN_LAYERS layers."""
-    from repro_torch.launch import serve
-    with depth(serve, QWEN_LAYERS):
-        return serve.build_engine(args, group)
+def engine_at(layers):
+    """``make`` of :func:`phase_serve`: the serve launcher's engine on the
+    arch cut to ``layers`` layers (None: its full depth)."""
+    def make(args, group):
+        from repro_torch.launch import serve
+        with depth(serve, layers):
+            return serve.build_engine(args, group)
+    return make
 
 
 def phase_train(counters, runs, make=launcher_trainer,
@@ -2478,8 +2525,8 @@ def tf32_switches() -> dict:
 
 
 def rec_trainer(arch: str, layers):
-    """``make`` of :func:`phase_train` for 12b: ``arch`` at full width
-    through the train launcher's entry points (batch TRAIN_BATCH x seq
+    """``make`` of :func:`phase_train` for 12b and 13b: ``arch`` at full
+    width through the train launcher's entry points (batch TRAIN_BATCH x seq
     TRAIN_SEQ, REC_STEPS steps, per-layer recompute, SyntheticLM tokens
     from its seed 1234), cut to ``layers`` layers when given
     (:func:`depth`)."""
@@ -2653,6 +2700,54 @@ def phase_recurrent(kernels, smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 13: the encoder-decoder and the patch frontend (whisper-small and
+# internvl2-1b at full width)
+# --------------------------------------------------------------------------
+
+def phase_frontends(kernels, smi: str) -> dict:
+    """Phase 13: for each of FRONT_ARCHS, 13a serving as phase 2 (the serve
+    launcher's engine, 6 requests, baseline and taco: every taco decode
+    attempt and prefill call launches :func:`serve_want`'s wire kernels
+    at the arch's hops, no block kernel, no plain route) at
+    FRONT_LAYERS; 13b training through the train launcher
+    (:func:`rec_trainer`, FRONT_LAYERS) under baseline and taco,
+    every attempt launching :func:`want_per_step`'s block kernels, no
+    plain route, taco's losses within 5e-2 of baseline's, peak memory and
+    one profiled step; 13c card vs CPU at smoke size
+    (:func:`phase_reference_train`, :func:`phase_reference`)."""
+    t0 = time.monotonic()
+    out = {}
+    for arch in FRONT_ARCHS:
+        t1 = time.monotonic()
+        served = phase_serve(kernels, [(f"{arch} base", "baseline", None),
+                                       (f"{arch} taco", "taco", None)],
+                             arch=arch,
+                             make=engine_at(FRONT_LAYERS[arch]))
+        layers = FRONT_LAYERS[arch]
+        trained = phase_train(kernels, [("base", "baseline", None),
+                                        ("taco", "taco", None)],
+                              make=rec_trainer(arch, layers), sessions=1,
+                              steps=REC_STEPS, warm=REC_WARM)
+        check_losses(trained["base"], trained["taco"], f"{arch} taco")
+        for label, r in trained.items():
+            prof = r["step_profile"]
+            print(f"  {smi}: {arch} ({layers or 'all'} layers) {label}: "
+                  f"{r['mean_ms']:.3f} ms/step, {r['tok_per_s']:.1f} "
+                  f"positions/s, peak {r['peak_mib']:.1f} MiB, one step "
+                  f"device busy {prof['device_ms']:.3f} ms, idle share "
+                  f"{prof['idle_share']:.3f}")
+        ref = {"step": phase_reference_train(arch),
+               "logits": phase_reference(arch)}
+        out[arch] = {"served": served, "trained": trained, "reference": ref,
+                     "seconds": time.monotonic() - t1}
+        print(f"  {arch} took {out[arch]['seconds']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"  phase 13 took {time.monotonic() - t0:.1f} s")
+    return out
+
+
 def check_losses(base: dict, other: dict, label: str) -> float:
     """``other``'s loss within 5e-2 relative of ``base``'s at every step;
     returns the worst relative difference."""
@@ -2688,7 +2783,7 @@ def phase_reference_train(arch: str = "qwen2-0.5b", seq: int = 64) -> tuple:
     ctx = ParallelCtx(plan=from_spec("taco"))
     oc = adamw.OptConfig(lr_max=1e-3, lr_min=1e-4, warmup_steps=2,
                          total_steps=10)
-    batch = SyntheticLM(DataConfig(cfg.vocab_size, seq, 2)).batch(0)
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, seq, 2), cfg).batch(0)
     cpu, gpu = Model(cfg, plan, device="cpu"), Model(cfg, plan)
     init = cpu.init(0)
     worst = (0.0, 0.0)
@@ -2756,13 +2851,15 @@ def phase_serve(kernels, runs, arch: str = "qwen2-0.5b",
     the launcher's ``build_engine``): every decode attempt (a tick, or a
     replayed tick) and every prefill forward of a compressed run launches
     :func:`serve_want`'s wire kernels for the plan it ran (per hop of the
-    decode path, layers x 2 + 1 AllReduce hops (49 on qwen2-0.5b), and
-    ring chunk: two compress, one decompress-reduce and one decompress;
-    prefill runs the declared plan), and no block kernel."""
+    decode path, layers x 2 + 1 AllReduce hops (49 on qwen2-0.5b; layers
+    x 3 + 1 for an encoder-decoder), and ring chunk: two compress, one
+    decompress-reduce and one decompress; prefill runs the declared
+    plan), and no block kernel."""
     from repro_torch.core import collectives as cc
     from repro_torch.core.registry import from_spec
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    from repro_torch.serve.engine import _tp_hops_per_token
     counters = [kernels["compress_wire"], kernels["decompress_reduce_wire"],
                 kernels["decompress_wire"]]
     make = make or serve.build_engine
@@ -2795,7 +2892,7 @@ def phase_serve(kernels, runs, arch: str = "qwen2-0.5b",
             raise AssertionError(f"{label}: not every request finished")
         if any(not 0 <= t < cfg.vocab_size for r in done for t in r.tokens):
             raise AssertionError(f"{label}: token id out of range")
-        hops = 2 * cfg.n_layers + 1
+        hops = _tp_hops_per_token(cfg)
         ticks = [row for _, row in attempts]
         wants = [serve_want(plan, hops) for plan, _ in attempts]
         if ticks != wants or len(attempts) < s["decode_steps"]:
@@ -2840,7 +2937,9 @@ def phase_serve(kernels, runs, arch: str = "qwen2-0.5b",
 
 def phase_reference(arch: str = "qwen2-0.5b") -> float:
     """Smoke-size ``arch``, taco: teacher-forced decode logits on the card
-    (kernels) against the CPU run (plain versions), same weights."""
+    (kernels) against the CPU run (plain versions), same weights; an
+    encoder-decoder's cross cache (``xk`` / ``xv``) seeded alike on both
+    with normals, so that its cross-attention adds a term."""
     from repro_torch.configs import get_config, make_plan, smoke_config
     from repro_torch.core.parallel import ParallelCtx
     from repro_torch.core.registry import from_spec
@@ -2854,6 +2953,12 @@ def phase_reference(arch: str = "qwen2-0.5b") -> float:
     p_cpu = cpu.init(0)
     p_gpu = tree_map(lambda a: a.to(gpu.device), p_cpu)
     c_cpu, c_gpu = ss.init_cache(cpu, 4, 32), ss.init_cache(gpu, 4, 32)
+    gen = torch.Generator().manual_seed(13)
+    for seg_c, seg_g in zip(c_cpu, c_gpu):
+        for k in ("xk", "xv"):
+            if k in seg_c:
+                seg_c[k].copy_(torch.randn(seg_c[k].shape, generator=gen))
+                seg_g[k].copy_(seg_c[k])
     toks = torch.from_numpy(
         np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 8)))
     worst = 0.0
@@ -2942,7 +3047,7 @@ def main() -> None:
     ring_train = phase_train(kernels, [("ring", RING_SPEC, group)])["ring"]
     check_losses(trained["baseline"], ring_train, "ring")
     ring_serve = phase_serve(kernels, [("ring", RING_SPEC, group)],
-                             make=ring_engine)["ring"]
+                             make=engine_at(QWEN_LAYERS))["ring"]
     print(f"phase 6 ({time.monotonic() - t_start:.0f} s): 1-rank NCCL "
           f"groups for pod, data and model on the card, "
           f"{DP_SPEC}")
@@ -3046,6 +3151,15 @@ def main() -> None:
           f"and taco (layers {REC_TRAIN_LAYERS}), 12c card vs CPU at smoke "
           "size")
     rec = phase_recurrent(kernels, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 13 ({time.monotonic() - t_start:.0f} s): the "
+          "encoder-decoder and the patch frontend at full width, "
+          "whisper-small (12 + 12 layers, d 768, stub frames, "
+          "cross-attention) and internvl2-1b (24 layers, d 896, 256 stub "
+          "patches): 13a serving and 13b training under baseline and taco "
+          f"(layers {FRONT_LAYERS}), 13c card vs CPU at smoke size")
+    front = phase_frontends(kernels, smi)
     meta = {
         "compress_blocks": ("src/repro_torch/kernels/csrc/ash_compress.cu",
                             "src/repro/kernels/ash_compress.py:76", "train"),
@@ -3091,6 +3205,12 @@ def main() -> None:
         by_path[f"serve {short}"] = dict(zip(
             wire_names, rec[arch]["served"][f"{arch} taco"]["launches"]))
         by_path[f"train {short}"] = rec[arch]["trained"]["taco"]["launches"]
+    for arch in FRONT_ARCHS:
+        short = FRONT_SHORT[arch]
+        by_path[f"serve {short}"] = dict(zip(
+            wire_names, front[arch]["served"][f"{arch} taco"]["launches"]))
+        by_path[f"train {short}"] = front[arch]["trained"]["taco"][
+            "launches"]
     launches = dict(by_path["serve taco"])
     launches.update({k: by_path["train taco"][k]
                      for k in ("compress_blocks", "decompress_blocks",
@@ -3126,6 +3246,17 @@ def main() -> None:
             "replay": rec[arch]["replay"], "reference": rec[arch]["reference"],
             "seconds": rec[arch]["seconds"]} for arch in REC_ARCHS} | {
                 "layer_ms": rec["layer_ms"]}))
+    print("phase 13 frontends: " + json.dumps({
+        arch: {"trained": {k: {kk: r[kk] for kk in (
+            "per_step", "peak_mib", "mean_ms", "tok_per_s", "step_profile")}
+            for k, r in front[arch]["trained"].items()},
+            "served": {k: {kk: r[kk] for kk in (
+                "launches", "wall_s", "decode_ms_per_tok_p50",
+                "decode_ms_per_tok_p99", "ttft_ms_p50", "tick",
+                "engine_peak_mib")}
+                for k, r in front[arch]["served"].items()},
+            "reference": front[arch]["reference"],
+            "seconds": front[arch]["seconds"]} for arch in FRONT_ARCHS}))
     print(f"chip_smoke: {time.monotonic() - t_start:.1f}s in all")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

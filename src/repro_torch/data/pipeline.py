@@ -43,15 +43,32 @@ def dp_rows(batch: dict, index: int, count: int) -> dict:
     return out
 
 
+def _bf16(a: np.ndarray) -> torch.Tensor:
+    """f64 normals -> bf16 as the JAX package's ``jnp.asarray(a,
+    jnp.bfloat16)`` rounds them (through f32, x64 off)."""
+    return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+
+
+def split_positions(cfg, seq_len: int) -> tuple:
+    """(stub key, stub positions, token positions) of a sequence of
+    ``seq_len`` under ``cfg``'s frontend, as the JAX package splits it: an
+    encoder-decoder's ``frames`` take half (its encoder's input) and the
+    tokens the other half; a patch frontend's ``frontend_tokens``
+    ``patches`` go in front of ``seq_len`` less that many tokens; no
+    frontend (or no ``cfg``): (None, 0, seq_len)."""
+    if cfg is not None and cfg.family == "encdec":
+        return "frames", seq_len // 2, seq_len // 2
+    if cfg is not None and cfg.frontend == "patches":
+        return "patches", cfg.frontend_tokens, seq_len - cfg.frontend_tokens
+    return None, 0, seq_len
+
+
 class SyntheticLM:
-    """Markov-chain token stream (decoder-only token frontend)."""
+    """Markov-chain token stream, with the frontend stubs of ``cfg``: an
+    encoder-decoder's frame embeddings, a patch frontend's patch
+    embeddings (standard normals in bf16, drawn after the tokens)."""
 
     def __init__(self, dc: DataConfig, cfg=None):
-        if cfg is not None and (cfg.family == "encdec"
-                                or cfg.frontend is not None):
-            raise NotImplementedError(
-                f"{cfg.name}: frame / patch batches come with the "
-                "encoder-decoder and frontend slices of the port")
         self.dc = dc
         self.cfg = cfg
         root = np.random.default_rng(dc.seed)
@@ -76,15 +93,24 @@ class SyntheticLM:
         return out
 
     def batch(self, step: int) -> dict:
-        """Pure function of step: host tensors tokens / labels (B, S) int64
-        and mask (B, S) f32."""
-        dc = self.dc
+        """Pure function of step: host tensors tokens / labels (B, S_tok)
+        int64 and mask (B, S_tok) f32; an encoder-decoder's ``frames`` (B,
+        S/2, D) with S_tok = S/2, a patch frontend's ``patches`` (B, T, D)
+        with S_tok = S - T (both bf16).  The generator's draws come in the
+        JAX package's order, so both packages' batches are equal bit for
+        bit."""
+        dc, cfg = self.dc, self.cfg
         rng = np.random.default_rng((dc.seed, step))
-        b, s = dc.global_batch, dc.seq_len
-        toks = self._tokens(rng, b, s + 1)
-        return {"tokens": torch.from_numpy(toks[:, :-1].copy()),
-                "labels": torch.from_numpy(toks[:, 1:].copy()),
-                "mask": torch.ones((b, s), dtype=torch.float32)}
+        b = dc.global_batch
+        key, n_stub, s_tok = split_positions(cfg, dc.seq_len)
+        toks = self._tokens(rng, b, s_tok + 1)
+        batch = {}
+        if key is not None:
+            batch[key] = _bf16(rng.normal(0, 1, (b, n_stub, cfg.d_model)))
+        batch["tokens"] = torch.from_numpy(toks[:, :-1].copy())
+        batch["labels"] = torch.from_numpy(toks[:, 1:].copy())
+        batch["mask"] = torch.ones((b, s_tok), dtype=torch.float32)
+        return batch
 
     @staticmethod
     def place(batch: dict, device) -> dict:

@@ -304,20 +304,22 @@ def attention_apply(x_full, p, cfg, plan, ctx, *, causal=True, window=None,
     reduces).  ``positions`` defaults to 0..S-1, offset by the seq rank's
     shard under an active seq group, where S is the shard's length and
     attention crosses the group (:func:`sp_attention`).  ``kv_source``
-    (cross-attention keys and values) comes with the encoder-decoder
-    slice; under sequence parallelism it is refused as the JAX package
+    (B, S_enc, D), the encoder's output, makes this cross-attention: keys
+    and values are projected from it with this layer's wk / wv and no
+    rope; under sequence parallelism it is refused as the JAX package
     refuses it."""
     b, s, _ = x_full.shape
-    if kv_source is not None:
-        if ctx.sp_active:
-            raise NotImplementedError(
-                "cross-attention under an active sp axis is not supported")
+    if kv_source is not None and ctx.sp_active:
         raise NotImplementedError(
-            "cross-attention is ported in the encoder-decoder slice")
+            "cross-attention under an active sp axis is not supported")
     if positions is None:
         positions = ctx.sp_index() * s + torch.arange(s,
                                                       device=x_full.device)
-    q, k, v = qkv_project(x_full, p, cfg, plan, ctx, positions)
+    q = q_project(x_full, p, cfg, plan, ctx, positions)
+    if kv_source is not None:
+        k, v = kv_project(kv_source, p, cfg, plan, ctx, None)
+    else:
+        k, v = kv_project(x_full, p, cfg, plan, ctx, positions)
     k = _expand_kv(k, plan, ctx, cfg)
     v = _expand_kv(v, plan, ctx, cfg)
     if ctx.sp_active:

@@ -261,12 +261,17 @@ def lm_head_logits(x, table_local, ctx):
     return (x @ table.T).float()
 
 
-def distributed_argmax(logits, ctx):
+def distributed_argmax(logits, ctx, vocab: int):
     """logits (B, 1, V/tp) -> global argmax token ids (B, 1).  Each rank's
     shard maximum and its global id are gathered over the group; the first
-    maximum wins, across shards as inside one (``jnp.argmax``)."""
+    maximum wins, across shards as inside one (``jnp.argmax``).  Ids at or
+    past ``vocab`` (the rows that pad the head to a multiple of 128) never
+    win: the JAX package's argmax lets them, and a served model then emits
+    a token outside its vocabulary."""
     from repro_torch.core.collectives import all_gather_stack
     v_loc = logits.shape[-1]
+    ids = ctx.tp_rank * v_loc + torch.arange(v_loc, device=logits.device)
+    logits = logits.masked_fill(ids >= vocab, float("-inf"))
     local_val = logits.amax(dim=-1)                         # (B, 1)
     local_arg = torch.argmax(logits, dim=-1) + ctx.tp_rank * v_loc
     vals = all_gather_stack(local_val, ctx.comm)            # (tp, B, 1)

@@ -248,8 +248,8 @@ class Model:
         """This rank's rows of a global batch: the batch is sharded over
         the fsdp axes on dim 0, pod-major (the JAX package's
         ``batch_pspecs``); every TP rank of a data rank takes the same
-        rows.  On the seq mesh, this seq rank's shard of the sequence dim
-        (dim 1) of those rows."""
+        rows (frame and patch stubs too).  On the seq mesh, this seq
+        rank's shard of the sequence dim (dim 1) of those rows."""
         rows = data_pipeline.dp_rows(batch, self.fsdp_rank, self.plan.fsdp)
         if self.sp_axis is None:
             return rows
@@ -265,11 +265,19 @@ class Model:
 
     def batch_shape(self, seq_len: int, global_batch: int) -> dict:
         """Train-batch ``(shape, dtype)`` by key, as the data pipeline
-        emits them (token ids in torch's index dtype)."""
-        b, s = global_batch, seq_len
-        return {"tokens": ((b, s), torch.int64),
-                "labels": ((b, s), torch.int64),
-                "mask": ((b, s), torch.float32)}
+        emits them (token ids in torch's index dtype; the frontend stubs
+        in bf16, split from ``seq_len`` by
+        :func:`~repro_torch.data.pipeline.split_positions`)."""
+        cfg = self.cfg
+        b = global_batch
+        key, n_stub, s_tok = data_pipeline.split_positions(cfg, seq_len)
+        shapes = {}
+        if key is not None:
+            shapes[key] = ((b, n_stub, cfg.d_model), torch.bfloat16)
+        shapes.update({"tokens": ((b, s_tok), torch.int64),
+                       "labels": ((b, s_tok), torch.int64),
+                       "mask": ((b, s_tok), torch.float32)})
+        return shapes
 
     def loss_parts(self, params, batch, ctx):
         """(loss_sum, count, aux): f32 sums over this rank's batch."""

@@ -14,7 +14,9 @@ request-serving system:
     writes the same cache.  Long prompts advance one chunk per tick,
     interleaved with decode ticks.
   * **install** — a finished prefill's one-row cache is copied into its
-    slot-table row (in place), and the slot joins the next decode tick.
+    slot-table row (in place), every leaf of it (an encoder-decoder's
+    cross-attention ``xk`` / ``xv`` too), and the slot joins the next
+    decode tick.
 
 Retirement, admission (the :class:`~repro_torch.serve.kv_pager.KVPager`)
 and prefill advancement happen on the host between device steps.
@@ -62,8 +64,10 @@ REPORTER_MAXLEN = 4096
 
 def _tp_hops_per_token(cfg) -> int:
     """Compressed tp_g AllReduce hops one decode token crosses (embed +
-    two per layer; see serve_step._decode_block)."""
-    return cfg.n_layers * 2 + 1
+    two per layer, three with an encoder-decoder's cross-attention; see
+    serve_step._decode_block)."""
+    per_layer = 3 if cfg.family == "encdec" else 2
+    return cfg.n_layers * per_layer + 1
 
 
 class ServeEngine:

@@ -4,17 +4,25 @@ One new token per sequence against a cache of ``max_len`` positions.  TP
 communication cannot use sequence parallelism here (seq == 1), so the
 residual stream is replicated and every block output goes through the
 compressed two-shot AllReduce ``ctx.tp_g`` — the paper's primary
-configuration: a token crosses ``n_layers * 2 + 1`` hops.
+configuration: a token crosses ``n_layers * 2 + 1`` hops (``* 3 + 1`` for
+the encoder-decoder, whose cross-attention is a third sub-block).
 
 Cache layout (one dict per layer segment, layer-major; local shapes):
   attention : k, v (L, B, S_cache, kv_local, hd) in bf16
   hybrid    : + conv (L, B, 2, di_local) in bf16, h (L, B, di_local, N) f32
   rwkv      : shift_tm, shift_cm (L, B, 1, D) in bf16,
               s (L, B, H_local, hd, hd) f32, and no k / v
+  encdec    : + the cross-attention's xk, xv (L, B, S_enc, kv_local, hd)
+              in bf16, S_enc = S_cache (the JAX package's stub length)
 SWA segments keep a ring buffer of width ``window`` instead of S_cache.
 The decode step writes this cache IN PLACE: the new k/v at the token's
 position, and the recurrent state leaves (:data:`STATE_LEAVES`) over
-their old values.
+their old values.  The decode step reads ``xk`` / ``xv`` and never
+writes them.  The JAX package has no code that fills them either (its
+engine prefills token by token through this step), so a served whisper
+attends to the zero cache, and its cross-attention adds exactly 0 while
+its hops still run; the port mirrors that.  A caller may put an encoder's
+keys and values there.
 """
 from __future__ import annotations
 
@@ -68,6 +76,11 @@ def cache_shapes(model, global_batch: int, max_len: int) -> list:
             di_local = cfg.d_model * cfg.ssm.expand // plan.tp
             entry["conv"] = ((n, b, 2, di_local), COMPUTE_DTYPE)
             entry["h"] = ((n, b, di_local, cfg.ssm.d_state), torch.float32)
+        if cfg.family == "encdec":
+            # the encoder's length is the cache's (the reference's stub)
+            xshape = (n, b, max_len, kv_local, hd)
+            entry["xk"] = (xshape, COMPUTE_DTYPE)
+            entry["xv"] = (xshape, COMPUTE_DTYPE)
         segs.append(entry)
     return segs
 
@@ -112,6 +125,10 @@ def _decode_block(x, lp, cache_l, cfg, plan, ctx, *, kind, pos):
         cache_l["h"].copy_(st["h"])
         partial = gated_sum(partial, ssm_out, lp["branch_gate"])
     x = x + ctx.tp_g(partial)
+    if cfg.family == "encdec":
+        h = ctx.tp_f(apply_norm(x, lp["norm_x"], cfg.norm, cfg.norm_eps))
+        x = x + ctx.tp_g(_cross_decode(h, lp["xattn"], cache_l, cfg, plan,
+                                       ctx))
     h = ctx.tp_f(apply_norm(x, lp["norm2"], cfg.norm, cfg.norm_eps))
     if cfg.family == "moe":
         # the balance loss is a training term: decode drops it
@@ -122,6 +139,24 @@ def _decode_block(x, lp, cache_l, cfg, plan, ctx, *, kind, pos):
     if cfg.mlp == "gelu":
         out = out + lp["mlp"]["b2"].to(out.dtype)
     return x + out
+
+
+def _cross_decode(h, p, cache_l, cfg, plan, ctx):
+    """Cross-attention of the new token (B, 1, D) against the encoder's
+    cached keys and values ``xk`` / ``xv``: every position, no mask, an
+    f32 softmax, the head mask, then ``wo`` — the JAX package's."""
+    b = h.shape[0]
+    q = attn_mod.q_project(h, p, cfg, plan, ctx, None)          # (B,1,H,hd)
+    ke = attn_mod._expand_kv(cache_l["xk"], plan, ctx, cfg)
+    ve = attn_mod._expand_kv(cache_l["xv"], plan, ctx, cfg)
+    scores = torch.einsum("bqhd,bshd->bhqs", q.float() * (1.0 / np.sqrt(
+        cfg.hd)), ke.float())
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqs,bshd->bqhd", probs, ve.float()).to(COMPUTE_DTYPE)
+    out = out * attn_mod.head_mask(plan, ctx, cfg.n_heads, h.device)[
+        None, None, :, None]
+    wo = ctx.weight_gather(p["wo"], 1)
+    return out.reshape(b, 1, -1) @ wo
 
 
 def _decode_positional(x, params, cfg, ctx, pos):
@@ -147,7 +182,9 @@ def _decode_positional(x, params, cfg, ctx, pos):
 @torch.no_grad()
 def decode_forward(params, token, cache, pos, model, ctx,
                    return_logits=False):
-    """token (B,1) -> next_token (B,1) int32[, logits (B,1,V/tp) f32].
+    """token (B,1) -> next_token (B,1) int32[, logits (B,1,V/tp) f32]: the
+    greedy token of the vocabulary, never of its padding (the logits keep
+    the padded columns, as the JAX package's).
 
     ``pos`` is an int shared by the batch or a (B,) tensor of per-slot
     positions (continuous batching — serve/engine.py).  ``cache`` (from
@@ -173,5 +210,5 @@ def decode_forward(params, token, cache, pos, model, ctx,
 
     x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     logits = lm_head_logits(x, head_table(params, cfg), ctx)
-    nxt = distributed_argmax(logits, ctx).to(torch.int32)
+    nxt = distributed_argmax(logits, ctx, cfg.vocab_size).to(torch.int32)
     return (nxt, logits) if return_logits else nxt

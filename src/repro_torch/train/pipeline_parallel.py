@@ -33,11 +33,12 @@ each stage clips with the norm of its own layers and the replicated
 parameters, and each rank reports its own stage's (the reference's step
 reports stage 0's).
 
-Scope, as the reference: decoder-only dense families with one layer
-segment, ``n_layers`` divisible by the stages, no per-layer or warmup
-overrides in the plan.  There is no launcher flag: this builder is the
-entry point, called as the JAX package's ``tests/multidev/
-check_pipeline.py`` calls its twin.
+Scope, as the reference: decoder-only families with one layer segment
+and the token frontend (the reference silently drops frames and
+patches; the port refuses both), ``n_layers`` divisible by the stages,
+no per-layer or warmup overrides in the plan.  There is no launcher
+flag: this builder is the entry point, called as the JAX package's
+``tests/multidev/check_pipeline.py`` calls its twin.
 """
 from __future__ import annotations
 
@@ -85,6 +86,17 @@ def build_pipeline_train_step(model, ctx, oc: adamw.OptConfig,
     the pipe mesh) and the batch is this rank's data rows."""
     cfg = model.cfg
     check_fsdp_axes(model, ctx)
+    if cfg.family == "encdec" or cfg.frontend is not None:
+        # the JAX package's pipeline step reads only tokens, labels and
+        # mask (src/repro/train/pipeline_parallel.py:115-116) and runs its
+        # layers with enc_kv=None (:72-73): it would train whisper's decoder
+        # with no encoder and drop internvl's patches, without a word
+        raise NotImplementedError(
+            f"{cfg.name}: the pipeline step runs the token frontend only; "
+            f"the JAX package's drops the {cfg.frontend!r} stubs "
+            "(src/repro/train/pipeline_parallel.py:115-116 reads tokens, "
+            "labels and mask) and the encoder (blk passes enc_kv=None, "
+            ":72-73)")
     if len(transformer.layer_segments(cfg)) != 1:
         raise NotImplementedError("the pipeline step runs single-segment "
                                   "archs")

@@ -20,6 +20,9 @@ parameters and the optimizer state in place.  The trainer's policy
 engine decides whether a step stands (a negotiated wire bound may have
 overflowed, ``core/policy.py``) between the two, so a replayed step
 starts from untouched state.
+
+:func:`build_eval_step` is the forward alone: the global mean loss over
+the dp groups, with no gradient and no update.
 """
 from __future__ import annotations
 
@@ -123,3 +126,24 @@ def build_train_step(model, ctx, oc: adamw.OptConfig) -> TrainStep:
         return backward_grads(params, objective, model, ctx), loss
 
     return TrainStep(grads, update_step(model, ctx, oc))
+
+
+def build_eval_step(model, ctx):
+    """``eval_step(params, batch) -> loss``: the JAX package's
+    ``build_eval_step`` on one rank of the mesh.  The loss sum and the
+    token count of this rank's rows are summed over the dp axes and their
+    quotient (a 0-d f32 tensor on the device, the same on every rank) is
+    returned; nothing is differentiated or written, and the MoE balance
+    loss is left out, as the reference leaves it out."""
+    check_fsdp_axes(model, ctx)
+    check_sp(model, ctx)
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        loss_sum, count, _ = model.loss_parts(params, batch, ctx)
+        dp = tuple(ctx.axis_group(a) for a in dp_axes(model))
+        loss_sum = psum_exact(loss_sum, dp)
+        count = psum_exact(count, dp)
+        return loss_sum / torch.clamp_min(count, 1.0)
+
+    return eval_step

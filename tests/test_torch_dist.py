@@ -63,6 +63,19 @@ import torch
 
 from conftest import tp_like
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The module on one intra-op thread, as each rank of a group runs
+    (``_worker``), and so each module that imports this fixture: under the
+    suite's parallel workers torch's default of one thread a core
+    oversubscribes the machine and small steps crawl."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 GROUP_TIMEOUT_S = 240
 COLL_TIMEOUT_S = 60
 SEQ, BATCH = 64, 2
@@ -125,6 +138,26 @@ def run_group(tmp_path, p, task, payload):
             if pr.is_alive():
                 pr.terminate()
     return [results[r] for r in range(p)]
+
+
+def beside(args, env, log_path, timeout, fn):
+    """Run ``fn()`` in this process while the command ``args`` runs (the
+    JAX package on forced host devices, say), so that their times
+    overlap.  Returns ``(fn's result, the command's exit code, the tail
+    of its output)``; the command's output goes to ``log_path`` (a pipe
+    nobody reads while ``fn`` runs could fill and stall it), and it is
+    killed if ``fn`` raises or it outlives ``timeout``."""
+    import subprocess
+    with open(log_path, "w") as log, subprocess.Popen(
+            args, env=env, stdout=log, stderr=subprocess.STDOUT) as proc:
+        try:
+            out = fn()
+            proc.wait(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+    with open(log_path) as log:
+        return out, proc.returncode, log.read()[-4000:]
 
 
 # --------------------------------------------------------------------------
@@ -245,6 +278,13 @@ def _serve(rank, p, group, pl):
 TASKS = {"collectives": _collectives, "train": _train, "serve": _serve}
 
 
+def _tasks(rank, p, group, pl):
+    """Every task named in ``pl`` (name -> its payload) in turn, on one
+    group."""
+    return {name: TASKS[name](rank, p, group, payload)
+            for name, payload in pl.items()}
+
+
 # --------------------------------------------------------------------------
 # references in this process
 # --------------------------------------------------------------------------
@@ -303,12 +343,32 @@ def _inputs(p):
             "ar": np.stack([tp_like(gen, (3, 100)) for _ in range(p)])}
 
 
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    """One gloo world of each size for the module, its ranks running the
+    collectives and the training tasks (P = 2 and 4) and the serving task
+    (P = 2) in turn: a world starts once, and each payload is made once.
+    Returns by P the payload, the training task's JAX references
+    (:func:`_train_payload`) and the results, a list by rank of {task:
+    result}."""
+    out = {}
+    for p in (2, 4):
+        train, train_ref = _train_payload(p)
+        payload = {"collectives": _inputs(p), "train": train}
+        if p == 2:
+            payload["serve"] = _serve_payload()
+        out[p] = {"payload": payload, "train_ref": train_ref,
+                  "ranks": run_group(tmp_path_factory.mktemp(f"world{p}"),
+                                     p, _tasks, payload)}
+    return out
+
+
 @pytest.fixture(scope="module", params=[2, 4], ids=["P2", "P4"])
-def collectives(request, tmp_path_factory):
+def collectives(request, worlds):
     p = request.param
-    xs = _inputs(p)
-    return p, xs, run_group(tmp_path_factory.mktemp("coll"), p,
-                            "collectives", xs)
+    w = worlds[p]
+    return (p, w["payload"]["collectives"],
+            [r["collectives"] for r in w["ranks"]])
 
 
 def rel(a, b):
@@ -437,11 +497,11 @@ def _pad_heads(tree, cfg, heads_pad):
     return dict(tree, segments=[seg])
 
 
-@pytest.fixture(scope="module", params=[2, 4], ids=["P2", "P4"])
-def trained(request, tmp_path_factory):
+def _train_payload(p):
+    """(the training task's payload at tp = ``p``, the JAX references the
+    tests hold it to: the batch, the global weights and the JAX params)."""
     import jax
     from repro.data.pipeline import DataConfig, SyntheticLM
-    p = request.param
     cfg, _, params = _jax_setup(p)
     tree = jax.device_get(params)
     batch = SyntheticLM(DataConfig(cfg.vocab_size, SEQ, BATCH), cfg).batch(0)
@@ -457,9 +517,14 @@ def trained(request, tmp_path_factory):
         runs["padded"] = (PADDED, _pad_heads(jax.device_get(pparams), pcfg,
                                              heads_pad), ("baseline",))
         ref["padded"] = (pcfg, pparams)
-    res = run_group(tmp_path_factory.mktemp("train"), p, "train",
-                    {"batch": nb, "runs": runs})
-    return p, nb, tree, ref, batch, res
+    return {"batch": nb, "runs": runs}, (nb, tree, ref, batch)
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["P2", "P4"])
+def trained(request, worlds):
+    p = request.param
+    nb, tree, ref, batch = worlds[p]["train_ref"]
+    return p, nb, tree, ref, batch, [r["train"] for r in worlds[p]["ranks"]]
 
 
 def _reassemble(model, shards):
@@ -554,20 +619,24 @@ def test_compressed_train_step_matches_the_ports_tp1(trained):
 # serving
 # --------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def served(tmp_path_factory):
+def _serve_payload():
+    """The serving task's payload at tp = 2: the global weights and the
+    teacher-forced tokens."""
     import jax
     from repro.configs import get_config, make_plan, smoke_config
     from repro.models.model import Model
     cfg = smoke_config(get_config("qwen2-0.5b"))
     params = Model(cfg, make_plan(cfg, 2, 1, remat=False)).init(
         jax.random.PRNGKey(0))
-    tree = jax.device_get(params)
     toks = np.random.default_rng(3).integers(0, cfg.vocab_size,
                                              (3, 6)).astype(np.int64)
-    res = run_group(tmp_path_factory.mktemp("serve"), 2, "serve",
-                    {"tree": tree, "tokens": toks})
-    return tree, toks, res
+    return {"tree": jax.device_get(params), "tokens": toks}
+
+
+@pytest.fixture(scope="module")
+def served(worlds):
+    pl = worlds[2]["payload"]["serve"]
+    return pl["tree"], pl["tokens"], [r["serve"] for r in worlds[2]["ranks"]]
 
 
 def _tp1_decode(tree, toks, spec):

@@ -59,7 +59,6 @@ import contextlib
 import os
 import pathlib
 import pickle
-import subprocess
 import sys
 
 import numpy as np
@@ -69,6 +68,7 @@ import torch
 from test_torch_dist import (_flat, _jax_ag, _jax_codec, _jax_rs,
                              _loss_grads, _port_model, _reassemble, rel,
                              run_group)
+from test_torch_dist import one_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SEQ, BATCH = 64, 2
@@ -192,22 +192,51 @@ def _train_f32(rank, p, group, pl):
     return out
 
 
+def _inputs(p: int) -> dict:
+    """The global f32 weights and the batch of :func:`jax_reference` at tp
+    = ``p``: the JAX package's seeded init needs no device of its own, so
+    this process draws the same bits."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config, make_plan, smoke_config
+    from repro.data.pipeline import DataConfig, SyntheticLM
+    from repro.models.model import Model
+    cfg = smoke_config(get_config("qwen2-0.5b"))
+    params = Model(cfg, make_plan(cfg, p, 1)).init(jax.random.PRNGKey(0),
+                                                   dtype=jnp.float32)
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, SEQ, BATCH), cfg).batch(0)
+    return {"tree": jax.device_get(params),
+            "batch": {k: np.asarray(v) for k, v in batch.items()}}
+
+
 @pytest.fixture(scope="module", params=[2, 4], ids=["P2", "P4"])
 def both(request, tmp_path_factory):
-    """The JAX package's and the port's runs at tp = P."""
+    """The JAX package's and the port's runs at tp = P, side by side
+    (:func:`test_torch_dist.beside`) on the same inputs; the subprocess's
+    draws must be this process's bit for bit."""
+    import jax
+
+    from test_torch_dist import beside
     p = request.param
     tmp = tmp_path_factory.mktemp(f"ref{p}")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS=f"--xla_force_host_platform_device_count={p}")
-    proc = subprocess.run(
-        [sys.executable, __file__, str(p), str(tmp / "jax.pkl")], env=env,
-        capture_output=True, text=True, timeout=JAX_TIMEOUT_S)
-    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    inputs = _inputs(p)
+    nb = {k: v.astype(np.float32 if k == "mask" else np.int64)
+          for k, v in inputs["batch"].items()}
+    port, rc, log = beside(
+        [sys.executable, __file__, str(p), str(tmp / "jax.pkl")], env,
+        tmp / "jax.log", JAX_TIMEOUT_S,
+        lambda: run_group(tmp, p, _train_f32, {"tree": inputs["tree"],
+                                               "batch": nb}))
+    assert rc == 0, log
     with open(tmp / "jax.pkl", "rb") as fh:
         ref = pickle.load(fh)
-    nb = {k: v.astype(np.float32 if k == "mask" else np.int64)
-          for k, v in ref["batch"].items()}
-    port = run_group(tmp, p, _train_f32, {"tree": ref["tree"], "batch": nb})
+    for key, value in inputs.items():
+        for a, b in zip(jax.tree_util.tree_leaves(ref[key]),
+                        jax.tree_util.tree_leaves(value), strict=True):
+            np.testing.assert_array_equal(a, b, err_msg=key)
     return p, ref, port
 
 

@@ -69,6 +69,7 @@ from conftest import tp_like
 from test_torch_dist import rel, run_group
 from test_torch_dist_ref import _f32
 from repro.core.registry import codec_from_spec as jcodec_from_spec
+from test_torch_dist import one_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MESHES = ((1, 2, 2), (2, 2, 1))

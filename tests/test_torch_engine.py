@@ -15,6 +15,7 @@ from repro_torch.launch import serve
 from repro_torch.models.model import Model
 from repro_torch.serve import serve_step as ss
 from repro_torch.serve.engine import ServeEngine
+from test_torch_dist import one_thread  # noqa: F401  (autouse)
 
 MAX_LEN = 32
 

@@ -32,6 +32,7 @@ from repro_torch.core.parallel import ParallelCtx as TCtx
 from repro_torch.core.registry import from_spec as tfrom_spec
 from repro_torch.models.model import Model as TModel
 from repro_torch.serve import serve_step as tss
+from test_torch_dist import one_thread  # noqa: F401  (autouse)
 
 TOL = {"baseline": 2e-2, "taco": 5e-2, "taco_folded": 5e-2,
        "tp=taco,skip_first=1": 5e-2}
@@ -126,10 +127,3 @@ def test_seeded_init_is_deterministic():
     ta, tb = a["segments"][0]["attn"]["wq"], b["segments"][0]["attn"]["wq"]
     assert torch.equal(ta, tb)
     assert not torch.equal(ta, c["segments"][0]["attn"]["wq"])
-
-
-@pytest.mark.parametrize("name", ["whisper-small", "internvl2-1b"])
-def test_other_families_raise_naming_the_slice(name):
-    cfg = tconfigs.smoke_config(tconfigs.get_config(name))
-    with pytest.raises(NotImplementedError, match="slice"):
-        TModel(cfg, tconfigs.make_plan(cfg, 1, 1), device="cpu")

@@ -82,7 +82,6 @@ import dataclasses
 import os
 import pathlib
 import pickle
-import subprocess
 import sys
 import zlib
 
@@ -103,6 +102,7 @@ from repro_torch.core.parallel import ParallelCtx as TCtx
 from repro_torch.core.registry import from_spec as tfrom_spec
 from repro_torch.models import moe as tmoe
 from repro_torch.models.model import _to_tensor
+from test_torch_dist import one_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCHS = ("grok-1-314b", "llama4-maverick-400b-a17b")
@@ -402,26 +402,34 @@ def _train_setup(name=GROK):
     return model, params, tmodel, batch, tbatch
 
 
+#: the jitted objective of each (config, plan, spec, aux weight), compiled
+#: once for the module: the tests that call it again (other params, the
+#: same shapes) reuse the compiled step
+_OBJECTIVES: dict = {}
+
+
 def _jax_objective_grads(model, params, batch, spec, aux_weight=0.01):
     """The JAX train step's loss_fn (cross-entropy plus the balance term)
     on a 1-device mesh: (cross-entropy, aux, finalized grads)."""
-    from repro.optim import adamw as jadamw
-    ctx = ParallelCtx(plan=from_spec(spec))
-    mesh = jax.make_mesh((1, 1, 1), ("pod", "data", "model"))
-    pspecs = model.partition_specs()
+    key = (model.cfg, model.plan, spec, aux_weight)
+    if key not in _OBJECTIVES:
+        from repro.optim import adamw as jadamw
+        ctx = ParallelCtx(plan=from_spec(spec))
+        mesh = jax.make_mesh((1, 1, 1), ("pod", "data", "model"))
+        pspecs = model.partition_specs()
 
-    def fn(p, b):
-        def loss_fn(q):
-            loss_sum, count, aux = model.loss_parts(q, b, ctx)
-            ce = loss_sum / jnp.maximum(count, 1.0)
-            return ce + aux_weight * aux, (ce, aux)
-        (_, (ce, aux)), grads = jax.value_and_grad(loss_fn,
-                                                   has_aux=True)(p)
-        return ce, aux, jadamw.finalize_grads(grads, model)
-    f = jax.jit(shard_map(fn, mesh=mesh,
-                          in_specs=(pspecs, model.batch_pspecs()),
-                          out_specs=(P(), P(), pspecs), check_vma=False))
-    ce, aux, grads = f(params, batch)
+        def fn(p, b):
+            def loss_fn(q):
+                loss_sum, count, aux = model.loss_parts(q, b, ctx)
+                ce = loss_sum / jnp.maximum(count, 1.0)
+                return ce + aux_weight * aux, (ce, aux)
+            (_, (ce, aux)), grads = jax.value_and_grad(loss_fn,
+                                                       has_aux=True)(p)
+            return ce, aux, jadamw.finalize_grads(grads, model)
+        _OBJECTIVES[key] = jax.jit(shard_map(
+            fn, mesh=mesh, in_specs=(pspecs, model.batch_pspecs()),
+            out_specs=(P(), P(), pspecs), check_vma=False))
+    ce, aux, grads = _OBJECTIVES[key](params, batch)
     return float(ce), float(aux), [np.asarray(g, np.float32) for g in
                                    jax.tree_util.tree_leaves(grads)]
 
@@ -920,26 +928,55 @@ def _global(specs, per_rank, coords, shape):
     return out
 
 
+def _inputs() -> dict:
+    """The weights and batches of the tp = 2 and mesh cases, drawn as
+    :func:`jax_reference` draws them: the JAX package's seeded init needs
+    no device of its own, so this process draws the same bits."""
+    from repro.data.pipeline import DataConfig, SyntheticLM
+    from repro.models.model import Model
+    cfg, _ = _cfgs(GROK)
+    out = {}
+    for key, (tp, fsdp), rows in (("tp", (2, 1), BATCH),
+                                  ("mesh", (MESH[2], MESH[0] * MESH[1]), 4)):
+        model = Model(cfg, make_plan(cfg, tp, fsdp))
+        out[f"{key} tree"] = jax.device_get(model.init(
+            jax.random.PRNGKey(0), dtype=jnp.float32))
+        out[f"{key} batch"] = {k: np.asarray(v) for k, v in SyntheticLM(
+            DataConfig(cfg.vocab_size, SEQ, rows), cfg).batch(0).items()}
+    return out
+
+
 @pytest.fixture(scope="module")
 def both(tmp_path_factory):
-    from test_torch_dist import run_group
+    """The JAX package's results and the port's gloo worlds, run side by
+    side (:func:`test_torch_dist.beside`) on the same inputs; the
+    subprocess's draws must be this process's bit for bit."""
+    from test_torch_dist import beside, run_group
     tmp = tmp_path_factory.mktemp("moe")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    proc = subprocess.run([sys.executable, __file__, str(tmp / "jax.pkl")],
-                          env=env, capture_output=True, text=True,
-                          timeout=JAX_TIMEOUT_S)
-    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
-    with open(tmp / "jax.pkl", "rb") as fh:
-        ref = pickle.load(fh)
+    inputs = _inputs()
 
     def nb(b):
         return {k: v.astype(np.float32 if k == "mask" else np.int64)
                 for k, v in b.items()}
-    tp2 = run_group(tmp, 2, _tp2_task, {"tree": ref["tp tree"],
-                                        "batch": nb(ref["tp batch"])})
-    mesh = run_group(tmp, 4, _mesh_task, {"tree": ref["mesh tree"],
-                                          "batch": nb(ref["mesh batch"])})
+
+    def port():
+        tp2 = run_group(tmp, 2, _tp2_task, {"tree": inputs["tp tree"],
+                                            "batch": nb(inputs["tp batch"])})
+        mesh = run_group(tmp, 4, _mesh_task, {
+            "tree": inputs["mesh tree"], "batch": nb(inputs["mesh batch"])})
+        return tp2, mesh
+    (tp2, mesh), rc, log = beside(
+        [sys.executable, __file__, str(tmp / "jax.pkl")], env,
+        tmp / "jax.log", JAX_TIMEOUT_S, port)
+    assert rc == 0, log
+    with open(tmp / "jax.pkl", "rb") as fh:
+        ref = pickle.load(fh)
+    for key, value in inputs.items():
+        for a, b in zip(jax.tree_util.tree_leaves(ref[key]),
+                        jax.tree_util.tree_leaves(value), strict=True):
+            np.testing.assert_array_equal(a, b, err_msg=key)
     return ref, tp2, mesh
 
 

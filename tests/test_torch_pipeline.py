@@ -72,6 +72,7 @@ import torch
 
 from test_torch_dist import rel, run_group
 from test_torch_dist_ref import _f32
+from test_torch_dist import one_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SEQ, BATCH, MICRO, LAYERS = 32, 8, 4, 4

@@ -42,6 +42,7 @@ from repro_torch.core import policy
 from repro_torch.core import registry as treg
 from repro_torch.core import telemetry as ttel
 from test_torch_dist import run_group
+from test_torch_dist import one_thread  # noqa: F401  (autouse)
 
 ID = treg.codec_from_spec("none")
 TRANSPORTS = ["", ":chunks=4", ":chunks=4:schedule=serial"]

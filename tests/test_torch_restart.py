@@ -51,6 +51,7 @@ import pytest
 import torch
 
 from test_torch_dist import run_group
+from test_torch_dist import one_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 POD_MESH, PIPE_MESH, ELASTIC_MESH = (1, 2, 2), (2, 1, 2), (2, 2, 1)

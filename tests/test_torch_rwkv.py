@@ -53,7 +53,6 @@ from __future__ import annotations
 import os
 import pathlib
 import pickle
-import subprocess
 import sys
 
 import jax
@@ -76,6 +75,7 @@ from test_torch_ssm import (DECODE_BATCH, DECODE_STEPS, DECODE_TOL, OPT,
                             _flat, _jax_decode, _jax_step_grads, _port_decode,
                             _port_step, _t, _tbatch, rel,
                             replay_against_static)
+from test_torch_dist import one_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 RWKV = "rwkv6-1.6b"
@@ -690,23 +690,54 @@ def _pipe(pl):
     return out + (mesh.coords,)
 
 
+def _inputs() -> dict:
+    """The weights and batches of the tp = 2, mesh and pipe cases, drawn
+    as :func:`jax_reference` draws them: the JAX package's seeded init
+    needs no device of its own, so this process draws the same bits."""
+    from repro.models.model import Model
+    cfg, _ = _cfgs()
+    pipe, data, tp = PIPE
+    out = {}
+    for key, model, batch in (
+            ("tp", Model(cfg, make_plan(cfg, 2, 1)), _batch(cfg)),
+            ("mesh", Model(cfg, make_plan(cfg, MESH[2], MESH[0] * MESH[1])),
+             _batch(cfg, seq=32, batch=4)),
+            ("pipe", Model(cfg, make_plan(cfg, tp, data),
+                           fsdp_axes=("data",), tp_axis="model"),
+             _batch(cfg, seq=PIPE_SEQ, batch=PIPE_BATCH))):
+        out[f"{key} tree"] = jax.device_get(_drawn_params(model))
+        out[f"{key} batch"] = {k: np.asarray(v) for k, v in batch.items()}
+    return out
+
+
 @pytest.fixture(scope="module")
 def both(tmp_path_factory):
-    from test_torch_dist import run_group
+    """The JAX package's results and the port's gloo worlds, run side by
+    side (:func:`test_torch_dist.beside`) on the same inputs; the
+    subprocess's draws must be this process's bit for bit."""
+    from test_torch_dist import beside, run_group
     tmp = tmp_path_factory.mktemp("rwkv")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    proc = subprocess.run([sys.executable, __file__, str(tmp / "jax.pkl")],
-                          env=env, capture_output=True, text=True,
-                          timeout=JAX_TIMEOUT_S)
-    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    inputs = _inputs()
+
+    def port():
+        tp2 = run_group(tmp, 2, _tp2_and_pipe_task, {
+            k: inputs[k] for k in ("tp tree", "tp batch", "pipe tree",
+                                   "pipe batch")})
+        mesh = run_group(tmp, 4, _mesh_task, {"tree": inputs["mesh tree"],
+                                              "batch": inputs["mesh batch"]})
+        return tp2, mesh
+    (tp2, mesh), rc, log = beside(
+        [sys.executable, __file__, str(tmp / "jax.pkl")], env,
+        tmp / "jax.log", JAX_TIMEOUT_S, port)
+    assert rc == 0, log
     with open(tmp / "jax.pkl", "rb") as fh:
         ref = pickle.load(fh)
-    tp2 = run_group(tmp, 2, _tp2_and_pipe_task, {
-        k: ref[k] for k in ("tp tree", "tp batch", "pipe tree",
-                            "pipe batch")})
-    mesh = run_group(tmp, 4, _mesh_task, {"tree": ref["mesh tree"],
-                                          "batch": ref["mesh batch"]})
+    for key, value in inputs.items():
+        for a, b in zip(jax.tree_util.tree_leaves(ref[key]),
+                        jax.tree_util.tree_leaves(value), strict=True):
+            np.testing.assert_array_equal(a, b, err_msg=key)
     return ref, tp2, mesh, [r["pipe"] for r in tp2]
 
 

@@ -87,6 +87,7 @@ from test_torch_dp import (IDENTITY_BOUNDS, OPT, _flat, _global,
                            _port_step, _tree)
 from test_torch_lossless import _jax_spec
 from test_torch_registry import SUPPORTED
+from test_torch_dist import one_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 #: the all-to-all's per-rank input: dims 1 and 2 divide by 2 and 4

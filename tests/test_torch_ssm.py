@@ -43,7 +43,6 @@ import dataclasses
 import os
 import pathlib
 import pickle
-import subprocess
 import sys
 
 import jax
@@ -64,6 +63,7 @@ from repro_torch.core.parallel import ParallelCtx as TCtx
 from repro_torch.core.registry import from_spec as tfrom_spec
 from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as ttr
+from test_torch_dist import one_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 HYMBA = "hymba-1.5b"
@@ -620,18 +620,31 @@ def _tp2_task(rank, p, group, pl):
 
 @pytest.fixture(scope="module")
 def tp2(tmp_path_factory):
-    from test_torch_dist import run_group
+    """The JAX package's results and the port's gloo world, run side by
+    side (:func:`test_torch_dist.beside`) on the same inputs: the JAX
+    package's seeded init needs no device of its own, so this process
+    draws the subprocess's weights bit for bit."""
+    from repro.models.model import Model
+    from test_torch_dist import beside, run_group
     tmp = tmp_path_factory.mktemp("ssm")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    proc = subprocess.run([sys.executable, __file__, str(tmp / "jax.pkl")],
-                          env=env, capture_output=True, text=True,
-                          timeout=JAX_TIMEOUT_S)
-    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    cfg, _ = _cfgs()
+    inputs = {"tree": jax.device_get(Model(cfg, make_plan(cfg, 2, 1)).init(
+        jax.random.PRNGKey(0), dtype=jnp.float32)),
+              "batch": {k: np.asarray(v) for k, v in _batch(cfg).items()}}
+    ranks, rc, log = beside(
+        [sys.executable, __file__, str(tmp / "jax.pkl")], env,
+        tmp / "jax.log", JAX_TIMEOUT_S,
+        lambda: run_group(tmp, 2, _tp2_task, inputs))
+    assert rc == 0, log
     with open(tmp / "jax.pkl", "rb") as fh:
         ref = pickle.load(fh)
-    return ref, run_group(tmp, 2, _tp2_task, {"tree": ref["tree"],
-                                              "batch": ref["batch"]})
+    for key, value in inputs.items():
+        for a, b in zip(jax.tree_util.tree_leaves(ref[key]),
+                        jax.tree_util.tree_leaves(value), strict=True):
+            np.testing.assert_array_equal(a, b, err_msg=key)
+    return ref, ranks
 
 
 def _tp2_specs():

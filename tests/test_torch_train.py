@@ -52,6 +52,7 @@ from repro_torch.models.model import Model as TModel
 from repro_torch.optim import adamw as tadamw
 from repro_torch.train import trainer as ttrainer
 from repro_torch.train.train_step import build_train_step as tbuild
+from test_torch_dist import one_thread  # noqa: F401  (autouse)
 
 SEQ, BATCH = 64, 2
 SPECS = {"baseline": 2e-2, "taco": 5e-2}
@@ -341,17 +342,23 @@ def test_trainer_refuses_what_the_slice_lacks():
     """Checkpoints and fault injection are ported (``ckpt_dir``,
     ``injector``: tests/test_torch_checkpoint.py), and so are the policy
     controllers (tests/test_torch_policy.py): both specs below parse and
-    train.  ``remat_policy='dots'`` is not ported.  ``escalate=`` needs a
-    registered fallback and a threshold: ``escalate=sdp4bit`` is refused
-    as the JAX registry refuses it."""
+    train.  ``remat_policy='dots'`` is ported: it trains, and its loss is
+    full recompute's (tests/test_torch_encdec.py holds its grads).
+    ``escalate=`` needs a registered fallback and a threshold:
+    ``escalate=sdp4bit`` is refused as the JAX registry refuses it."""
     cfg = tconfigs.smoke_config(tconfigs.get_config("qwen2-0.5b"))
     model = TModel(cfg, tconfigs.make_plan(cfg, 1, 1), device="cpu")
     data = tpipe.SyntheticLM(tpipe.DataConfig(cfg.vocab_size, 32, 2))
     plan = dataclasses.replace(tconfigs.make_plan(cfg, 1, 1),
                                remat_policy="dots")
-    with pytest.raises(NotImplementedError, match="dots"):
-        TModel(cfg, plan, device="cpu").loss_parts(
-            model.init(0), data.batch(0), TCtx())
+    losses = {}
+    for m in (model, TModel(cfg, plan, device="cpu")):
+        tr = ttrainer.Trainer(m, TCtx(), tadamw.OptConfig(**OPT),
+                              ttrainer.TrainerConfig(total_steps=2), data)
+        tr.run()
+        losses[m.plan.remat_policy] = tr.losses
+    assert losses["dots"] == losses["full"]
+    assert len(losses["dots"]) == 2 and np.isfinite(losses["dots"]).all()
     from repro.core.registry import CommSpecError as JCommSpecError
     from repro_torch.core.registry import CommSpecError
     for bad in ("tp=taco:escalate=sdp4bit", "tp=taco:escalate=sdp4bit@0.1"):

@@ -31,7 +31,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      timed.  Phase 1c
      holds K7 (``compress_blocks_butterfly``, on no path) against its
      plain version at the serve and training shapes with B = 256 and at
-     B = 64 and 512, and times it beside K1.  Phase 1d runs one hop of
+     B = 32, 64, 128 and 512, and times it beside K1 (and alone at B = 32
+     and 128).  Phase 1d runs one hop of
      each ablation configuration (``F1_SPECS``) on the card against the
      same hop on the CPU: ``b128`` and ``cdbfloat16`` through the kernels,
      the configurations with no kernel (another transform, tensor scales)
@@ -219,9 +220,27 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      whisper's against a seeded nonzero cross cache.  Phase 1 times
      K2/K5/K6 at whisper's decode hop (4 x 768), phase 1b K1/K3/K4 at its
      training hop (4 x 1024 x 768).
+ 14. the JAX package's tools in the port.  14a: the dry run's check
+     (``launch/dryrun.py``) of phase 3's cell (qwen2-0.5b at
+     ``QWEN_LAYERS``, batch 4 x 2048, one rank): its params and AdamW
+     bytes equal the storage of the state phase 3's taco trainer
+     allocated on the card (the step's peak printed beside them).  14b:
+     the dry run's hops a step equal phase 3's counted K3 / K4 launches
+     (74 / 62, their sum K1's 136) and its packed bytes the trainer's
+     ``comm/tp_*_bytes_per_elem`` keys, with no second step run.  14c:
+     the four example twins in this process (``examples/torch_*.py``):
+     the quickstart, ``torch_train_lm`` at gpt-100m's full width (12 x
+     768) launching ``want_per_step``'s K1 / K3 / K4 with 0 plain routes
+     and a first loss near ln 32000 plus the head's init term, the
+     serving example (wire kernels) and the compression demo.  14d: one
+     smoke training step under a codec registered through
+     ``register_codec`` that delegates to taco equals the ``tp=taco``
+     step bit for bit.  14e: ``launch/roofline.py``'s constants beside
+     the card's SM count and its ``nvidia-smi`` clocks.
 
-Every training and serving run of phases 2, 3, 5, 6, 7, 8, 9, 10, 11, 12
-and 13 must take only kernels: ``ops.plain_routes`` stays 0.  Nothing is
+Every training and serving run of phases 2, 3, 5, 6, 7, 8, 9, 10, 11, 12,
+13 and 14 (but the compression demo's rows without a kernel) must take
+only kernels: ``ops.plain_routes`` stays 0.  Nothing is
 caught: any failure exits non-zero.  The line before the last is the
 kernel table as JSON; the last is ``{"ok": true, "device": {...}}``.
 """
@@ -848,16 +867,19 @@ def phase_butterfly() -> dict:
     """K7 (``compress_blocks_butterfly``) against its plain version under
     the parity rule: bf16 in, e4m3, at the serve shape (n = 3584) and the
     training hop's (n = 7,340,032) with B = 256, and at the training hop's
-    n with B = 64 and B = 512.  K7 and K1 (B = 256 only) are timed at the
-    B = 256 shapes in this phase, each beside its bound and plain
-    version."""
+    n with B = 32, 64, 128 and 512.  K7 and K1 (B = 256 only) are timed at
+    the B = 256 shapes in this phase, each beside its bound and plain
+    version, and K7 alone at B = 32 and 128 (the widths added last)."""
     from repro_torch.core.taco import TacoConfig
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.fwht_butterfly import compress_blocks_butterfly
     gen = np.random.default_rng(2)
     rows = {}
+    timed = ("serve", "train", "train B=32", "train B=128")
     for label, n, b in (("serve", SERVE_N, 256), ("train", TRAIN_N, 256),
+                        ("train B=32", TRAIN_N, 32),
                         ("train B=64", TRAIN_N, 64),
+                        ("train B=128", TRAIN_N, 128),
                         ("train B=512", TRAIN_N, 512)):
         cfg = TacoConfig(block_size=b)
         blocks = tp_like(gen, (1, n)).to(DEVICE, torch.bfloat16).reshape(-1, b)
@@ -878,7 +900,7 @@ def phase_butterfly() -> dict:
               f"flipped={stats['flipped']} meta_rel="
               f"{stats['meta_rel_err']:.2e} err compress_blocks_butterfly="
               f"{err:.2e}")
-        if label not in ("serve", "train"):
+        if label not in timed:
             continue
         work = {
             "compress_blocks_butterfly": (
@@ -890,6 +912,8 @@ def phase_butterfly() -> dict:
             "compress_blocks": (
                 lambda: ops.compress_blocks(blocks, cfg),
                 lambda: ref.compress_blocks_ref(blocks, cfg), 16.0 * n)}
+        if b != 256:
+            del work["compress_blocks"]
         for name, (kern, plain, nops) in work.items():
             (ms, events), plain_ms = kernel_ms(kern, KERNEL_FN[name]), \
                 device_ms(plain)
@@ -1176,6 +1200,7 @@ def phase_train(counters, runs, make=launcher_trainer,
         with nccl_calls() as calls:
             params, opt, hist = trainer.run()
         launches = dict(zip(names, (counters[k].launches for k in names)))
+        state = storage_bytes(params, opt)
         no_plain_routes(f"train {label}")
         peak = torch.cuda.max_memory_allocated() / 2**20
         want_row = [want_of(trainer.ctx.plan)[k] for k in names]
@@ -1225,7 +1250,8 @@ def phase_train(counters, runs, make=launcher_trainer,
               f" idle share {1 - busy / wall:.3f}, TACO kernels "
               f"{taco_ms:.3f} ms; top {top}")
         out[label] = {"hist": hist, "launches": launches, "per_step": want_row,
-                      "attempts": attempts,
+                      "attempts": attempts, "state_bytes": state,
+                      "cfg": trainer.model.cfg,
                       "peak_mib": peak, "mean_ms": mean_ms,
                       "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / mean_ms * 1e3,
                       "step_profile": {"wall_ms": wall, "device_ms": busy,
@@ -2981,6 +3007,270 @@ def phase_reference(arch: str = "qwen2-0.5b") -> float:
     return worst
 
 
+def storage_bytes(*trees) -> dict:
+    """Bytes of the storages under the tensor leaves of ``trees`` (each
+    storage once), by tree: what the allocator handed out for them, less
+    its rounding of each block to 512 bytes."""
+    from repro_torch.optim.adamw import leaves
+    out = []
+    for tree in trees:
+        seen = {}
+        for t in leaves(tree):
+            if isinstance(t, torch.Tensor):
+                st = t.untyped_storage()
+                seen[st.data_ptr()] = st.nbytes()
+        out.append(sum(seen.values()))
+    return out
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` of this checkout as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+#: phase 14c: the example twins' arguments (torch_train_lm at its
+#: default, full-width scale)
+TWIN_ARGS = {"torch_quickstart": ["--steps", "10"],
+             "torch_train_lm": ["--steps", "4"],
+             "torch_serve_decode": [], "torch_compression_demo": []}
+
+
+def phase_dryrun_cell(trained: dict) -> dict:
+    """14a / 14b: the dry run (``launch/dryrun.py``) of phase 3's cell
+    (qwen2-0.5b at ``QWEN_LAYERS`` layers, batch 4 x 2048, mesh (1, 1,
+    1)) against what phase 3's taco run allocated and launched: params +
+    AdamW bytes equal the storage of the trainer's state; the hops a step
+    equal the counted K3 (all-gathers) and K4 (reduce-scatters) launches,
+    their sum K1's; each hop packs ``comm/tp_*_bytes_per_elem`` bytes an
+    element, and one rank sends nothing."""
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.core.registry import from_spec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    taco = trained["taco"]
+    cfg = taco["cfg"]
+    n = TRAIN_BATCH * TRAIN_SEQ * cfg.d_model     # one hop's elements
+    suite = ShapeSuite("phase 3", TRAIN_SEQ, TRAIN_BATCH, "train")
+    mesh = Mesh()
+    model = dryrun.cell_model(cfg, mesh)
+    mem = dryrun.memory(model, suite)
+    params_b, opt_b = taco["state_bytes"]
+    print(f"  14a dry run: params {mem['params']} B, AdamW "
+          f"{mem['opt_state']} B, grads {mem['grads']} B; the trainer's "
+          f"storage: params {params_b} B, AdamW {opt_b} B; the step's peak "
+          f"{taco['peak_mib']:.1f} MiB (activations, grads and the "
+          "allocator's 512-byte rounding on top)")
+    if (mem["params"], mem["opt_state"]) != (params_b, opt_b):
+        raise AssertionError(f"14a: dry run {mem} != allocated params "
+                             f"{params_b} B, AdamW {opt_b} B")
+    plan = from_spec("taco")
+    t = dryrun.tp_traffic(model, suite, plan, mesh)
+    per = dict(zip(("compress_blocks", "decompress_blocks",
+                    "decompress_reduce"), taco["per_step"]))
+    row = taco["hist"][-1]
+    per_elem = {k: row[f"comm/{k}_bytes_per_elem"]
+                for k in ("tp_fwd", "tp_bwd")}
+    hops = t["all_gather"] + t["reduce_scatter"]
+    print(f"  14b dry run: {t['all_gather']} all-gathers + "
+          f"{t['reduce_scatter']} reduce-scatters a step, "
+          f"{t['packed_bytes']:.0f} B packed ({t['packed_bytes'] / hops / n} "
+          f"B an element a hop), {t['link_bytes']:.0f} B sent; phase 3 "
+          f"counted {per} a step, comm keys {per_elem}")
+    if (t["all_gather"], t["reduce_scatter"], hops) != (
+            per["decompress_blocks"], per["decompress_reduce"],
+            per["compress_blocks"]):
+        raise AssertionError(f"14b: dry-run hops {t} vs launches {per}")
+    if t["packed_bytes"] != hops * n * per_elem["tp_fwd"] or \
+            per_elem["tp_fwd"] != per_elem["tp_bwd"] or t["link_bytes"]:
+        raise AssertionError(f"14b: dry-run bytes {t} vs {per_elem}")
+    return {"memory": mem, "allocated": {"params": params_b,
+                                         "opt_state": opt_b},
+            "peak_mib": taco["peak_mib"], "traffic": t,
+            "launches_per_step": per, "comm_bytes_per_elem": per_elem}
+
+
+def phase_twins(counters) -> dict:
+    """14c: the four example twins in this process on the card, with
+    ``TWIN_ARGS``: ``torch_quickstart``, ``torch_train_lm`` at gpt-100m's
+    full width (12 x 768, steps of 8 x 512 under
+    ``tp=taco,grad_rs=sdp4bit``: ``want_per_step``'s K1 / K3 / K4 every
+    step, no wire kernel, 0 plain routes, the first loss within 0.1 of ln
+    32000 + 768 x 4e-4 / 2, the head's init term),
+    ``torch_serve_decode`` (smoke widths: wire kernels, 0 plain routes)
+    and ``torch_compression_demo`` (its tensor-scale and no-transform
+    rows take the plain versions by design)."""
+    from repro_torch.configs import make_plan
+    from repro_torch.core.registry import from_spec
+    from repro_torch.kernels import ops
+    names = list(counters)
+    out = {}
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+        for k in ops.plain_routes:
+            ops.plain_routes[k] = 0
+
+    def read():
+        return {k: counters[k].launches for k in names}
+
+    dev = ["--device", DEVICE]
+    for name, argv in TWIN_ARGS.items():
+        main_path = name != "torch_compression_demo"
+        mod = load_example(name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reset()
+        res = mod.main(argv + dev)
+        torch.cuda.synchronize()
+        launches = read()
+        seconds = time.perf_counter() - t0
+        if main_path:
+            no_plain_routes(f"14c {name}")
+        out[name] = {"launches": launches, "seconds": seconds}
+        print(f"  14c {name}: {seconds:.1f} s, launches "
+              f"{({k: v for k, v in launches.items() if v})}")
+        if name == "torch_train_lm":
+            args = mod.parse_args(argv)
+            cfg = mod.config(args.scale)
+            want = want_per_step(cfg, make_plan(cfg, 1, 1),
+                                 from_spec(args.comm_spec))
+            if len(res) != args.steps or launches != {
+                    k: v * args.steps for k, v in want.items()} or \
+                    not launches["compress_blocks"]:
+                raise AssertionError(f"14c train_lm: launches {launches}, "
+                                     f"want {want} a step")
+            first = res[0]["loss"]
+            expect = math.log(cfg.vocab_size) + cfg.d_model * 4e-4 / 2
+            print(f"  14c torch_train_lm: losses "
+                  f"{[round(h['loss'], 6) for h in res]}, first vs ln V + "
+                  f"d 4e-4 / 2 = {expect:.4f}: {first - expect:+.4f}; "
+                  f"{[round(h['ms'], 3) for h in res]} ms a step")
+            if not all(np.isfinite(h["loss"]) for h in res) or \
+                    abs(first - expect) > 0.1:
+                raise AssertionError(f"14c train_lm: losses {res}")
+            out[name].update(losses=[h["loss"] for h in res],
+                             ms=[h["ms"] for h in res], per_step=want)
+        elif name == "torch_serve_decode":
+            if not launches["compress_wire"] or any(
+                    len(r.tokens) != r.max_new for r in res):
+                raise AssertionError(f"14c serve_decode: {launches}")
+        elif name == "torch_quickstart":
+            if len(res) != int(argv[1]) or not all(
+                    np.isfinite(h["loss"]) for h in res):
+                raise AssertionError(f"14c quickstart: {res}")
+    return out
+
+
+def phase_registered_codec(counters) -> dict:
+    """14d: a codec registered through ``registry.register_codec`` that
+    delegates every method to taco: one smoke training step (grads, then
+    AdamW) on the card under ``tp=delegate`` equals the step under
+    ``tp=taco`` bit for bit, loss, metrics and every updated parameter,
+    through the same kernel launches.  The registration is taken out
+    again."""
+    from repro_torch.configs import get_config, make_plan, smoke_config
+    from repro_torch.core import registry
+    from repro_torch.core.codecs import TacoCodec
+    from repro_torch.core.parallel import ParallelCtx
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import build_train_step
+
+    @dataclasses.dataclass(frozen=True)
+    class Delegate:
+        inner: TacoCodec = TacoCodec()
+        granule = property(lambda self: self.inner.granule)
+        chunks = property(lambda self: self.inner.chunks)
+
+        def wire_layout(self, n):
+            return self.inner.wire_layout(n)
+
+        def encode(self, x):
+            return self.inner.encode(x)
+
+        def decode(self, enc, n, dtype):
+            return self.inner.decode(enc, n, dtype)
+
+        def decode_sum(self, enc, n, dtype):
+            return self.inner.decode_sum(enc, n, dtype)
+
+        def encode_wire(self, x):
+            return self.inner.encode_wire(x)
+
+        def decode_wire(self, wire, n, dtype):
+            return self.inner.decode_wire(wire, n, dtype)
+
+        def decode_sum_wire(self, wire, n, dtype):
+            return self.inner.decode_sum_wire(wire, n, dtype)
+
+        def bytes_per_element(self, in_dtype=None):
+            return self.inner.bytes_per_element()
+
+    taco = registry.get_codec("taco")
+    registry.register_codec("delegate", Delegate,
+                            lambda args: Delegate(taco.parse(args)),
+                            lambda c: taco.unparse(c.inner))
+    try:
+        cfg = smoke_config(get_config("qwen2-0.5b"))
+        model = Model(cfg, make_plan(cfg, 1, 1), device=DEVICE)
+        batch = SyntheticLM.place(SyntheticLM(DataConfig(
+            cfg.vocab_size, 64, 2), cfg).batch(0), model.device)
+        oc = adamw.OptConfig(lr_max=1e-3, warmup_steps=1, total_steps=4)
+        res = {}
+        for spec in ("tp=delegate", "tp=taco"):
+            plan = registry.from_spec(spec)
+            if not isinstance(plan.tp_fwd, registry.Codec):
+                raise AssertionError(f"14d: {spec} is no Codec")
+            params = model.init(0)
+            for c in counters.values():
+                c.launches = 0
+            step = build_train_step(model, ParallelCtx(plan=plan), oc)
+            params, _, m = step(params, adamw.init_opt_state(params), batch)
+            torch.cuda.synchronize()
+            res[spec] = ([m["loss"], m["grad_norm"]] + adamw.leaves(params),
+                         {k: c.launches for k, c in counters.items()
+                          if c.launches})
+        (got, lg), (want, lw) = res.values()
+        same = all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+        print(f"  14d tp=delegate (registered, delegating to taco) vs "
+              f"tp=taco: loss {float(got[0]):.6f} / {float(want[0]):.6f}, "
+              f"{len(got) - 2} params, bitwise equal {same}; launches "
+              f"{lg} / {lw}")
+        if not same or lg != lw or not lg:
+            raise AssertionError("14d: the registered codec's step differs "
+                                 "from taco's")
+        return {"equal": same, "launches": lg, "loss": float(got[0])}
+    finally:
+        registry._CODECS.pop("delegate", None)
+        registry._CODEC_NAME_BY_CLS.pop(Delegate, None)
+
+
+def phase_roofline_constants() -> dict:
+    """14e: ``launch/roofline.py``'s H100 constants beside the card's own
+    SM count and the clocks ``nvidia-smi`` reports."""
+    from repro_torch.launch import roofline as rl
+    props = torch.cuda.get_device_properties(0)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.max.memory,"
+         "clocks.sm,clocks.mem", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    out = {"sms": rl.SMS, "card_sms": props.multi_processor_count,
+           "tensor_clock_hz": rl.TENSOR_CLOCK_HZ,
+           "peak_flops": rl.PEAK_FLOPS, "f32_flops": rl.F32_FLOPS,
+           "hbm_bw": rl.HBM_BW, "nvlink_bw": rl.NVLINK_BW,
+           "net_bw": rl.NET_BW, "card_memory_bytes": props.total_memory,
+           "nvidia_smi_max_sm_max_mem_sm_mem": clocks}
+    print(f"  14e roofline constants: {out}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -3160,6 +3450,20 @@ def main() -> None:
           "patches): 13a serving and 13b training under baseline and taco "
           f"(layers {FRONT_LAYERS}), 13c card vs CPU at smoke size")
     front = phase_frontends(kernels, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t14 = time.monotonic()
+    print(f"phase 14 ({t14 - t_start:.0f} s): the JAX package's tools in "
+          "the port: 14a / 14b the dry run of phase 3's cell against its "
+          "allocation and launches, 14c the four example twins, 14d a "
+          "codec registered through register_codec, 14e the roofline "
+          "constants")
+    tools = {"dryrun": phase_dryrun_cell(trained)}
+    tools["twins"] = phase_twins(kernels)
+    tools["registered"] = phase_registered_codec(kernels)
+    tools["roofline"] = phase_roofline_constants()
+    tools["seconds"] = time.monotonic() - t14
+    print(f"  phase 14: {tools['seconds']:.1f} s")
     meta = {
         "compress_blocks": ("src/repro_torch/kernels/csrc/ash_compress.cu",
                             "src/repro/kernels/ash_compress.py:76", "train"),
@@ -3211,6 +3515,8 @@ def main() -> None:
             wire_names, front[arch]["served"][f"{arch} taco"]["launches"]))
         by_path[f"train {short}"] = front[arch]["trained"]["taco"][
             "launches"]
+    by_path["train lm twin"] = tools["twins"]["torch_train_lm"]["launches"]
+    by_path["serve twin"] = tools["twins"]["torch_serve_decode"]["launches"]
     launches = dict(by_path["serve taco"])
     launches.update({k: by_path["train taco"][k]
                      for k in ("compress_blocks", "decompress_blocks",
@@ -3257,6 +3563,7 @@ def main() -> None:
                 for k, r in front[arch]["served"].items()},
             "reference": front[arch]["reference"],
             "seconds": front[arch]["seconds"]} for arch in FRONT_ARCHS}))
+    print(f"phase 14 tools: {json.dumps(tools, default=str)}")
     print(f"chip_smoke: {time.monotonic() - t_start:.1f}s in all")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

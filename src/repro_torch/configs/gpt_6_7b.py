@@ -1,0 +1,4 @@
+"""Config module for GPT_6_7B (see archs.py for the literal pool values)."""
+from repro_torch.configs.archs import GPT_6_7B as CONFIG
+
+__all__ = ["CONFIG"]

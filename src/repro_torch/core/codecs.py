@@ -243,6 +243,16 @@ class IdentityCodec:
     def wire_layout(self, n):
         return None
 
+    def encode_wire(self, x):
+        raise TypeError("IdentityCodec moves the raw tensor and has no "
+                        "wire form (wire_layout() is None)")
+
+    def decode_wire(self, wire, n, dtype):
+        raise TypeError("IdentityCodec has no wire form")
+
+    def decode_sum_wire(self, wire, n, dtype):
+        raise TypeError("IdentityCodec has no wire form")
+
     def encode(self, x):
         return (x,)
 

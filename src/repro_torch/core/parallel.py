@@ -86,6 +86,13 @@ class CommPlan:
             return CommPlan()
         return self.steady()
 
+    def layer_plans(self, total: int) -> tuple["CommPlan", ...]:
+        """The per-layer plan of each of ``total`` layers, expanded from
+        :meth:`layer_spans` (for tests and telemetry; the model runs the
+        spans)."""
+        return tuple(plan for n, plan in self.layer_spans(0, total, total)
+                     for _ in range(n))
+
     def layer_spans(self, start: int, count: int,
                     total: int) -> tuple[tuple[int, "CommPlan"], ...]:
         """Per-layer overrides resolved to contiguous ``(span_count, plan)``

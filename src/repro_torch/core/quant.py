@@ -8,11 +8,14 @@ representable range; ``group_size`` may be finer than the ASH block.
 from __future__ import annotations
 
 import dataclasses
+from typing import Literal
 
 import torch
 
-__all__ = ["FORMATS", "FormatSpec", "get_format", "quantize_ds",
-           "dequantize_ds"]
+__all__ = ["FORMATS", "FormatName", "FormatSpec", "get_format",
+           "quantize_ds", "dequantize_ds"]
+
+FormatName = Literal["e4m3", "e5m2", "int8"]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -32,14 +32,21 @@ codec), ``int8`` and ``tahquant`` (:func:`register_fallback`).
 
 The implementation tokens ``jnp``, ``pallas`` and ``pallas_interpret``
 name TPU implementations and are rejected: the port chooses the CUDA
-kernel or the plain version by the tensor's device.  The registry's
-extension API for codecs and aliases (``register_codec``, ``get_codec``,
-``register_alias``, ``list_aliases``) is not ported.
+kernel or the plain version by the tensor's device.
+
+The registry is open, as the JAX package's: :func:`register_codec` adds
+a codec head (its class, ``parse`` and ``unparse``), :func:`register_alias`
+a whole-spec alias, :func:`register_stage` a lossless stage and
+:func:`register_fallback` an escalation fallback.  The built-in codecs and
+aliases are registered through the same calls.  A registered codec needs
+no other wiring: the transport, the rings, the policy layer and the
+telemetry call the codec's own methods (the :class:`Codec` protocol), so
+one registration makes it usable on every path, from both launchers.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Protocol, runtime_checkable
 
 from repro_torch.core.codecs import (DEFAULT_HOLD, PIPELINED, SCHEDULES,
                                      IdentityCodec, Int8Codec, Sdp4BitCodec,
@@ -48,15 +55,113 @@ from repro_torch.core.lossless import ZleCodec
 from repro_torch.core.parallel import PATHS, CommPlan
 from repro_torch.core.taco import TacoConfig
 
-__all__ = ["CommSpecError", "codec_from_spec", "codec_to_spec", "from_spec",
-           "to_spec", "list_codecs", "register_stage", "list_stages",
-           "register_fallback", "list_fallbacks", "fallback_codec"]
+__all__ = [
+    "Codec", "CodecEntry", "CommSpecError", "register_codec", "get_codec",
+    "list_codecs", "register_stage", "list_stages",
+    "codec_from_spec", "codec_to_spec", "from_spec", "to_spec",
+    "register_alias", "list_aliases",
+    "register_fallback", "list_fallbacks", "fallback_codec",
+]
 
 _TPU_IMPLS = ("jnp", "pallas", "pallas_interpret")
 
 
 class CommSpecError(ValueError):
     """Malformed or unknown compression spec."""
+
+
+@runtime_checkable
+class Codec(Protocol):
+    """The wire-codec protocol every registered codec implements.
+
+    ``encode`` maps a 2-D ``(slots, n)`` tensor (``n`` a multiple of
+    ``granule``) to a tuple of wire tensors; ``decode`` inverts it, and
+    ``decode_sum`` sums a stacked peer axis (the reduce-scatter's
+    receiver).  ``wire_layout(n)`` publishes the per-slot byte layout of
+    ``encode``'s output (a ``codecs.WireLayout``), so the transport moves
+    every component as one packed uint8 buffer; None for a codec that
+    moves the raw tensor (then ``chunks=`` is refused).
+
+    ``encode_wire`` / ``decode_wire`` / ``decode_sum_wire`` are the
+    wire-native paths the transport calls: they write and read the packed
+    buffer and must equal ``pack_wire(encode(x), wire_layout(n))`` (and
+    the decodes of ``unpack_wire``) bit for bit — inherit
+    ``codecs.WireFastPath`` for those compositions, or route to kernels,
+    as ``TacoCodec`` does."""
+
+    @property
+    def granule(self) -> int: ...
+
+    def wire_layout(self, n): ...
+
+    def encode(self, x): ...
+
+    def decode(self, enc, n, dtype): ...
+
+    def decode_sum(self, enc, n, dtype): ...
+
+    def encode_wire(self, x): ...
+
+    def decode_wire(self, wire, n, dtype): ...
+
+    def decode_sum_wire(self, wire, n, dtype): ...
+
+    def bytes_per_element(self, in_dtype=None) -> float: ...
+
+
+# --------------------------------------------------------------------------
+# registry core
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CodecEntry:
+    name: str
+    cls: type
+    parse: Callable        # (args: tuple[str, ...]) -> codec instance
+    unparse: Callable      # (codec) -> tuple[str, ...] of normalized args
+
+
+_CODECS: dict[str, CodecEntry] = {}
+_CODEC_NAME_BY_CLS: dict[type, str] = {}
+_ALIASES: dict[str, str] = {}
+
+
+def register_codec(name: str, cls: type, parse: Callable,
+                   unparse: Callable) -> None:
+    """Register a wire codec under ``name``.  ``parse(args)`` builds an
+    instance from the colon-separated spec args; ``unparse(codec)`` emits
+    its normalized (non-default, fixed-order) args, so that
+    ``parse(unparse(c)) == c`` for every instance of ``cls``."""
+    if name in _CODECS:
+        raise ValueError(f"codec {name!r} already registered")
+    _CODECS[name] = CodecEntry(name, cls, parse, unparse)
+    _CODEC_NAME_BY_CLS.setdefault(cls, name)
+
+
+def get_codec(name: str) -> CodecEntry:
+    """The :class:`CodecEntry` registered as ``name`` (``CommSpecError``
+    naming the registered set when there is none)."""
+    try:
+        return _CODECS[name]
+    except KeyError:
+        raise CommSpecError(
+            f"unknown codec {name!r}; registered: {sorted(_CODECS)}") from None
+
+
+def list_codecs() -> list[str]:
+    """Sorted names of every registered codec (the codec heads of the
+    grammar)."""
+    return sorted(_CODECS)
+
+
+def register_alias(name: str, spec: str) -> None:
+    """Register a whole-spec alias (e.g. ``taco3d``)."""
+    _ALIASES[name] = spec
+
+
+def list_aliases() -> dict[str, str]:
+    """Copy of the alias table (alias -> the spec it expands to)."""
+    return dict(_ALIASES)
 
 
 # --------------------------------------------------------------------------
@@ -310,21 +415,21 @@ def _group_codec(cls, name):
         out += _escalation_args(codec)
         return tuple(out)
 
-    return cls, parse, unparse
+    return parse, unparse
 
 
-_CODECS = {"none": (IdentityCodec, _parse_identity, lambda c: ()),
-           "taco": (TacoCodec, _parse_taco, _unparse_taco),
-           "sdp4bit": (Sdp4BitCodec, _parse_sdp4bit, _unparse_sdp4bit),
-           "tahquant": _group_codec(TahQuantCodec, "tahquant"),
-           "int8": _group_codec(Int8Codec, "int8")}
-_ALIASES = {"identity": "baseline", "baseline": "", "taco": "tp=taco",
-            "taco_folded": "tp=taco:folded",
-            "taco3d": "tp=taco,grad_rs=sdp4bit,pp=tahquant"}
+register_codec("none", IdentityCodec, _parse_identity, lambda c: ())
+register_codec("taco", TacoCodec, _parse_taco, _unparse_taco)
+register_codec("sdp4bit", Sdp4BitCodec, _parse_sdp4bit, _unparse_sdp4bit)
+register_codec("tahquant", TahQuantCodec,
+               *_group_codec(TahQuantCodec, "tahquant"))
+register_codec("int8", Int8Codec, *_group_codec(Int8Codec, "int8"))
 
-
-def list_codecs() -> list[str]:
-    return sorted(_CODECS)
+register_alias("identity", "baseline")
+register_alias("baseline", "")                  # identity everywhere
+register_alias("taco", "tp=taco")
+register_alias("taco_folded", "tp=taco:folded")
+register_alias("taco3d", "tp=taco,grad_rs=sdp4bit,pp=tahquant")
 
 
 # --------------------------------------------------------------------------
@@ -470,9 +575,7 @@ def codec_from_spec(spec: str):
     parts = spec.strip().split(":")
     head, args = parts[0], tuple(parts[1:])
     name, *stages = head.split("+")
-    if name not in _CODECS:
-        raise CommSpecError(
-            f"unknown codec {name!r}; registered: {list_codecs()}")
+    entry = get_codec(name)
     sentries = [_stage_entry(s, spec) for s in stages]
     base_args, stage_args = [], {s: [] for s in stages}
     for tok in args:
@@ -480,12 +583,18 @@ def codec_from_spec(spec: str):
                       if any(tok.startswith(p) for p in se.args)), None)
         (stage_args[owner] if owner else base_args).append(tok)
     try:
-        codec = _CODECS[name][1](tuple(base_args))
+        codec = entry.parse(tuple(base_args))
     except CommSpecError:
         raise
-    except ValueError as e:
+    except Exception as e:  # noqa: BLE001 — surface as a spec error
         raise CommSpecError(f"bad args for codec {name!r}: {spec!r} ({e})") \
             from e
+    wl = getattr(codec, "wire_layout", None)
+    if getattr(codec, "chunks", 1) > 1 and \
+            (wl is None or wl(codec.granule) is None):
+        raise CommSpecError(
+            f"codec {name!r} has no wire layout; 'chunks=' requires one "
+            "(the ring slices the packed wire buffer)")
     for se in sentries:
         codec = _apply_stage(se, codec, tuple(stage_args[se.name]), spec)
     return codec
@@ -503,11 +612,11 @@ def codec_to_spec(codec) -> str:
         extra = tuple(entry.unparse(codec)) if entry.unparse else ()
         out = f"{head}+{stage}{sep}{rest}"
         return ":".join((out,) + extra) if extra else out
-    for name, (cls, _, unparse) in _CODECS.items():
-        if type(codec) is cls:
-            return ":".join((name,) + tuple(unparse(codec)))
-    raise CommSpecError(f"codec class {type(codec).__name__} is not "
-                        "registered")
+    name = _CODEC_NAME_BY_CLS.get(type(codec))
+    if name is None:
+        raise CommSpecError(f"codec class {type(codec).__name__} is not "
+                            "registered")
+    return ":".join((name,) + tuple(_CODECS[name].unparse(codec)))
 
 
 # the precision ladder an escalated path climbs ("bf16": the identity

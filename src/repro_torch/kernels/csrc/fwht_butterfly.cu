@@ -1,7 +1,8 @@
 // ASH compress with a warp-level butterfly rotation (K7):
 //
 //   compress_blocks_butterfly_kernel: (M, B) block rows -> q (M, B) payload
-//   codes, alpha (M,) f32 and s (M, 1) f32, for B in {64, 256, 512}.
+//   codes, alpha (M,) f32 and s (M, 1) f32, for B in {32, 64, 128, 256,
+//   512}.
 //   Replaces the TPU kernel src/repro/kernels/fwht_butterfly.py
 //   compress_blocks_butterfly (pallas_call at line 65, body _compress_kernel
 //   at line 38): per row, sigma = sqrt(mean g^2 + eps), alpha = tau/sigma,
@@ -17,10 +18,11 @@
 // Design, the counterpoint to K1 (one 256-thread block per row, an 8-stage
 // shared-memory butterfly and nine pairs of __syncthreads): ONE WARP PER
 // ROW.  Lane l holds the E = B/32 consecutive elements [l E, l E + E) in
-// registers, read with 16-byte vector loads where E allows (a warp reads
-// its row as one contiguous, coalesced span).  The first log2(E) butterfly
-// stages pair elements inside a lane's registers; the last 5 pair lanes by
-// __shfl_xor_sync.  The stage order and the (a+b, a-b) pairing are those of
+// registers, read with 16-byte vector loads where E allows (8-byte loads of
+// bf16 at E = 4; scalar ones at E = 1 and 2), so a warp reads its row as
+// one contiguous, coalesced span.  The first log2(E) butterfly stages pair
+// elements inside a lane's registers (none at B = 32, where E = 1); the
+// last 5 pair lanes by __shfl_xor_sync.  The stage order and the (a+b, a-b) pairing are those of
 // repro_torch.core.ash.fwht, so the rotation is bit for bit the reference's.
 // Both reductions (sum of squares, max magnitude) are per-lane loops and
 // then warp shuffles.  No shared memory, no barriers; a block of 8 warps
@@ -39,8 +41,9 @@ constexpr int kE4M3 = 0;
 constexpr int kInt8 = 2;
 
 // E consecutive inputs of one lane, as f32.  Vector loads of 16 bytes where
-// the lane's span is a multiple of 16 bytes (rows are 16-byte aligned: the
-// wrapper checks the base pointer and B * sizeof(T) is a multiple of 128).
+// the lane's span is a multiple of 16 bytes, of 8 where it is 8 bytes (rows
+// are 16-byte aligned: the wrapper checks the base pointer, and B *
+// sizeof(T) is a multiple of 64).
 template <int E>
 __device__ __forceinline__ void load_lane(const float* p, float (&v)[E]) {
   if constexpr (E % 4 == 0) {
@@ -58,7 +61,13 @@ __device__ __forceinline__ void load_lane(const float* p, float (&v)[E]) {
 template <int E>
 __device__ __forceinline__ void load_lane(const __nv_bfloat16* p,
                                           float (&v)[E]) {
-  if constexpr (E % 8 == 0) {
+  if constexpr (E == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    v[0] = __uint_as_float(u.x << 16);
+    v[1] = __uint_as_float(u.x & 0xffff0000u);
+    v[2] = __uint_as_float(u.y << 16);
+    v[3] = __uint_as_float(u.y & 0xffff0000u);
+  } else if constexpr (E % 8 == 0) {
 #pragma unroll
     for (int j = 0; j < E; j += 8) {
       // each 32-bit word holds two bf16 values, the lower address in the
@@ -78,10 +87,15 @@ __device__ __forceinline__ void load_lane(const __nv_bfloat16* p,
 }
 
 // E payload bytes of one lane: packed into 32-bit words and written with
-// one 8- or 16-byte store where E is 8 or 16.
+// one 4-, 8- or 16-byte store where E is 4, 8 or 16.
 template <int E>
 __device__ __forceinline__ void store_lane(uint8_t* p, const uint8_t (&c)[E]) {
-  if constexpr (E % 8 == 0) {
+  if constexpr (E == 4) {
+    *reinterpret_cast<uint32_t*>(p) =
+        static_cast<uint32_t>(c[0]) | (static_cast<uint32_t>(c[1]) << 8) |
+        (static_cast<uint32_t>(c[2]) << 16) |
+        (static_cast<uint32_t>(c[3]) << 24);
+  } else if constexpr (E % 8 == 0) {
     uint32_t w[E / 4];
 #pragma unroll
     for (int k = 0; k < E / 4; ++k) {
@@ -190,8 +204,16 @@ int launch_butterfly(const Tin* x, uint8_t* q, float* alpha, float* scale,
       (rows + kWarpsPerBlock - 1) / kWarpsPerBlock));
   const dim3 block(kWarpsPerBlock * 32);
   switch (b) {
+    case 32:
+      compress_blocks_butterfly_kernel<Tin, 1><<<grid, block, 0, st>>>(
+          x, q, alpha, scale, rows, fmt, tau, eps, qmax, inv_sqrt_b);
+      break;
     case 64:
       compress_blocks_butterfly_kernel<Tin, 2><<<grid, block, 0, st>>>(
+          x, q, alpha, scale, rows, fmt, tau, eps, qmax, inv_sqrt_b);
+      break;
+    case 128:
+      compress_blocks_butterfly_kernel<Tin, 4><<<grid, block, 0, st>>>(
           x, q, alpha, scale, rows, fmt, tau, eps, qmax, inv_sqrt_b);
       break;
     case 256:
@@ -211,8 +233,8 @@ int launch_butterfly(const Tin* x, uint8_t* q, float* alpha, float* scale,
 }  // namespace taco
 
 // x: (rows, b) bf16 (in_bf16 != 0) or f32, contiguous, 16-byte aligned;
-// q: (rows, b) payload bytes; alpha, scale: (rows,) f32.  b is 64, 256 or
-// 512.  Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
+// q: (rows, b) payload bytes; alpha, scale: (rows,) f32.  b is 32, 64,
+// 128, 256 or 512.  Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
 // for another b).
 extern "C" int taco_compress_blocks_butterfly(const void* x, void* q,
                                               void* alpha, void* scale,

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -29,8 +30,9 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.ash_compress import FMT_CODE
 
-#: the row widths the kernel takes (B/32 elements per lane: 2, 8, 16)
-BLOCK_SIZES = (64, 256, 512)
+#: the row widths the kernel takes (B/32 elements per lane: 1, 2, 4, 8,
+#: 16), every power of two the JAX kernel's sweep takes
+BLOCK_SIZES = (32, 64, 128, 256, 512)
 
 
 @functools.cache
@@ -46,7 +48,7 @@ def _lib():
 def compress_blocks_butterfly(blocks: torch.Tensor, cfg):
     """(M, B) bf16/f32 block rows -> (q (M, B) storage dtype, alpha (M,)
     f32, s (M, 1) f32), the arrays of ``ref.compress_blocks_butterfly_ref``;
-    B is ``blocks.shape[1]`` (64, 256 or 512 on the card)."""
+    B is ``blocks.shape[1]`` (32 .. 512 on the card)."""
     if blocks.device.type == "cpu":
         return ref.compress_blocks_butterfly_ref(blocks, cfg)
     if blocks.device.type != "cuda":
@@ -82,3 +84,10 @@ def compress_blocks_butterfly(blocks: torch.Tensor, cfg):
 
 
 compress_blocks_butterfly.launches = 0
+
+
+def flops_per_element(b: int) -> dict:
+    """Structural cost of the two rotation forms per tensor element: the
+    dense matmul against the B x B Hadamard matrix (K1's form) and the
+    log2(B)-stage butterfly (this kernel's); the JAX package's counts."""
+    return {"mxu_matmul": 2 * b, "vpu_butterfly": 2 * math.log2(b)}

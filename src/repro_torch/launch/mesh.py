@@ -195,6 +195,22 @@ def init_mesh(shape, device, *, axes: tuple = AXES,
     return Mesh(shape, me, groups, axes)
 
 
+def make_production_mesh(*, multi_pod: bool = False, sp: int = 1) -> Mesh:
+    """The production mesh of the JAX package's ``make_production_mesh``
+    as a :class:`Mesh` of no process groups (a shape to plan against,
+    e.g. the dry run's; nothing joins a process group): single-pod ``(1,
+    16, 16)`` over :data:`AXES` (256 ranks; the JAX mesh ``(16, 16)``
+    over ``("data", "model")``), multi-pod ``(2, 16, 16)`` (512 ranks).
+    ``sp > 1`` carves a ``seq`` axis of ``sp`` ranks out of data (the
+    seq mesh :data:`SP_AXES`, the world unchanged)."""
+    shape, axes = (2 if multi_pod else 1, 16, 16), AXES
+    if sp > 1:
+        if shape[1] % sp:
+            raise ValueError(f"sp={sp} does not divide data axis {shape[1]}")
+        shape, axes = (shape[0], shape[1] // sp, sp, shape[2]), SP_AXES
+    return Mesh(shape, 0, None, axes)
+
+
 def mesh_axis_info(mesh: Mesh):
     """(fsdp_axes, tp_axis, tp, fsdp_size) of a mesh (the JAX package's
     ``launch/mesh.py`` ``mesh_axis_info`` on the pod mesh; on the pipe mesh

@@ -27,7 +27,6 @@ from __future__ import annotations
 import argparse
 import collections
 import time
-import warnings
 
 import numpy as np
 import torch
@@ -37,14 +36,13 @@ from repro_torch.ckpt import checkpoint as ck
 from repro_torch.configs import get_config, make_plan, smoke_config
 from repro_torch.core import collectives as cc
 from repro_torch.core.parallel import ParallelCtx, init_tp_group
+from repro_torch.launch._args import (DEFAULT_SPEC, add_policy_alias,
+                                      resolve_comm_spec)
 from repro_torch.launch.mesh import parse_mesh
 from repro_torch.core.registry import from_spec, to_spec
 from repro_torch.models.layers import tree_map
 from repro_torch.models.model import Model
 from repro_torch.serve.engine import ServeEngine
-
-DEFAULT_SPEC = "taco"
-
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
@@ -56,9 +54,9 @@ def parse_args(argv=None):
                     help="pod,data,model; 1,1,P serves TP over P processes "
                          "(torchrun)")
     ap.add_argument("--comm-spec", default=None, dest="comm_spec",
-                    help="compression plan spec or alias (default: taco)")
-    ap.add_argument("--policy", default=None,
-                    help="deprecated alias for --comm-spec")
+                    help="compression plan spec or alias (default: "
+                         f"{DEFAULT_SPEC})")
+    add_policy_alias(ap)
     ap.add_argument("--qps", type=float, default=16.0,
                     help="synthetic Poisson arrival rate (requests/s)")
     ap.add_argument("--requests", type=int, default=8,
@@ -77,17 +75,6 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     return ap.parse_args(argv)
-
-
-def resolve_comm_spec(args) -> str:
-    """Explicit ``--comm-spec`` > explicit ``--policy`` (deprecated) >
-    the default."""
-    if args.policy is not None:
-        warnings.warn("--policy is deprecated; use --comm-spec",
-                      DeprecationWarning, stacklevel=2)
-        if args.comm_spec is None:
-            return args.policy
-    return args.comm_spec if args.comm_spec is not None else DEFAULT_SPEC
 
 
 def build_engine(args, group=None):

@@ -57,6 +57,8 @@ from repro_torch.core.parallel import ParallelCtx
 from repro_torch.core.registry import from_spec, to_spec
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.core.parallel import SP_AXIS
+from repro_torch.launch._args import (DEFAULT_SPEC, add_policy_alias,
+                                      resolve_comm_spec)
 from repro_torch.launch.mesh import AXES, SP_AXES, init_mesh, parse_mesh
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import OptConfig
@@ -73,9 +75,11 @@ def parse_args(argv=None):
     ap.add_argument("--seq", type=int, default=None,
                     help="sequence length (default 64 smoke, 4096 full)")
     ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--comm-spec", default="taco", dest="comm_spec",
+    ap.add_argument("--comm-spec", default=None, dest="comm_spec",
                     help="compression plan spec or alias, e.g. "
-                         "'tp=taco,warmup=10' or 'baseline'")
+                         "'tp=taco,warmup=10' or 'baseline' (default: "
+                         f"{DEFAULT_SPEC})")
+    add_policy_alias(ap)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the weights")
@@ -122,7 +126,7 @@ def build_trainer(args, group=None, mesh=None):
     seq = args.seq or (64 if args.smoke else 4096)
     if seq % sp:
         raise SystemExit(f"--seq {seq} must be divisible by --sp {sp}")
-    plan = from_spec(args.comm_spec)
+    plan = from_spec(resolve_comm_spec(args))
     if mesh is None and group is None and shape[0] * shape[1] * shape[2] > 1:
         mesh_shape, axes = ((shape[0], shape[1] // sp, sp, shape[2]),
                             SP_AXES) if sp > 1 else (shape, AXES)

@@ -140,6 +140,14 @@ class Model:
         """Global (padded) parameter specs, the JAX package's."""
         return transformer.model_specs(self.cfg, self.plan)
 
+    def abstract_params(self, dtype=COMPUTE_DTYPE):
+        """The global (padded) parameters as ``meta`` tensors of
+        ``dtype``: shapes and types, nothing allocated (the JAX package's
+        ``abstract_params``; ``launch/dryrun.py`` cuts them as
+        :meth:`shard` does)."""
+        return tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
+                                              device="meta"), self.specs())
+
     def shard(self, spec: ParamSpec, full: torch.Tensor,
               stacked: bool = False) -> torch.Tensor:
         """This rank's slice of a global parameter: along ``spec.tp_dim``

@@ -81,6 +81,19 @@ def init_opt_state(params) -> dict:
             "step": 0}
 
 
+def abstract_opt_state(params) -> dict:
+    """The shapes and dtypes of :func:`init_opt_state`'s state, allocating
+    nothing: an f32 ``meta`` tensor for ``master``, ``mu`` and ``nu`` per
+    leaf of ``params`` (tensors, ``meta`` ones included), and the step,
+    which the port keeps as a host int (the JAX package's
+    ``abstract_opt_state``, whose step is an int32 scalar on the
+    device)."""
+    def f32(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+    return {"master": tree_map(f32, params), "mu": tree_map(f32, params),
+            "nu": tree_map(f32, params), "step": 0}
+
+
 def _axis_groups(model, group, fsdp_groups, sp_group=None) -> dict:
     """Mesh axis name -> what the collectives move over along it (the
     model's fsdp axes, one group each; the seq axis on the seq mesh)."""

@@ -224,6 +224,12 @@ class ServeEngine:
                 req.max_new = len(req.tokens)
         self.reporter.count("serve/decode_ticks")
 
+    def extract_slot(self, slot: int) -> list:
+        """A one-row copy of slot ``slot``'s rows of the slot table's cache
+        (per segment, every leaf; tests and prefix reuse)."""
+        return [{k: v[:, slot:slot + 1].clone() for k, v in seg.items()}
+                for seg in self.cache]
+
     def _state_leaves(self, copy: bool = False) -> list:
         """The slot table's recurrent state leaves (none for attention
         caches), or copies of them."""

@@ -25,7 +25,9 @@ from repro.kernels.fwht_butterfly import compress_blocks_butterfly as jk7
 from repro_torch.core.taco import TacoConfig
 from repro_torch.kernels import fwht_butterfly, ref
 
-SHAPES = [(4, 256), (130, 256), (16, 64), (7, 512)]
+SHAPES = [(4, 256), (130, 256), (16, 64), (7, 512),
+          # every power-of-two width of the JAX kernel's sweep
+          (33, 32), (9, 128)]
 
 
 @pytest.fixture
@@ -114,3 +116,18 @@ def test_matmul_form_agrees_as_in_the_reference(rng):
     _, _, s = fwht_butterfly.compress_blocks_butterfly(torch.from_numpy(x),
                                                        TacoConfig())
     np.testing.assert_allclose(s.numpy(), np.asarray(sm), rtol=1e-4)
+
+
+@pytest.mark.parametrize("b", [32, 64, 128, 256, 512])
+def test_flops_per_element_are_the_references(b):
+    """The two rotation forms' structural counts, as the JAX package's."""
+    from repro.kernels.fwht_butterfly import flops_per_element as jflops
+    assert fwht_butterfly.flops_per_element(b) == jflops(b)
+
+
+def test_kernel_widths_are_every_power_of_two_of_the_sweep():
+    """K7 takes the widths K1 to K6 take (B = 32 .. 512), as the TPU
+    kernel takes every power of two."""
+    from repro_torch.kernels import ash_compress
+    assert fwht_butterfly.BLOCK_SIZES == tuple(2 ** k for k in range(5, 10))
+    assert set(fwht_butterfly.BLOCK_SIZES) <= set(ash_compress.BLOCK_SIZES)

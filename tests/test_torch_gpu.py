@@ -227,7 +227,7 @@ def test_train_step_on_card_matches_cpu(card, budget, monkeypatch):
 
 @pytest.mark.parametrize("fmt", ["e4m3", "int8"])
 @pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b", [64, 256, 512])
+@pytest.mark.parametrize("b", [32, 64, 128, 256, 512])
 def test_butterfly_kernel_matches_plain(card, b, in_dtype, fmt, rng):
     """K7 against its plain version: alpha and s within the parity rule's
     metadata tolerance, the payload under its flip rule (each case

@@ -31,10 +31,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      timed.  Phase 1c
      holds K7 (``compress_blocks_butterfly``, on no path) against its
      plain version at the serve and training shapes with B = 256 and at
-     B = 32, 64, 128 and 512, and times it beside K1 (and alone at B = 32
-     and 128).  Phase 1d runs one hop of
-     each ablation configuration (``F1_SPECS``) on the card against the
-     same hop on the CPU: ``b128`` and ``cdbfloat16`` through the kernels,
+     B = 32, 64, 128 and 512, and times it at every one of them (beside K1
+     at B = 256), with its bound share, its achieved bytes/s beside a
+     device copy's, its elements a lane and its registers.  Phase 1d
+     runs one hop of each ablation configuration (``F1_SPECS``) on the
+     card against the same hop on the CPU: ``b128`` and ``cdbfloat16``
+     through the kernels,
      the configurations with no kernel (another transform, tensor scales)
      through the plain versions by the route of ``repro_torch.kernels.ops``
      (and no kernel launch);
@@ -863,19 +865,50 @@ def phase_blocks() -> dict:
     return {"rows": rows, "hops": hops}
 
 
-def phase_butterfly() -> dict:
+def ptxas_registers(log: str) -> dict:
+    """Registers and spilled bytes (stores + loads) of each entry function
+    in an ``nvcc -Xptxas -v`` log, by mangled name."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry:
+            out.setdefault(entry, [0, 0])[1] = int(m.group(1)) + \
+                int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.setdefault(entry, [0, 0])[0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def phase_butterfly(logs: dict | None = None) -> dict:
     """K7 (``compress_blocks_butterfly``) against its plain version under
     the parity rule: bf16 in, e4m3, at the serve shape (n = 3584) and the
     training hop's (n = 7,340,032) with B = 256, and at the training hop's
-    n with B = 32, 64, 128 and 512.  K7 and K1 (B = 256 only) are timed at
-    the B = 256 shapes in this phase, each beside its bound and plain
-    version, and K7 alone at B = 32 and 128 (the widths added last)."""
+    n with B = 32, 64, 128 and 512.  K7 is timed at every one of these
+    shapes beside its bound and plain version, with its bound share, its
+    achieved bytes/s ((3n + 8M) / time) beside a bf16 ``copy_`` of the
+    training hop's n (4n bytes / time: the rate this card reaches at this
+    size), its launch geometry (elements a lane, lanes a row) and the
+    registers and spills ``-Xptxas -v`` printed for its instantiation in
+    ``logs`` (the build's output); K1 at the B = 256 shapes."""
     from repro_torch.core.taco import TacoConfig
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.fwht_butterfly import compress_blocks_butterfly
+    from repro_torch.kernels import fwht_butterfly as fb
+    regs = ptxas_registers((logs or {}).get("fwht_butterfly", ""))
+    src = torch.empty(TRAIN_N, dtype=torch.bfloat16, device=DEVICE)
+    dst = torch.empty_like(src)
+    copy_ms = device_ms(lambda: dst.copy_(src))
+    copy_tb_s = 4 * TRAIN_N / copy_ms / 1e9
+    print(f"    copy_ bf16 n={TRAIN_N}: {copy_ms:.7f} ms, {copy_tb_s:.4f} "
+          f"TB/s (read + write)")
+    del src, dst
     gen = np.random.default_rng(2)
     rows = {}
-    timed = ("serve", "train", "train B=32", "train B=128")
     for label, n, b in (("serve", SERVE_N, 256), ("train", TRAIN_N, 256),
                         ("train B=32", TRAIN_N, 32),
                         ("train B=64", TRAIN_N, 64),
@@ -884,7 +917,7 @@ def phase_butterfly() -> dict:
         cfg = TacoConfig(block_size=b)
         blocks = tp_like(gen, (1, n)).to(DEVICE, torch.bfloat16).reshape(-1, b)
         m = blocks.shape[0]
-        q, a, s = compress_blocks_butterfly(blocks, cfg)
+        q, a, s = fb.compress_blocks_butterfly(blocks, cfg)
         qp, ap, sp = ref.compress_blocks_butterfly_ref(blocks, cfg)
         torch.cuda.synchronize()
         w_k = ref.blocks_to_wire(q, a, s, cfg, 1, n)
@@ -900,11 +933,12 @@ def phase_butterfly() -> dict:
               f"flipped={stats['flipped']} meta_rel="
               f"{stats['meta_rel_err']:.2e} err compress_blocks_butterfly="
               f"{err:.2e}")
-        if label not in timed:
-            continue
+        e = fb.KEPT_E[b]
+        reg = next((v for k, v in regs.items() if re.search(
+            rf"kernelI13__nv_bfloat16Li{b}ELi{e}ELi0E", k)), None)
         work = {
             "compress_blocks_butterfly": (
-                lambda: compress_blocks_butterfly(blocks, cfg),
+                lambda: fb.compress_blocks_butterfly(blocks, cfg),
                 lambda: ref.compress_blocks_butterfly_ref(blocks, cfg),
                 # per element: square-add 2, alpha 1, log2(B) butterfly
                 # adds, 1/sqrt(B) 1, |z| and max 2, z/s 1, clip 2, cast 1
@@ -924,10 +958,20 @@ def phase_butterfly() -> dict:
                   f"({events} launches traced)  plain {plain_ms:.6f} ms  "
                   f"bound {b_ms:.7f} ms ({b_by}); per call: kernel "
                   f"{per_call:.6f} ms  plain {plain_call:.6f} ms")
-            rows.setdefault(name, {})[label] = {
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "max_abs_err": err, "call_ms": per_call,
-                "plain_call_ms": plain_call}
+            r = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "max_abs_err": err, "call_ms": per_call,
+                 "plain_call_ms": plain_call}
+            if name == "compress_blocks_butterfly":
+                r.update(share=b_ms / ms, tb_s=(3 * n + 8 * m) / ms / 1e9,
+                         copy_tb_s=copy_tb_s, e=e, lanes=b // e,
+                         flipped=stats["flipped"],
+                         meta_rel_err=stats["meta_rel_err"],
+                         registers=reg and reg[0], spilled=reg and reg[1])
+                print(f"      share {r['share']:.3f} of the bound; "
+                      f"{r['tb_s']:.4f} TB/s (copy_ {copy_tb_s:.4f}); E = "
+                      f"{e}, {b // e} lanes a row; registers "
+                      f"{r['registers']}, spilled bytes {r['spilled']}")
+            rows.setdefault(name, {})[label] = r
         del blocks, q, a, s, qp, ap, sp
     torch.cuda.empty_cache()
     return rows
@@ -3304,7 +3348,7 @@ def main() -> None:
     rows.update(blocks["rows"])
     print("phase 1c: K7 (compress_blocks_butterfly) vs its plain version "
           "(same rule), timed beside K1")
-    for name, by_label in phase_butterfly().items():
+    for name, by_label in phase_butterfly(logs).items():
         for label, r in by_label.items():
             key = f"{label}, beside K7" if name == "compress_blocks" else label
             rows.setdefault(name, {})[key] = r

@@ -1,8 +1,8 @@
-// ASH compress with a warp-level butterfly rotation (K7):
+// ASH compress with a butterfly rotation (K7):
 //
 //   compress_blocks_butterfly_kernel: (M, B) block rows -> q (M, B) payload
 //   codes, alpha (M,) f32 and s (M, 1) f32, for B in {32, 64, 128, 256,
-//   512}.
+//   512} and bf16 or f32 input.
 //   Replaces the TPU kernel src/repro/kernels/fwht_butterfly.py
 //   compress_blocks_butterfly (pallas_call at line 65, body _compress_kernel
 //   at line 38): per row, sigma = sqrt(mean g^2 + eps), alpha = tau/sigma,
@@ -11,22 +11,46 @@
 //   cfg.scale_eps), and the payload clip(z/s, +-qmax) cast to fp8 or
 //   rounded half to even to int8.
 //
-// Bound on the H100: bytes.  Per element it reads 2 (bf16) or 4 (f32) bytes
-// and writes 1; its 2 log2(B) butterfly adds and ~10 other f32 operations
-// per element are far below the f32 rate per byte moved.
+// Bound on the H100: bytes and the issue rate alike.  Per element it reads
+// 2 (bf16) or 4 (f32) bytes and writes 1, and it issues some 30-40
+// instructions (the unpack, the squares and their pairwise sum, the
+// scale by alpha, log2(B) butterfly adds or shuffles, the scale by
+// 1/sqrt(B), the max, the IEEE division z/s, the cast): at four warp
+// instructions a clock on each of 132 SMs that takes about as long as
+// the bytes at B = 32 and longer above it (scripts/k7_sweep.py counts the
+// loop's SASS).  The first design (one warp per row, B/32 elements a
+// lane) lost on both: each warp-wide shuffle served one row (5 per element
+// for the rotation plus 10 a row for the two reductions), a lane loaded
+// as little as 2 bytes and then exited, and each element took its own
+// fp8 convert.
 //
-// Design, the counterpoint to K1 (one 256-thread block per row, an 8-stage
-// shared-memory butterfly and nine pairs of __syncthreads): ONE WARP PER
-// ROW.  Lane l holds the E = B/32 consecutive elements [l E, l E + E) in
-// registers, read with 16-byte vector loads where E allows (8-byte loads of
-// bf16 at E = 4; scalar ones at E = 1 and 2), so a warp reads its row as
-// one contiguous, coalesced span.  The first log2(E) butterfly stages pair
-// elements inside a lane's registers (none at B = 32, where E = 1); the
-// last 5 pair lanes by __shfl_xor_sync.  The stage order and the (a+b, a-b) pairing are those of
-// repro_torch.core.ash.fwht, so the rotation is bit for bit the reference's.
-// Both reductions (sum of squares, max magnitude) are per-lane loops and
-// then warp shuffles.  No shared memory, no barriers; a block of 8 warps
-// takes 8 rows.
+// Design: SEVERAL ROWS A WARP, E ELEMENTS A LANE.  A lane holds E (a
+// template parameter, chosen per B by the wrapper's launch geometry)
+// consecutive elements of a row, read as whole 16-byte words; L = B/E lanes
+// hold a row and a warp takes R = 32/L rows, so a warp reads one contiguous
+// span of 32 E elements.  The first log2(E) butterfly stages pair elements
+// inside a lane's registers, the last log2(L) pair lanes by
+// __shfl_xor_sync with masks < L (inside the row's segment of L lanes);
+// both reductions shuffle inside the segment too, so one warp-wide shuffle
+// serves R rows.  The stage order (h = 1, 2, 4, ...) and the (a+b, a-b)
+// pairing are repro_torch.core.ash.fwht's, so the rotation is bit for bit
+// the reference's for any E; a cross-lane stage is one fma with +-1
+// (fma(1, v, o) = v + o and fma(-1, v, o) = o - v, each rounded once).
+// Every other product and sum is rounded on its own (no contraction), the
+// sum of squares is ref.pairwise_sum's tree and both divisions are IEEE
+// divisions, so the kernel gives the plain version's bits.  Codes are
+// converted two at a time (cvt ... e4m3x2 / e5m2x2, the same bits as two
+// single converts) and the format is a template parameter.  The grid is
+// persistent (a few blocks on each SM, from the wrapper): a block walks
+// over block steps with a stride of the grid, its warp w taking row group
+// t W + w in step t, and loads the next step's words before it computes
+// the current one, so a lane keeps a load in flight while it computes.
+// The loop's bounds are the same on every thread of a block, so the
+// compiler sees the shuffles in converged code (a loop over a per-warp
+// index made it wrap each shuffle in WARPSYNC / ENDCOLLECTIVE code).  A
+// ragged group loads zeros for its missing rows, computes them (every
+// lane reaches every full-mask shuffle) and skips their stores.  No
+// shared memory, no barriers.
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -34,223 +58,338 @@
 
 namespace taco {
 
-constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxThreads = 256;
 // payload formats (FMT_CODE in the Python wrappers): 0 e4m3, 1 e5m2, 2 int8
 constexpr int kE4M3 = 0;
+constexpr int kE5M2 = 1;
 constexpr int kInt8 = 2;
+// elements a lane built for each B = 32, 64, 128, 256, 512 (the wrapper's
+// fwht_butterfly.KEPT_E); a build with -DTACO_K7_SWEEP takes every E of
+// 8, 16 and 32 that gives 1 .. 32 lanes a row
+constexpr int kKeptE[5] = {32, 32, 32, 32, 32};
 
-// E consecutive inputs of one lane, as f32.  Vector loads of 16 bytes where
-// the lane's span is a multiple of 16 bytes, of 8 where it is 8 bytes (rows
-// are 16-byte aligned: the wrapper checks the base pointer, and B *
-// sizeof(T) is a multiple of 64).
-template <int E>
-__device__ __forceinline__ void load_lane(const float* p, float (&v)[E]) {
-  if constexpr (E % 4 == 0) {
-#pragma unroll
-    for (int j = 0; j < E; j += 4) {
-      const float4 f = *reinterpret_cast<const float4*>(p + j);
-      v[j] = f.x; v[j + 1] = f.y; v[j + 2] = f.z; v[j + 3] = f.w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < E; ++j) v[j] = p[j];
-  }
+constexpr int kept_e(int b) {
+  return b == 32 ? kKeptE[0] : b == 64 ? kKeptE[1] : b == 128 ? kKeptE[2]
+       : b == 256 ? kKeptE[3] : kKeptE[4];
 }
 
-template <int E>
-__device__ __forceinline__ void load_lane(const __nv_bfloat16* p,
-                                          float (&v)[E]) {
-  if constexpr (E == 4) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    v[0] = __uint_as_float(u.x << 16);
-    v[1] = __uint_as_float(u.x & 0xffff0000u);
-    v[2] = __uint_as_float(u.y << 16);
-    v[3] = __uint_as_float(u.y & 0xffff0000u);
-  } else if constexpr (E % 8 == 0) {
-#pragma unroll
-    for (int j = 0; j < E; j += 8) {
-      // each 32-bit word holds two bf16 values, the lower address in the
-      // low half; a bf16 is the top half of its f32 (exact widening)
-      const uint4 u = *reinterpret_cast<const uint4*>(p + j);
-      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        v[j + 2 * k] = __uint_as_float(w[k] << 16);
-        v[j + 2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < E; ++j) v[j] = __bfloat162float(p[j]);
-  }
+constexpr bool built_for(int b, int e) {
+#ifdef TACO_K7_SWEEP
+  return (e == 8 || e == 16 || e == 32) && b / e >= 1 && b / e <= 32;
+#else
+  return e == kept_e(b);
+#endif
 }
 
-// E payload bytes of one lane: packed into 32-bit words and written with
-// one 4-, 8- or 16-byte store where E is 4, 8 or 16.
-template <int E>
-__device__ __forceinline__ void store_lane(uint8_t* p, const uint8_t (&c)[E]) {
-  if constexpr (E == 4) {
-    *reinterpret_cast<uint32_t*>(p) =
-        static_cast<uint32_t>(c[0]) | (static_cast<uint32_t>(c[1]) << 8) |
-        (static_cast<uint32_t>(c[2]) << 16) |
-        (static_cast<uint32_t>(c[3]) << 24);
-  } else if constexpr (E % 8 == 0) {
-    uint32_t w[E / 4];
+// The E inputs of one lane as 16-byte words.
+template <typename Tin, int E>
+struct Words {
+  static constexpr int kN = E * static_cast<int>(sizeof(Tin)) / 16;
+  uint4 w[kN];
+};
+
+template <typename Tin, int E>
+__device__ __forceinline__ void load_words(const Tin* p, Words<Tin, E>& r) {
+  const uint4* s = reinterpret_cast<const uint4*>(p);
 #pragma unroll
-    for (int k = 0; k < E / 4; ++k) {
-      w[k] = static_cast<uint32_t>(c[4 * k]) |
-             (static_cast<uint32_t>(c[4 * k + 1]) << 8) |
-             (static_cast<uint32_t>(c[4 * k + 2]) << 16) |
-             (static_cast<uint32_t>(c[4 * k + 3]) << 24);
-    }
-    if constexpr (E == 16) {
-      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-    } else {
-      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < E; ++j) p[j] = c[j];
-  }
+  for (int k = 0; k < Words<Tin, E>::kN; ++k) r.w[k] = __ldg(s + k);
 }
 
 template <typename Tin, int E>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-compress_blocks_butterfly_kernel(const Tin* __restrict__ x,
-                                 uint8_t* __restrict__ q,
-                                 float* __restrict__ alpha,
-                                 float* __restrict__ scale, long long rows,
-                                 int fmt, float tau, float eps, float qmax,
-                                 float inv_sqrt_b) {
-  constexpr int B = 32 * E;
-  const int lane = threadIdx.x & 31;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;                 // whole warps only
-  const size_t base = static_cast<size_t>(row) * B + lane * E;
+__device__ __forceinline__ void zero_words(Words<Tin, E>& r) {
+#pragma unroll
+  for (int k = 0; k < Words<Tin, E>::kN; ++k) r.w[k] = make_uint4(0, 0, 0, 0);
+}
 
-  float v[E];
-  load_lane<E>(x + base, v);
+template <int E>
+__device__ __forceinline__ void unpack(const Words<float, E>& r,
+                                       float (&v)[E]) {
+#pragma unroll
+  for (int k = 0; k < E / 4; ++k) {
+    v[4 * k] = __uint_as_float(r.w[k].x);
+    v[4 * k + 1] = __uint_as_float(r.w[k].y);
+    v[4 * k + 2] = __uint_as_float(r.w[k].z);
+    v[4 * k + 3] = __uint_as_float(r.w[k].w);
+  }
+}
 
+template <int E>
+__device__ __forceinline__ void unpack(const Words<__nv_bfloat16, E>& r,
+                                       float (&v)[E]) {
+  // each 32-bit word holds two bf16 values, the lower address in the low
+  // half; a bf16 is the top half of its f32 (exact widening)
+#pragma unroll
+  for (int k = 0; k < E / 8; ++k) {
+    const uint32_t w[4] = {r.w[k].x, r.w[k].y, r.w[k].z, r.w[k].w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[8 * k + 2 * i] = __uint_as_float(w[i] << 16);
+      v[8 * k + 2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+
+// Two codes, the first in the low byte.
+template <int FMT>
+__device__ __forceinline__ uint32_t cast2(float a, float b) {
+  if constexpr (FMT == kInt8) {
+    return (static_cast<uint32_t>(__float2int_rn(a)) & 0xffu) |
+           ((static_cast<uint32_t>(__float2int_rn(b)) & 0xffu) << 8);
+  } else {
+    return static_cast<uint32_t>(__nv_cvt_float2_to_fp8x2(
+        make_float2(a, b), __NV_SATFINITE,
+        FMT == kE4M3 ? __NV_E4M3 : __NV_E5M2));
+  }
+}
+
+// One row segment: L lanes of one warp hold the row's B = L E elements in
+// v (lane sl of the segment: elements [sl E, sl E + E)).  Leaves the codes
+// as E/4 packed words and returns alpha and s.  Every product and sum is
+// rounded on its own (__fmul_rn / __fadd_rn: no contraction into an fma),
+// in the plain version's order, so the row's bits are its bits.
+template <int B, int E, int FMT>
+__device__ __forceinline__ void compress_segment(float (&v)[E], int lane,
+                                                 float tau, float eps,
+                                                 float qmax, float inv_sqrt_b,
+                                                 uint32_t (&c)[E / 4],
+                                                 float& alpha, float& s) {
+  constexpr int L = B / E;
   // reduction 1: block RMS energy -> adaptive rescale (alpha before the
-  // rotation, as the reference)
-  float ss = 0.f;
+  // rotation, as the reference).  The sum of squares is the pairwise tree
+  // of ref.compress_blocks_butterfly_ref: adjacent pairs inside the lane,
+  // then lanes l and l ^ o for o = 1, 2, .. (both lanes of a pair get the
+  // same bits: the sum commutes)
+  float sq[E];
 #pragma unroll
-  for (int j = 0; j < E; ++j) ss += v[j] * v[j];
+  for (int j = 0; j < E; ++j) sq[j] = __fmul_rn(v[j], v[j]);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(kFull, ss, o);
-  const float sigma = sqrtf(ss / B + eps);
+  for (int h = 1; h < E; h <<= 1) {
+#pragma unroll
+    for (int j = 0; j < E; j += 2 * h) sq[j] = __fadd_rn(sq[j], sq[j + h]);
+  }
+  float ss = sq[0];
+#pragma unroll
+  for (int o = 1; o < L; o <<= 1)
+    ss = __fadd_rn(ss, __shfl_xor_sync(kFull, ss, o));
+  // mean = ss / B (exact: B is a power of two), then + eps, sqrt and
+  // tau / sigma each rounded once, as the plain version
+  const float sigma = sqrtf(__fadd_rn(__fmul_rn(ss, 1.0f / B), eps));
   const float a = tau / sigma;
 #pragma unroll
-  for (int j = 0; j < E; ++j) v[j] = a * v[j];
+  for (int j = 0; j < E; ++j) v[j] = __fmul_rn(a, v[j]);
 
-  // rotation: log2(E) stages inside the lane, then 5 across lanes
+  // rotation: log2(E) stages inside the lane, then log2(L) across lanes
 #pragma unroll
   for (int h = 1; h < E; h <<= 1) {
 #pragma unroll
     for (int j = 0; j < E; ++j) {
       if ((j & h) == 0) {
         const float p = v[j], r = v[j + h];
-        v[j] = p + r;
-        v[j + h] = p - r;
+        v[j] = __fadd_rn(p, r);
+        v[j + h] = __fsub_rn(p, r);
       }
     }
   }
 #pragma unroll
-  for (int m = 1; m < 32; m <<= 1) {
+  for (int m = 1; m < L; m <<= 1) {
+    const float sg = (lane & m) ? -1.f : 1.f;
 #pragma unroll
-    for (int j = 0; j < E; ++j) {
-      const float o = __shfl_xor_sync(kFull, v[j], m);
-      v[j] = (lane & m) ? (o - v[j]) : (v[j] + o);
-    }
+    for (int j = 0; j < E; ++j)
+      v[j] = fmaf(sg, v[j], __shfl_xor_sync(kFull, v[j], m));
   }
 
   // reduction 2: the block's max magnitude -> one scale
   float mx = 0.f;
 #pragma unroll
   for (int j = 0; j < E; ++j) {
-    v[j] = v[j] * inv_sqrt_b;
+    v[j] = __fmul_rn(v[j], inv_sqrt_b);
     mx = fmaxf(mx, fabsf(v[j]));
   }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
+  for (int o = L / 2; o > 0; o >>= 1)
     mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
-  const float s = fmaxf(mx / qmax, 1e-30f);
+  s = fmaxf(mx / qmax, 1e-30f);
+  alpha = a;
 
-  uint8_t c[E];
+  // z / s is an IEEE division, as the reference's.  The fp8 casts saturate
+  // to the format's largest finite value, which is its qmax, so clipping
+  // first gives the same codes for finite z; int8 is clipped
 #pragma unroll
-  for (int j = 0; j < E; ++j) {
-    const float t = fminf(fmaxf(v[j] / s, -qmax), qmax);
-    if (fmt == kInt8) {
-      c[j] = static_cast<uint8_t>(static_cast<int8_t>(__float2int_rn(t)));
-    } else {
-      c[j] = static_cast<uint8_t>(__nv_cvt_float_to_fp8(
-          t, __NV_SATFINITE, fmt == kE4M3 ? __NV_E4M3 : __NV_E5M2));
+  for (int k = 0; k < E / 4; ++k) {
+    float t[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      t[i] = v[4 * k + i] / s;
+      if constexpr (FMT == kInt8) t[i] = fminf(fmaxf(t[i], -qmax), qmax);
     }
+    c[k] = cast2<FMT>(t[0], t[1]) | (cast2<FMT>(t[2], t[3]) << 16);
   }
-  store_lane<E>(q + base, c);
-  if (lane == 0) {
-    alpha[row] = a;
-    scale[row] = s;
+}
+
+template <int E>
+__device__ __forceinline__ void store_codes(uint8_t* p,
+                                            const uint32_t (&c)[E / 4]) {
+  if constexpr (E == 8) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(c[0], c[1]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < E / 16; ++k)
+      reinterpret_cast<uint4*>(p)[k] =
+          make_uint4(c[4 * k], c[4 * k + 1], c[4 * k + 2], c[4 * k + 3]);
+  }
+}
+
+template <typename Tin, int B, int E, int FMT>
+__global__ void __launch_bounds__(kMaxThreads)
+compress_blocks_butterfly_kernel(const Tin* __restrict__ x,
+                                 uint8_t* __restrict__ q,
+                                 float* __restrict__ alpha,
+                                 float* __restrict__ scale, long long rows,
+                                 float tau, float eps, float qmax,
+                                 float inv_sqrt_b) {
+  constexpr int L = B / E;  // lanes a row
+  constexpr int R = 32 / L;  // rows a warp (a row group)
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  // block steps: in step t the block's warp w takes row group t W + w.
+  // The loop runs over the block's steps t = blockIdx.x, + gridDim.x, ..:
+  // its bounds are the same on every thread of the block, so the compiler
+  // sees every shuffle in converged code.  A ragged group (or a warp past
+  // the last group) loads zeros for its missing rows, computes them and
+  // skips their stores.
+  const long long per_step = static_cast<long long>(warps) * R;
+  const long long steps = (rows + per_step - 1) / per_step;
+  long long t = blockIdx.x;
+  if (t >= steps) return;
+  Words<Tin, E> cur, nxt;
+  // group g's lane span starts at element g 32 E + lane E
+  long long g = t * warps + warp;
+  long long row = g * R + lane / L;
+  if (row < rows)
+    load_words<Tin, E>(x + (static_cast<size_t>(g) * 32 + lane) * E, cur);
+  else
+    zero_words<Tin, E>(cur);
+  for (;;) {
+    const long long tn = t + gridDim.x;
+    const long long gn = tn * warps + warp;
+    const long long row_n = gn * R + lane / L;
+    if (tn < steps) {  // the next step's words, in flight while this one
+      if (row_n < rows)  // computes
+        load_words<Tin, E>(x + (static_cast<size_t>(gn) * 32 + lane) * E,
+                           nxt);
+      else
+        zero_words<Tin, E>(nxt);
+    }
+    float v[E];
+    unpack<E>(cur, v);
+    uint32_t c[E / 4];
+    float a, s;
+    compress_segment<B, E, FMT>(v, lane, tau, eps, qmax, inv_sqrt_b, c, a,
+                                s);
+    if (row < rows) {
+      store_codes<E>(q + (static_cast<size_t>(g) * 32 + lane) * E, c);
+      if ((lane & (L - 1)) == 0) {
+        alpha[row] = a;
+        scale[row] = s;
+      }
+    }
+    if (tn >= steps) break;
+    t = tn;
+    g = gn;
+    row = row_n;
+    cur = nxt;
+  }
+}
+
+struct Args {
+  const void* x;
+  uint8_t* q;
+  float* alpha;
+  float* scale;
+  long long rows;
+  int fmt;
+  float tau, eps, qmax, inv_sqrt_b;
+  dim3 grid, block;
+  cudaStream_t st;
+};
+
+template <typename Tin, int B, int E>
+int launch_e(const Args& a) {
+  if constexpr (!built_for(B, E)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    const Tin* x = static_cast<const Tin*>(a.x);
+    switch (a.fmt) {
+      case kE4M3:
+        compress_blocks_butterfly_kernel<Tin, B, E, kE4M3>
+            <<<a.grid, a.block, 0, a.st>>>(x, a.q, a.alpha, a.scale, a.rows,
+                                           a.tau, a.eps, a.qmax,
+                                           a.inv_sqrt_b);
+        break;
+      case kE5M2:
+        compress_blocks_butterfly_kernel<Tin, B, E, kE5M2>
+            <<<a.grid, a.block, 0, a.st>>>(x, a.q, a.alpha, a.scale, a.rows,
+                                           a.tau, a.eps, a.qmax,
+                                           a.inv_sqrt_b);
+        break;
+      case kInt8:
+        compress_blocks_butterfly_kernel<Tin, B, E, kInt8>
+            <<<a.grid, a.block, 0, a.st>>>(x, a.q, a.alpha, a.scale, a.rows,
+                                           a.tau, a.eps, a.qmax,
+                                           a.inv_sqrt_b);
+        break;
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+template <typename Tin, int B>
+int launch_b(const Args& a, int e) {
+  switch (e) {
+    case 8: return launch_e<Tin, B, 8>(a);
+    case 16: return launch_e<Tin, B, 16>(a);
+    case 32: return launch_e<Tin, B, 32>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <typename Tin>
-int launch_butterfly(const Tin* x, uint8_t* q, float* alpha, float* scale,
-                     int b, long long rows, int fmt, float tau, float eps,
-                     float qmax, float inv_sqrt_b, cudaStream_t st) {
-  const dim3 grid(static_cast<unsigned>(
-      (rows + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  const dim3 block(kWarpsPerBlock * 32);
+int launch(const Args& a, int b, int e) {
   switch (b) {
-    case 32:
-      compress_blocks_butterfly_kernel<Tin, 1><<<grid, block, 0, st>>>(
-          x, q, alpha, scale, rows, fmt, tau, eps, qmax, inv_sqrt_b);
-      break;
-    case 64:
-      compress_blocks_butterfly_kernel<Tin, 2><<<grid, block, 0, st>>>(
-          x, q, alpha, scale, rows, fmt, tau, eps, qmax, inv_sqrt_b);
-      break;
-    case 128:
-      compress_blocks_butterfly_kernel<Tin, 4><<<grid, block, 0, st>>>(
-          x, q, alpha, scale, rows, fmt, tau, eps, qmax, inv_sqrt_b);
-      break;
-    case 256:
-      compress_blocks_butterfly_kernel<Tin, 8><<<grid, block, 0, st>>>(
-          x, q, alpha, scale, rows, fmt, tau, eps, qmax, inv_sqrt_b);
-      break;
-    case 512:
-      compress_blocks_butterfly_kernel<Tin, 16><<<grid, block, 0, st>>>(
-          x, q, alpha, scale, rows, fmt, tau, eps, qmax, inv_sqrt_b);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 32: return launch_b<Tin, 32>(a, e);
+    case 64: return launch_b<Tin, 64>(a, e);
+    case 128: return launch_b<Tin, 128>(a, e);
+    case 256: return launch_b<Tin, 256>(a, e);
+    case 512: return launch_b<Tin, 512>(a, e);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace taco
 
 // x: (rows, b) bf16 (in_bf16 != 0) or f32, contiguous, 16-byte aligned;
 // q: (rows, b) payload bytes; alpha, scale: (rows,) f32.  b is 32, 64,
-// 128, 256 or 512.  Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
-// for another b).
-extern "C" int taco_compress_blocks_butterfly(const void* x, void* q,
-                                              void* alpha, void* scale,
-                                              int in_bf16, int b,
-                                              long long rows, int fmt,
-                                              float tau, float eps, float qmax,
-                                              float inv_sqrt_b, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  uint8_t* qb = static_cast<uint8_t*>(q);
-  float* a = static_cast<float*>(alpha);
-  float* s = static_cast<float*>(scale);
-  if (in_bf16) {
-    return taco::launch_butterfly(static_cast<const __nv_bfloat16*>(x), qb, a,
-                                  s, b, rows, fmt, tau, eps, qmax, inv_sqrt_b,
-                                  st);
-  }
-  return taco::launch_butterfly(static_cast<const float*>(x), qb, a, s, b,
-                                rows, fmt, tau, eps, qmax, inv_sqrt_b, st);
+// 128, 256 or 512; e the elements a lane (the wrapper's launch geometry);
+// grid blocks of threads threads (a multiple of 32, at most 256).
+// Returns cudaGetLastError() after the launch, cudaErrorInvalidValue for
+// a (b, e), a format or a block the library was not built for.
+extern "C" int taco_compress_blocks_butterfly(
+    const void* x, void* q, void* alpha, void* scale, int in_bf16, int b,
+    int e, long long rows, int fmt, float tau, float eps, float qmax,
+    float inv_sqrt_b, int grid, int threads, void* stream) {
+  if (grid < 1 || threads < 32 || threads > taco::kMaxThreads ||
+      threads % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const taco::Args a{x, static_cast<uint8_t*>(q),
+                     static_cast<float*>(alpha), static_cast<float*>(scale),
+                     rows, fmt, tau, eps, qmax, inv_sqrt_b,
+                     dim3(static_cast<unsigned>(grid)),
+                     dim3(static_cast<unsigned>(threads)),
+                     static_cast<cudaStream_t>(stream)};
+  return in_bf16 ? taco::launch<__nv_bfloat16>(a, b, e)
+                 : taco::launch<float>(a, b, e);
 }

@@ -1,18 +1,27 @@
-"""ASH compress with a warp-level butterfly rotation — the CUDA port (K7) of
-the TPU kernel ``repro/kernels/fwht_butterfly.py``
-``compress_blocks_butterfly``.
+"""ASH compress with a butterfly rotation — the CUDA port (K7) of the TPU
+kernel ``repro/kernels/fwht_butterfly.py`` ``compress_blocks_butterfly``
+(``pallas_call`` at line 65).
 
 K1's math with block-level scales only: per row of B elements, the RMS
 rescale alpha = tau / sigma, the O(B log B) Walsh-Hadamard butterfly scaled
 by 1/sqrt(B), ONE scale s = max(max|z| / qmax, 1e-30) and the saturating
 low-bit cast.  The floor is the reference's fixed 1e-30, not
-``cfg.scale_eps`` (their defaults agree).  The kernel
-(``csrc/fwht_butterfly.cu``) takes one warp per row and keeps the row in
-registers: B/32 elements per lane, the first butterfly stages inside a
-lane, the last five across lanes by warp shuffles, no shared memory.  It
-lies on no path of either package (the JAX package keeps it as the
-measured counterpoint to its matmul rotation); ``chip_smoke.py`` measures
-it beside K1.
+``cfg.scale_eps`` (their defaults agree).  It lies on no path of either
+package (the JAX package keeps it as the measured counterpoint to its
+matmul rotation); ``chip_smoke.py`` phase 1c measures it at every B.
+
+On the H100 it is bound by bytes (2 or 4 read and 1 written an element)
+and as much by the issue rate (30-40 instructions an element).  The kernel
+(``csrc/fwht_butterfly.cu``) keeps a row in registers with E elements a
+lane, read as whole 16-byte words, so L = B/E lanes hold a row and a warp
+takes 32/L rows: the cross-lane butterfly stages and both reductions
+shuffle inside a row's L lanes, and one warp-wide shuffle serves 32/L rows
+(none at B = 32, where E = 32 puts a row in one lane).  The grid is
+persistent, and each warp loads its next row group before it computes the
+current one.  Every product and sum is rounded once in the plain
+version's order, so the kernel gives its bits.  The launch geometry (E,
+lanes, rows a warp and a block, the grid) is :func:`geometry`'s, passed
+to the C function as it is.
 
 The wrapper dispatches by the tensor's device: a CPU tensor takes the
 plain PyTorch version (``ref.compress_blocks_butterfly_ref``), a CUDA
@@ -23,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -30,19 +40,100 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.ash_compress import FMT_CODE
 
-#: the row widths the kernel takes (B/32 elements per lane: 1, 2, 4, 8,
-#: 16), every power of two the JAX kernel's sweep takes
+#: the row widths the kernel takes, every power of two the JAX kernel's
+#: sweep takes
 BLOCK_SIZES = (32, 64, 128, 256, 512)
+#: elements a lane for each B, bf16 and f32 input alike (``kKeptE`` in
+#: csrc/fwht_butterfly.cu): the fastest of the sweep of E = 8, 16, 32 and
+#: 1, 2, 4, 8 or 16 blocks a multiprocessor or one pass, at every B, bf16
+#: in, on an H100 (``scripts/k7_sweep.py``, PERF.md): E = 32 at 4 blocks
+#: a multiprocessor (80 registers: 3 resident)
+KEPT_E = {32: 32, 64: 32, 128: 32, 256: 32, 512: 32}
+#: threads a block, and blocks a streaming multiprocessor in the
+#: persistent grid
+THREADS = 256
+BLOCKS_PER_SM = 4
+
+
+class Geometry(NamedTuple):
+    """One launch of the kernel: ``e`` elements a lane, ``lanes`` a row,
+    ``rows_per_warp`` (a row group), ``rows_per_block`` in one pass of the
+    block's warps, ``groups`` row groups to cover, ``grid`` blocks of
+    ``threads``.  Warp w of block k takes groups w + k W, w + k W + grid
+    W, ... (W = threads / 32), group g rows [g R, g R + R)."""
+    e: int
+    lanes: int
+    rows_per_warp: int
+    rows_per_block: int
+    groups: int
+    grid: int
+    threads: int
+
+
+def geometry(b: int, dtype: torch.dtype, rows: int, sms: int,
+             e: int | None = None,
+             blocks_per_sm: int | None = None) -> Geometry:
+    """The launch geometry for ``rows`` rows of width ``b`` in ``dtype``
+    on a card of ``sms`` multiprocessors: ``KEPT_E[b]`` elements a lane
+    and at most ``BLOCKS_PER_SM`` blocks a multiprocessor unless ``e`` or
+    ``blocks_per_sm`` say otherwise (the sweep's variants)."""
+    e = KEPT_E[b] if e is None else e
+    lanes = b // e
+    if b % e or not 1 <= lanes <= 32:
+        raise ValueError(f"no launch of B = {b} with {e} elements a lane")
+    if e * torch.empty((), dtype=dtype).element_size() % 16:
+        raise ValueError(f"{e} elements of {dtype} are not whole 16-byte "
+                         f"words")
+    rows_per_warp = 32 // lanes
+    warps = THREADS // 32
+    groups = -(-rows // rows_per_warp)
+    per_sm = BLOCKS_PER_SM if blocks_per_sm is None else blocks_per_sm
+    grid = max(1, min(-(-groups // warps), sms * per_sm))
+    return Geometry(e, lanes, rows_per_warp, rows_per_warp * warps, groups,
+                    grid, THREADS)
 
 
 @functools.cache
 def _lib():
-    lib = build.library("fwht_butterfly")
+    return bind(build.library("fwht_butterfly"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C function's arguments on a loaded library."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.taco_compress_blocks_butterfly.argtypes = [
-        p, p, p, p, i, i, ctypes.c_longlong, i, f, f, f, f, p]
+        p, p, p, p, i, i, i, ctypes.c_longlong, i, f, f, f, f, i, i, p]
     lib.taco_compress_blocks_butterfly.restype = i
     return lib
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch(lib, blocks: torch.Tensor, cfg, geo: Geometry):
+    """Run the kernel of ``lib`` on CUDA ``blocks`` with ``geo``; returns
+    (q, alpha, s) and counts nothing."""
+    rows, b = blocks.shape
+    fmt = cfg.format_spec
+    dev = blocks.device
+    q = torch.empty((rows, b), dtype=fmt.dtype, device=dev)
+    alpha = torch.empty((rows,), dtype=torch.float32, device=dev)
+    s = torch.empty((rows, 1), dtype=torch.float32, device=dev)
+    if rows == 0:
+        return q, alpha, s
+    with torch.cuda.device(dev):
+        err = lib.taco_compress_blocks_butterfly(
+            blocks.data_ptr(), q.data_ptr(), alpha.data_ptr(), s.data_ptr(),
+            int(blocks.dtype == torch.bfloat16), b, geo.e, rows,
+            FMT_CODE[cfg.fmt], cfg.tau, cfg.eps, fmt.qmax,
+            float(np.float32(1.0 / b ** 0.5)), geo.grid, geo.threads,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"compress_blocks_butterfly kernel launch failed: "
+                           f"CUDA error {err}")
+    return q, alpha, s
 
 
 def compress_blocks_butterfly(blocks: torch.Tensor, cfg):
@@ -63,24 +154,14 @@ def compress_blocks_butterfly(blocks: torch.Tensor, cfg):
         raise ValueError("compress_blocks_butterfly needs a contiguous, "
                          "16-byte aligned input")
     rows, b = blocks.shape
-    fmt = cfg.format_spec
-    dev = blocks.device
-    q = torch.empty((rows, b), dtype=fmt.dtype, device=dev)
-    alpha = torch.empty((rows,), dtype=torch.float32, device=dev)
-    s = torch.empty((rows, 1), dtype=torch.float32, device=dev)
-    if rows == 0:
-        return q, alpha, s
-    with torch.cuda.device(dev):
-        err = _lib().taco_compress_blocks_butterfly(
-            blocks.data_ptr(), q.data_ptr(), alpha.data_ptr(), s.data_ptr(),
-            int(blocks.dtype == torch.bfloat16), b, rows, FMT_CODE[cfg.fmt],
-            cfg.tau, cfg.eps, fmt.qmax, float(np.float32(1.0 / b ** 0.5)),
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"compress_blocks_butterfly kernel launch failed: "
-                           f"CUDA error {err}")
-    compress_blocks_butterfly.launches += 1
-    return q, alpha, s
+    index = blocks.device.index
+    geo = geometry(b, blocks.dtype, rows,
+                   _sms(torch.cuda.current_device() if index is None
+                        else index))
+    out = launch(_lib(), blocks, cfg, geo)
+    if rows:
+        compress_blocks_butterfly.launches += 1
+    return out
 
 
 compress_blocks_butterfly.launches = 0

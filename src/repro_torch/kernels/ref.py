@@ -86,22 +86,34 @@ def decompress_reduce_ref(q, s, alpha, cfg) -> torch.Tensor:
 BUTTERFLY_SCALE_FLOOR = 1e-30
 
 
+def pairwise_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (a power of two) as a pairwise tree of
+    adjacent pairs: level k adds the sums of neighbouring blocks of 2^k.
+    One order on every device, which K7 follows lane by lane."""
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
 def compress_blocks_butterfly_ref(blocks: torch.Tensor, cfg):
     """K7's function: (M, B) -> (q storage-dtype (M, B), alpha (M,),
-    s (M, 1)).  ASH with alpha applied before the rotation, the butterfly
-    ``ash.fwht`` scaled by 1/sqrt(B), ONE block-level scale floored at
+    s (M, 1)).  ASH with alpha applied before the rotation (the sum of
+    squares by :func:`pairwise_sum`), the butterfly ``ash.fwht`` scaled by
+    1/sqrt(B), ONE block-level scale floored at
     :data:`BUTTERFLY_SCALE_FLOOR` (not ``cfg.scale_eps``), clip to +-qmax,
     then the cast (fp8) or round half to even (int8).  Only ``tau``,
     ``eps`` and ``fmt`` of ``cfg`` are read, as in the reference."""
     fmt = cfg.format_spec
     b = blocks.shape[-1]
     g = blocks.float()
-    sigma = torch.sqrt(torch.mean(g * g, dim=-1) + cfg.eps)
+    sigma = torch.sqrt(pairwise_sum(g * g) / b + cfg.eps)
     alpha = torch.div(torch.tensor(cfg.tau, dtype=torch.float32,
                                    device=g.device), sigma)
     z = ash_mod.fwht(alpha[:, None] * g) * float(np.float32(1.0 / b ** 0.5))
-    s = torch.clamp_min(z.abs().amax(dim=-1) / fmt.qmax,
-                        BUTTERFLY_SCALE_FLOOR)
+    # a tensor divisor: a true division on every device (PyTorch computes
+    # a CUDA tensor over a Python scalar as a product with its reciprocal)
+    qmax = torch.tensor(fmt.qmax, dtype=torch.float32, device=g.device)
+    s = torch.clamp_min(z.abs().amax(dim=-1) / qmax, BUTTERFLY_SCALE_FLOOR)
     scaled = torch.clamp(z / s[:, None], -fmt.qmax, fmt.qmax)
     q = scaled.to(fmt.dtype) if fmt.is_float else \
         torch.round(scaled).to(torch.int8)

@@ -131,3 +131,169 @@ def test_kernel_widths_are_every_power_of_two_of_the_sweep():
     from repro_torch.kernels import ash_compress
     assert fwht_butterfly.BLOCK_SIZES == tuple(2 ** k for k in range(5, 10))
     assert set(fwht_butterfly.BLOCK_SIZES) <= set(ash_compress.BLOCK_SIZES)
+
+
+# --------------------------------------------------------------------------
+# the kernel's launch geometry and lane split (csrc/fwht_butterfly.cu),
+# checked here because the kernel itself runs only on the card
+# --------------------------------------------------------------------------
+
+DTYPES = [torch.bfloat16, torch.float32]
+
+
+def _covered(geo, rows):
+    """Rows each (block, warp, lane segment) of ``geo`` takes, in the
+    kernel's order: warp w of block k walks groups w + k W, + grid W, ...;
+    group g is rows [g R, g R + R), and its ragged rows are masked."""
+    warps = geo.threads // 32
+    out = []
+    for blk in range(geo.grid):
+        for w in range(warps):
+            g = blk * warps + w
+            while g < geo.groups:
+                out += [r for r in range(g * geo.rows_per_warp,
+                                         (g + 1) * geo.rows_per_warp)
+                        if r < rows]
+                g += geo.grid * warps
+    return out
+
+
+@pytest.mark.parametrize("per_sm", [None, 1, 1 << 30])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", fwht_butterfly.BLOCK_SIZES)
+def test_geometry_covers_every_row_once(b, dtype, per_sm):
+    """Every row count from 1 to a few blocks' rows is covered exactly
+    once, by the kept geometry, by a grid of one block a multiprocessor
+    (several passes) and by one pass; a warp's lanes are its rows' lanes."""
+    for sms in (1, 3):
+        probe = fwht_butterfly.geometry(b, dtype, 1, sms,
+                                        blocks_per_sm=per_sm)
+        assert probe.lanes * probe.e == b
+        assert probe.rows_per_warp * probe.lanes == 32
+        assert probe.rows_per_block == probe.rows_per_warp * \
+            (probe.threads // 32)
+        for rows in list(range(1, 3 * probe.rows_per_block + 2)) + \
+                [sms * 9 * probe.rows_per_block + 5]:
+            geo = fwht_butterfly.geometry(b, dtype, rows, sms,
+                                          blocks_per_sm=per_sm)
+            got = _covered(geo, rows)
+            assert sorted(got) == list(range(rows)), (rows, geo)
+            assert geo.grid <= sms * (fwht_butterfly.BLOCKS_PER_SM
+                                      if per_sm is None else per_sm)
+
+
+@pytest.mark.parametrize("e", [8, 16, 32])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", fwht_butterfly.BLOCK_SIZES)
+def test_lane_spans_are_whole_16_byte_words(b, dtype, e):
+    """Each lane's input span starts on a 16-byte boundary (the wrapper
+    takes 16-byte aligned rows) and is whole 16-byte words; its code span
+    starts on a boundary of its own store width (8 bytes at E = 8, else
+    16).  A geometry that would break this raises."""
+    if not 1 <= b // e <= 32:
+        with pytest.raises(ValueError):
+            fwht_butterfly.geometry(b, dtype, 1, 1, e=e)
+        return
+    geo = fwht_butterfly.geometry(b, dtype, 100, 1, e=e)
+    size = torch.empty((), dtype=dtype).element_size()
+    for g in range(geo.groups):
+        for lane in range(32):
+            first = (g * 32 + lane) * geo.e   # the kernel's lane offset
+            row, col = divmod(first, b)
+            assert col == (lane % geo.lanes) * geo.e
+            assert row == g * geo.rows_per_warp + lane // geo.lanes
+            assert first * size % 16 == 0 and geo.e * size % 16 == 0
+            assert first % min(geo.e, 16) == 0
+
+
+def test_geometry_refuses_words_that_are_not_whole():
+    """bf16 at E = 4 would read 8-byte words: not built, refused."""
+    with pytest.raises(ValueError, match="16-byte"):
+        fwht_butterfly.geometry(128, torch.bfloat16, 8, 1, e=4)
+
+
+def test_kept_e_is_the_kernels():
+    """The wrapper's KEPT_E is the table the library is built with."""
+    import pathlib
+    src = (pathlib.Path(fwht_butterfly.__file__).with_name("csrc")
+           / "fwht_butterfly.cu").read_text()
+    import re
+    table = re.search(r"kKeptE\[5\] = \{([^}]*)\}", src).group(1)
+    assert tuple(int(v) for v in table.split(",")) == tuple(
+        fwht_butterfly.KEPT_E[b] for b in fwht_butterfly.BLOCK_SIZES)
+
+
+def _split_fwht(x: np.ndarray, e: int) -> np.ndarray:
+    """The kernel's rotation in numpy f32: lane l of a row's L = B/E lanes
+    holds elements [l E, l E + E); stages h < E pair registers inside a
+    lane, then stages h = m E (m = 1, 2, ..) pair lane l with lane l ^ m,
+    the lane with bit m set keeping o - v and the other v + o (the
+    kernel's fma(-1, v, o) and fma(1, v, o), each one rounding)."""
+    m_rows, b = x.shape
+    lanes = b // e
+    v = x.reshape(m_rows, lanes, e).astype(np.float32).copy()
+    h = 1
+    while h < e:
+        for j in range(e):
+            if j & h == 0:
+                p, r = v[..., j].copy(), v[..., j + h].copy()
+                v[..., j], v[..., j + h] = p + r, p - r
+        h *= 2
+    lane = np.arange(lanes)
+    m = 1
+    while m < lanes:
+        o = v[:, lane ^ m, :]
+        v = np.where(((lane & m) != 0)[None, :, None], o - v, v + o)
+        m *= 2
+    return v.reshape(m_rows, b)
+
+
+@pytest.mark.parametrize("b", fwht_butterfly.BLOCK_SIZES)
+def test_kept_lane_split_is_fwht_bit_for_bit(b, rng):
+    """The kept split (in-lane stages h < E, cross-lane stages h >= E) of
+    every B equals ``core.ash.fwht`` bit for bit, on TP-like rows scaled as
+    the kernel scales them; and so does every E of the sweep."""
+    from repro_torch.core import ash
+    x = tp_like(rng, (64, b)) * np.float32(37.0)
+    want = ash.fwht(torch.from_numpy(x)).numpy()
+    for e in sorted({fwht_butterfly.KEPT_E[b], 8, 16, 32}):
+        if 1 <= b // e <= 32:
+            got = _split_fwht(x, e)
+            np.testing.assert_array_equal(got.view(np.int32),
+                                          want.view(np.int32))
+
+
+def _split_sum_of_squares(x: np.ndarray, e: int) -> np.ndarray:
+    """The kernel's sum of squares in numpy f32: each square rounded,
+    adjacent pairs summed inside a lane's E elements, then lanes l and
+    l ^ o for o = 1, 2, .. (every lane of the row ends with the sum)."""
+    m_rows, b = x.shape
+    lanes = b // e
+    sq = (x.astype(np.float32) * x.astype(np.float32)).reshape(m_rows, lanes,
+                                                               e)
+    h = 1
+    while h < e:
+        sq[..., 0::2 * h] = sq[..., 0::2 * h] + sq[..., h::2 * h]
+        h *= 2
+    ss = sq[..., 0]
+    lane = np.arange(lanes)
+    o = 1
+    while o < lanes:
+        ss = ss + ss[:, lane ^ o]
+        o *= 2
+    assert (ss == ss[:, :1]).all()
+    return ss[:, 0]
+
+
+@pytest.mark.parametrize("b", fwht_butterfly.BLOCK_SIZES)
+def test_kept_lane_split_sums_squares_as_the_plain_version(b, rng):
+    """The kernel's lane split of the sum of squares is the plain
+    version's pairwise tree (``ref.pairwise_sum``) bit for bit, for the
+    kept E and every E of the sweep."""
+    x = tp_like(rng, (64, b)) * np.float32(3.0)
+    want = ref.pairwise_sum(torch.from_numpy(x) ** 2).numpy()
+    for e in sorted({fwht_butterfly.KEPT_E[b], 8, 16, 32}):
+        if 1 <= b // e <= 32:
+            np.testing.assert_array_equal(
+                _split_sum_of_squares(x, e).view(np.int32),
+                want.view(np.int32))

@@ -248,6 +248,121 @@ def test_butterfly_kernel_matches_plain(card, b, in_dtype, fmt, rng):
                           rows * b, cfg)
 
 
+def _bits(t):
+    """A tensor's bits, for equality that tells -0 from +0."""
+    return t.view(torch.uint8) if t.element_size() == 1 else \
+        t.view(torch.int32)
+
+
+def _butterfly_ragged_rows(b, dtype):
+    """Row counts around the launch geometry's edges at width ``b``: 1 row,
+    one less and one more than a warp's and a block's rows, a partial last
+    block, and two passes of the persistent grid plus a ragged tail."""
+    from repro_torch.kernels import fwht_butterfly as fb
+    geo = fb.geometry(b, dtype, 1, fb._sms(torch.cuda.current_device()))
+    rw, rb = geo.rows_per_warp, geo.rows_per_block
+    sms = fb._sms(torch.cuda.current_device())
+    full = fb.geometry(b, dtype, 1 << 30, sms).grid * rb
+    return sorted({1, max(1, rw - 1), rw + 1, rb - 1, rb + 1, 3 * rb + 5,
+                   2 * full + rw + 3})
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2", "int8"])
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [32, 64, 128, 256, 512])
+def test_butterfly_ragged_row_counts(card, b, in_dtype, fmt, rng):
+    """K7 at ragged row counts (``_butterfly_ragged_rows``), one launch
+    each: all of them together against the plain version under the parity
+    rule (the small counts alone compare too few bytes for its flip
+    allowance), and each bit for bit against the same rows of one launch
+    on the largest count (a ragged warp masks its stores and nothing
+    else)."""
+    from repro_torch.core.taco import TacoConfig
+    from repro_torch.kernels import fwht_butterfly
+    cfg = TacoConfig(block_size=b, fmt=fmt)
+    counts = _butterfly_ragged_rows(b, in_dtype)
+    x = torch.from_numpy(tp_like(rng, (counts[-1], b))).to(card, in_dtype)
+    whole = fwht_butterfly.compress_blocks_butterfly(x, cfg)
+    got, want = [], []
+    for r in counts:
+        before = fwht_butterfly.compress_blocks_butterfly.launches
+        out = fwht_butterfly.compress_blocks_butterfly(x[:r], cfg)
+        assert fwht_butterfly.compress_blocks_butterfly.launches == before + 1
+        for o, w in zip(out, whole):
+            assert torch.equal(_bits(o), _bits(w[:r])), r
+        got.append(out)
+        want.append(ref.compress_blocks_butterfly_ref(x[:r], cfg))
+    torch.cuda.synchronize()
+    rows = sum(counts)
+    cat = [torch.cat([o[i] for o in got]) for i in range(3)]
+    cat_p = [torch.cat([o[i] for o in want]) for i in range(3)]
+    ref.check_wire_parity(ref.blocks_to_wire(*cat, cfg, 1, rows * b),
+                          ref.blocks_to_wire(*cat_p, cfg, 1, rows * b),
+                          rows * b, cfg)
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2", "int8"])
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [32, 64, 128, 256, 512])
+def test_butterfly_rows_are_independent(card, b, in_dtype, fmt, rng):
+    """Row i of K7's output is the same bits whether the row is computed
+    with its neighbours, in a slice that starts elsewhere (another warp,
+    segment and block), or among the rows shuffled."""
+    from repro_torch.core.taco import TacoConfig
+    from repro_torch.kernels import fwht_butterfly
+    cfg = TacoConfig(block_size=b, fmt=fmt)
+    rows = 3 * fwht_butterfly.geometry(b, in_dtype, 1, 1).rows_per_block + 7
+    x = torch.from_numpy(tp_like(rng, (rows, b))).to(card, in_dtype)
+    whole = [_bits(o)
+             for o in fwht_butterfly.compress_blocks_butterfly(x, cfg)]
+    for lo, hi in ((5, rows), (1, rows - 3), (17, 18)):
+        part = fwht_butterfly.compress_blocks_butterfly(x[lo:hi], cfg)
+        for o, w in zip(part, whole):
+            assert torch.equal(_bits(o), w[lo:hi]), (lo, hi)
+    perm = torch.from_numpy(rng.permutation(rows)).to(card)
+    shuf = fwht_butterfly.compress_blocks_butterfly(x[perm].contiguous(), cfg)
+    for o, w in zip(shuf, whole):
+        assert torch.equal(_bits(o), w[perm])
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2", "int8"])
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [32, 64, 128, 256, 512])
+def test_butterfly_kernel_equals_plain_bit_for_bit(card, b, in_dtype, fmt,
+                                                   rng):
+    """K7 rounds every product and sum once, in its plain version's order
+    (the pairwise sum of squares, ``ash.fwht``'s stages, true divisions),
+    so its codes, alpha and s are the plain version's bits on the card."""
+    from repro_torch.core.taco import TacoConfig
+    from repro_torch.kernels import fwht_butterfly
+    cfg = TacoConfig(block_size=b, fmt=fmt)
+    x = torch.from_numpy(tp_like(rng, (256 * 1024 // b, b))).to(card,
+                                                                in_dtype)
+    x[3] = 0
+    got = fwht_butterfly.compress_blocks_butterfly(x, cfg)
+    want = ref.compress_blocks_butterfly_ref(x, cfg)
+    for o, w in zip(got, want):
+        assert torch.equal(_bits(o), _bits(w))
+
+
+def test_butterfly_refuses_what_the_kernel_does_not_take(card):
+    """A CUDA input that is unaligned, not contiguous, of another width or
+    dtype raises and launches nothing."""
+    from repro_torch.core.taco import TacoConfig
+    from repro_torch.kernels import fwht_butterfly
+    cfg = TacoConfig()
+    flat = torch.zeros(8 * 256 + 8, device=card)
+    wide = torch.zeros((8, 512), device=card)
+    before = fwht_butterfly.compress_blocks_butterfly.launches
+    for bad in (flat[1:1 + 8 * 256].view(8, 256), wide[:, :256],
+                torch.zeros((8, 1024), device=card),
+                torch.zeros((8, 256), device=card, dtype=torch.float16),
+                torch.zeros(256, device=card)):
+        with pytest.raises(ValueError):
+            fwht_butterfly.compress_blocks_butterfly(bad, cfg)
+    assert fwht_butterfly.compress_blocks_butterfly.launches == before
+
+
 @pytest.mark.parametrize("budget", [None, 0], ids=["wire", "blocks"])
 def test_nccl_ring_equals_monolithic(card, budget, tmp_path, monkeypatch,
                                      rng):

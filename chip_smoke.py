@@ -6,7 +6,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, started together), then:
 
   1. kernels: holds the six TACO kernels against their plain PyTorch
-     versions on the card (the parity rule of ``repro_torch.kernels.ref``):
+     versions on the card (K1 and K2 bit for bit at an f32 compute dtype,
+     ``ref.check_compress_wire``; otherwise the parity rule of
+     ``repro_torch.kernels.ref``):
      the wire kernels K2, K5, K6 (``compress_wire``, ``decompress_wire``,
      ``decompress_reduce_wire``) at the serve shape (slots=1, n=3584 = 4 x
      896) and n = 4096 x 896; the block kernels K1, K3, K4
@@ -14,7 +16,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      the serve shape, at one ring chunk (n = 1,835,008) and at the
      training hop's (n = 4 x 2048 x 896); dual and folded, P in {1, 4},
      the other payload formats, group scales (g32, g64, g128), a scale
-     floor, all-zero blocks, wire rows at 4-byte offsets (folded, n = 1792,
+     floor, all-zero blocks, rows with a rotated group planted at 0 (e5m2
+     g8, int8 g1), wire rows at 4-byte offsets (folded, n = 1792,
      3 slots), a ragged row count (4099 rows), inputs that are unaligned
      views (which must give the aligned copy's bytes), and every block size
      the kernels are built for (B = 32 .. 512) under an f32 and a bf16
@@ -35,8 +38,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      at B = 256), with its bound share, its achieved bytes/s beside a
      device copy's, its elements a lane and its registers.  Phase 1d
      runs one hop of each ablation configuration (``F1_SPECS``) on the
-     card against the same hop on the CPU: ``b128`` and ``cdbfloat16``
-     through the kernels,
+     card against the same hop on the CPU: ``b128`` (its wire bit for
+     bit) and ``cdbfloat16`` through the kernels,
      the configurations with no kernel (another transform, tensor scales)
      through the plain versions by the route of ``repro_torch.kernels.ops``
      (and no kernel launch);
@@ -496,6 +499,19 @@ def tp_like(gen, shape, scale=0.02, tail=2.0, frac=0.002):
     return torch.from_numpy(x)
 
 
+def planted(gen, rows: int, b: int) -> torch.Tensor:
+    """f32 rows z @ H / sqrt(B) of seeded normal z with one aligned group of
+    8 values of z per row at 0: the rotation cancels there, so another
+    order of its sums puts those values' codes, and their group's scale,
+    far apart (``tests/test_torch_compress_order.py``)."""
+    from repro_torch.core.ash import hadamard_matrix
+    z = gen.normal(size=(rows, b))
+    start = 8 * gen.integers(0, b // 8, size=rows)
+    z[np.arange(rows)[:, None], start[:, None] + np.arange(8)] = 0.0
+    h = hadamard_matrix(b, torch.float64).numpy()
+    return torch.from_numpy((z @ h).astype(np.float32))
+
+
 def phase_kernels() -> dict:
     from repro_torch.core.registry import codec_from_spec
     from repro_torch.kernels import ref
@@ -506,13 +522,17 @@ def phase_kernels() -> dict:
     dev = torch.device("cuda")
     rows = {}
 
-    def case(spec, n, in_dtype, peers, timed=False, label=""):
+    def case(spec, n, in_dtype, peers, timed=False, label="", x=None):
         cfg = codec_from_spec(spec).cfg
-        x = tp_like(gen, (peers, n)).to(dev, in_dtype)
+        if x is None:
+            x = tp_like(gen, (peers, n))
+        x = x.to(dev, in_dtype)
         w_k = compress_wire(x, cfg)
         w_p = ref.compress_wire_ref(x, cfg)
         torch.cuda.synchronize()
-        stats = ref.check_wire_parity(w_k, w_p, n, cfg)
+        # bit for bit where ref.plain_bits holds (f32 compute), else the
+        # parity rule
+        stats = ref.check_compress_wire(w_k, w_p, n, cfg)
         dec_k = ref.decompress_wire_ref(w_k, n, cfg)
         dec_p = ref.decompress_wire_ref(w_p, n, cfg)
         if stats["flipped"] == 0:      # a flipped code moves its whole block
@@ -525,7 +545,8 @@ def phase_kernels() -> dict:
         err_r = ref.check_decoded_close(
             r_k, ref.decompress_reduce_wire_ref(w_p, n, cfg), cfg)
         print(f"  {label:6s} {spec:16s} n={n:8d} P={peers} "
-              f"in={str(in_dtype)[6:]:8s} flipped={stats['flipped']} "
+              f"in={str(in_dtype)[6:]:8s} bitwise={stats['bitwise']} "
+              f"flipped={stats['flipped']} "
               f"meta_rel={stats['meta_rel_err']:.2e} "
               f"err compress={err_c:.2e} decompress={err_d:.2e} "
               f"reduce={err_r:.2e}")
@@ -564,7 +585,8 @@ def phase_kernels() -> dict:
                 "bound_by": b_by, "max_abs_err": err, "call_ms": per_call,
                 "plain_call_ms": plain_call}
 
-    print("phase 1: kernels vs plain versions; tolerance: at most "
+    print("phase 1: kernels vs plain versions; K2 bit for bit at f32 "
+          "compute (ref.plain_bits), else at most "
           f"{ref.PAYLOAD_FLIP_FRACTION} of payload bytes "
           f"differ, by one code; metadata rtol {ref.META_RTOL}; decoded "
           f"rtol {ref.DECODE_RTOL} atol {ref.DECODE_ATOL}")
@@ -597,10 +619,15 @@ def phase_kernels() -> dict:
     case("taco", WHISPER_SERVE_N, torch.bfloat16, 1, timed=True,
          label="whisper decode")
     case("taco:seps1e-20", 1024, torch.float32, 1)
+    # rows with a rotated group planted at 0 (a generator of their own)
+    pgen = np.random.default_rng(29)
+    for spec in ("taco:e5m2:g8", "taco:e5m2:g8:folded", "taco:int8:g1"):
+        case(spec, 64 * 256, torch.float32, 4, label="plant",
+             x=planted(pgen, 4 * 64, 256).reshape(4, -1))
     z = torch.zeros((1, 1024), device=dev)       # all-zero blocks: s floor
     cfg = codec_from_spec("taco").cfg
-    ref.check_wire_parity(compress_wire(z, cfg), ref.compress_wire_ref(z, cfg),
-                          1024, cfg)
+    ref.check_compress_wire(compress_wire(z, cfg),
+                            ref.compress_wire_ref(z, cfg), 1024, cfg)
     return rows
 
 
@@ -620,22 +647,31 @@ def wire_budget(elems: int):
 
 def hold_blocks(x, cfg, peers: int, n: int, where: str) -> dict:
     """K1, K3 and K4 against their plain versions on ``x`` (``peers`` rows
-    of ``n`` elements, on the card): K1 under the wire parity rule, K3 and
-    K4 on the plain version's blocks within the decode tolerance, and K3
-    == K4 at P = 1 under folded f32 metadata bit for bit.  Returns the
-    parity stats, each kernel's max abs error, and the operands a timing
-    of the three takes."""
+    of ``n`` elements, on the card): K1's q, alpha and s bit for bit where
+    ``ref.plain_bits`` holds (f32 compute), else its wire under the parity
+    rule; K3 and K4 on the plain version's blocks within the decode
+    tolerance, and K3 == K4 at P = 1 under folded f32 metadata bit for bit.
+    Returns the parity stats, each kernel's max abs error, and the operands
+    a timing of the three takes."""
     from repro_torch.kernels import ops, ref
     b = cfg.block_size
     blocks = x.reshape(-1, b)
     mb = n // b
-    # K1 against its plain version, under the wire parity rule
+    # K1 against its plain version: its bits, or the wire parity rule
     q, a, s = ops.compress_blocks(blocks, cfg)
     qp, ap, sp = ref.compress_blocks_ref(blocks, cfg)
     torch.cuda.synchronize()
+    if ref.plain_bits(cfg):
+        def bits(t):            # -0 apart from +0
+            return t.view(torch.uint8 if t.element_size() == 1 else
+                          torch.int32)
+        for name, k, p in (("q", q, qp), ("alpha", a, ap), ("s", s, sp)):
+            if not torch.equal(bits(k), bits(p)):
+                raise AssertionError(f"{where}: K1's {name} is not the plain "
+                                     "version's")
     w_k = ref.blocks_to_wire(q, a, s, cfg, peers, n)
     w_p = ref.blocks_to_wire(qp, ap, sp, cfg, peers, n)
-    stats = ref.check_wire_parity(w_k, w_p, n, cfg)
+    stats = ref.check_compress_wire(w_k, w_p, n, cfg)
     dec_k = ref.decompress_wire_ref(w_k, n, cfg)
     dec_p = ref.decompress_wire_ref(w_p, n, cfg)
     if stats["flipped"] == 0:      # a flipped code moves its whole block
@@ -714,7 +750,8 @@ def phase_blocks() -> dict:
             raise AssertionError(f"{spec} n={n}: K4(unpack) != K6")
         print(f"  {label:10s} {spec:16s} n={n:8d} P={peers} "
               f"in={str(in_dtype)[6:]:8s}{' offset ' * bool(offset)}"
-              f"{offset or ''} flipped={stats['flipped']} "
+              f"{offset or ''} bitwise={stats['bitwise']} "
+              f"flipped={stats['flipped']} "
               f"meta_rel={stats['meta_rel_err']:.2e} err compress_blocks="
               f"{err_c:.2e} decompress_blocks={err_d:.2e} "
               f"decompress_reduce={err_r:.2e}; block == wire bitwise")
@@ -806,7 +843,8 @@ def phase_blocks() -> dict:
         print(f"  wire view  {spec:16s} n={n:8d} slots={slots} byte offsets "
               f"1-3: K5 == K5 aligned and K6 == K6 aligned bitwise")
 
-    print("phase 1b: block kernels K1/K3/K4 vs plain versions (same rule), "
+    print("phase 1b: block kernels K1/K3/K4 vs plain versions (K1's q, "
+          "alpha, s bit for bit at f32 compute, else the same rule), "
           "block form == wire form bit for bit, and K3 == K4 at P=1 under "
           "folded f32 metadata bit for bit")
     case("taco", SERVE_N, torch.bfloat16, 1, timed=True, label="serve")
@@ -829,6 +867,10 @@ def phase_blocks() -> dict:
         case(f"taco:b{b}:folded", SERVE_N, torch.bfloat16, 4)
         case(f"taco:b{b}:cdbfloat16", SERVE_N, torch.bfloat16, 4)
     case("taco:b128:cdbfloat16:e5m2:g32", ODD_N, torch.float32, 3, offset=1)
+    pgen = np.random.default_rng(30)      # rows with a group planted at 0
+    for spec in ("taco:e5m2:g8", "taco:int8:g1:folded"):
+        case(spec, 64 * 256, torch.float32, 4, label="plant",
+             x=planted(pgen, 4 * 64, 256).to(dev).reshape(4, -1))
     wire_views("taco:g64", SERVE_N, 4)                 # B = 256, dual
     wire_views("taco:folded", ODD_N, 3)                # rows at 4 mod 8
     wire_views("taco:b512:e5m2:g32", SERVE_N, 1)       # 16 codes a lane
@@ -980,7 +1022,8 @@ def phase_butterfly(logs: dict | None = None) -> dict:
 def phase_f1(kernels) -> dict:
     """One hop of each ablation configuration (``F1_SPECS``: encode to the
     wire, decode, peer-sum decode) on the card against the same hop on the
-    CPU, held by ``ref.check_hop_parity`` (the parity rule; under a bf16
+    CPU, held by ``ref.check_hop_parity`` (the wire bit for bit where
+    ``ref.plain_bits`` holds, ``b128``; else the parity rule, under a bf16
     compute dtype one bf16 ulp and a flip in 1e-3 of the payload bytes),
     by the route of ``kernels.ops``: a configuration with no kernel
     (another transform, tensor scales) runs its plain versions, launches
@@ -1006,7 +1049,8 @@ def phase_f1(kernels) -> dict:
                 (want == "plain") != bool(routes):
             raise AssertionError(f"{spec}: want {want}; kernels launched "
                                  f"{launched}, plain routes {routes}")
-        print(f"  {spec:18s} (slots 4, n {x.shape[1]}) card vs CPU: flipped "
+        print(f"  {spec:18s} (slots 4, n {x.shape[1]}) card vs CPU: bitwise "
+              f"{stats['bitwise']}, flipped "
               f"{stats['flipped']}, meta_rel {stats['meta_rel_err']:.2e}, "
               f"decode {stats['decode_rel_err']:.2e}, decode_sum "
               f"{stats['decode_sum_rel_err']:.2e}; {want}: launched "
@@ -2216,8 +2260,9 @@ def phase_sp_hops(group, counters, smi: str) -> dict:
         for v, back, got in ((x, False, y.detach()), (ct, True, xx.grad)):
             r = rows_of(v, back)
             wire = codec.encode_wire(r)
-            stats = ref.check_wire_parity(wire, codec.encode_wire(r.cpu()),
-                                          n, cfg)
+            stats = ref.check_compress_wire(wire,
+                                            codec.encode_wire(r.cpu()), n,
+                                            cfg)
             err = ref.check_decoded_close(
                 codec.decode_wire(wire, n, torch.float32),
                 codec.decode_wire(wire.cpu(), n, torch.float32), cfg)

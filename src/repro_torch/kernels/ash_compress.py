@@ -93,9 +93,8 @@ def wire_geometry(cfg, n: int):
         n + scale_nbytes + alpha_nbytes
 
 
-@functools.cache
-def _lib():
-    lib = build.library("ash_compress")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C functions' arguments on a loaded library."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.taco_compress_wire.argtypes = [p, p, i, i, i, ctypes.c_longlong, i,
                                        i, i, i, i, f, f, f, f, f, p]
@@ -104,6 +103,11 @@ def _lib():
                                          i, i, i, i, f, f, f, f, f, p]
     lib.taco_compress_blocks.restype = i
     return lib
+
+
+@functools.cache
+def _lib():
+    return bind(build.library("ash_compress"))
 
 
 def compress_blocks(blocks: torch.Tensor, cfg):

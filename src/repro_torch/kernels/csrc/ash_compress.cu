@@ -15,6 +15,8 @@
 //
 // Both call compress_row (ash_common.cuh) and differ only in the pointers
 // they hand it, so pack_wire of K1's output is K2's output byte for byte.
+// At an f32 compute dtype compress_row rounds each step once in the order of
+// repro_torch.kernels.ref.compress_blocks_ref, so both give its bits.
 // Both are built for B = 32 .. 512 (E = B / 32 elements per lane) and for
 // an f32 or a bf16 compute dtype (with_shape).
 //
@@ -25,10 +27,10 @@
 // nothing on synchronisation: ONE WARP PER ROW, 8 rows per 256-thread
 // block.  Lane l reads its 8 consecutive elements with one 16-byte load
 // (bf16) or two (f32), keeps the row in registers through both reductions
-// (a per-lane loop, then xor shuffles) and the rotation (3 butterfly stages
-// in the lane, 5 across lanes by __shfl_xor_sync), and writes its 8 payload
-// bytes with one 8-byte store, so a warp reads and writes its row as one
-// coalesced span.  No shared memory and no __syncthreads: a warp past the
+// (inside the lane, then by xor shuffles) and the rotation (3 butterfly
+// stages in the lane, 5 across lanes by __shfl_xor_sync), and writes its 8
+// payload bytes with one 8-byte store, so a warp reads and writes its row as
+// one coalesced span.  No shared memory and no __syncthreads: a warp past the
 // last row returns at once.  Loads and stores fall back to narrower widths
 // where an address is not aligned (an offset view; a wire row at slot *
 // total with total = 4 mod 8), chosen per address in the kernel.

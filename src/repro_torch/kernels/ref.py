@@ -34,12 +34,55 @@ def _transform_fwd(blocks, cfg):
     raise ValueError(cfg.transform)
 
 
+def plain_bits(cfg) -> bool:
+    """Whether K1 and K2 give this plain version's bits for ``cfg``: the
+    ash transform with block-or-finer scales (the kernels' configurations)
+    at an f32 compute dtype."""
+    return cfg.transform == "ash" and cfg.scale_granularity == "block" \
+        and cfg.compute_dtype == "float32"
+
+
+def _compress_blocks_f32(blocks: torch.Tensor, cfg):
+    """K1's function at an f32 compute dtype, in one order on every device
+    (each step rounded once, as ``compress_row`` in csrc/ash_common.cuh):
+    sigma = sqrt(pairwise_sum(g^2) / B + eps), alpha = tau / sigma, z =
+    fwht(alpha g) * (1/sqrt(B)) in f64 on the f32 products alpha g, rounded
+    once to f32 (the values of an f64 matmul rounded once), per group s =
+    max(max|z| / qmax, scale_eps), then the cast (fp8) or round half to
+    even (int8) of clip(z / s, +-qmax).  The row's bits do not depend on
+    the row count or the device."""
+    fmt = cfg.format_spec
+    m, b = blocks.shape
+    g = blocks.float()
+    # the square root of an f32 in f64, rounded once, is the correctly
+    # rounded f32 root (the kernel's sqrtf); PyTorch's f32 sqrt on the CPU
+    # is not always
+    sigma = torch.sqrt((pairwise_sum(g * g) / b + cfg.eps).double()).float()
+    alpha = torch.div(torch.tensor(cfg.tau, dtype=torch.float32,
+                                   device=g.device), sigma)
+    z = (ash_mod.fwht((alpha[:, None] * g).double())
+         * (1.0 / np.sqrt(b))).float()
+    gs = cfg.quant_group_size or b
+    zg = quant_mod._group(z, gs)
+    # tensor divisors: true divisions on every device (PyTorch computes a
+    # CUDA tensor over a Python scalar as a product with its reciprocal)
+    qmax = torch.tensor(fmt.qmax, dtype=torch.float32, device=g.device)
+    s = torch.clamp_min(zg.abs().amax(dim=-1) / qmax, cfg.scale_eps)
+    scaled = torch.clamp(zg / s[..., None], -fmt.qmax, fmt.qmax)
+    q = scaled.to(fmt.dtype) if fmt.is_float else \
+        torch.round(scaled).to(torch.int8)
+    return q.reshape(m, b), alpha, s
+
+
 def compress_blocks_ref(blocks: torch.Tensor, cfg):
     """(M, B) -> (q storage-dtype (M,B), alpha (M,) f32, s (M,G) f32).
 
-    The metadata is f32 whatever the compute dtype, as the wire layout
+    Where :func:`plain_bits` holds, :func:`_compress_blocks_f32`.  The
+    metadata is f32 whatever the compute dtype, as the wire layout
     (``taco.wire_components``) declares it: a bf16 compute dtype's alpha
     and s widen exactly."""
+    if plain_bits(cfg):
+        return _compress_blocks_f32(blocks, cfg)
     fmt = cfg.format_spec
     z, alpha = _transform_fwd(blocks, cfg)
     if cfg.scale_granularity == "tensor":
@@ -191,14 +234,17 @@ def decompress_reduce_wire_ref(wire: torch.Tensor, n: int,
 # --------------------------------------------------------------------------
 # the parity rule between two implementations of these operators
 # --------------------------------------------------------------------------
-# The kernels' butterfly and reduction orders differ from the plain f32
-# matmul (and the two packages' orders differ from each other), so an
-# element whose scaled value sits on a rounding boundary can land one code
-# apart.  Parity is therefore a tolerance, not bitwise: at most
-# PAYLOAD_FLIP_FRACTION of the payload bytes may differ, each by at most
-# one code (so a comparison of fewer than 1/PAYLOAD_FLIP_FRACTION bytes
-# must match exactly); scales and alpha within META_RTOL; decoded values
-# within DECODE_RTOL / DECODE_ATOL.
+# The compress kernels K1, K2 (where plain_bits holds) and K7 round each
+# product and sum once, in their plain versions' order, so on the card
+# they give these functions' bits: codes, alpha and s.  The rule below is
+# a tolerance for what is computed in another order: the JAX package
+# against the port (its rotation is an f32 matmul), a bf16 compute dtype,
+# and the decompress forms (the kernels' butterfly against the plain f64
+# rotation), where an element whose scaled value sits on a rounding
+# boundary can land one code apart: at most PAYLOAD_FLIP_FRACTION of the
+# payload bytes may differ, each by at most one code (so a comparison of
+# fewer than 1/PAYLOAD_FLIP_FRACTION bytes must match exactly); scales and
+# alpha within META_RTOL; decoded values within DECODE_RTOL / DECODE_ATOL.
 PAYLOAD_FLIP_FRACTION = 1e-4
 META_RTOL = 1e-5
 DECODE_RTOL, DECODE_ATOL = 1e-4, 1e-5
@@ -259,6 +305,27 @@ def check_wire_parity(got: torch.Tensor, want: torch.Tensor, n: int,
     return {"flipped": flipped, "meta_rel_err": meta_err}
 
 
+def check_compress_wire(got: torch.Tensor, want: torch.Tensor, n: int,
+                        cfg) -> dict:
+    """A compress kernel's wire rows ``got`` (K2, or pack of K1) against the
+    plain version's ``want`` on the same inputs: byte for byte where
+    :func:`plain_bits` holds (raises with the codes apart), else the parity
+    rule.  Returns :func:`check_wire_parity`'s counts and ``bitwise``."""
+    if plain_bits(cfg):
+        got, want = got.cpu(), want.cpu()
+        if not torch.equal(got, want):
+            dq = (payload_codes(got[..., :n], cfg)
+                  - payload_codes(want[..., :n], cfg)).abs()
+            meta = int((got[..., n:] != want[..., n:]).sum())
+            raise AssertionError(
+                f"not the plain version's bits: {int((dq != 0).sum())} of "
+                f"{dq.numel()} codes differ, max {int(dq.max())} apart; "
+                f"{meta} metadata bytes differ")
+        return {"flipped": 0, "meta_rel_err": 0.0, "bitwise": True}
+    stats = check_wire_parity(got, want, n, cfg)
+    return dict(stats, bitwise=torch.equal(got.cpu(), want.cpu()))
+
+
 def check_decoded_close(got: torch.Tensor, want: torch.Tensor,
                         cfg=None) -> float:
     """Decoded values within DECODE_RTOL / DECODE_ATOL, or, under a bf16
@@ -280,7 +347,8 @@ def check_decoded_close(got: torch.Tensor, want: torch.Tensor,
 def check_hop_parity(codec, x: torch.Tensor, device) -> dict:
     """One compressed hop of ``codec`` on the (slots, n) input ``x``, run on
     ``device`` against the same hop on the CPU: the encoded wire rows
-    (``encode_wire``) under :func:`check_wire_parity`, and the CPU's wire
+    (``encode_wire``) under :func:`check_compress_wire` (bit for bit where
+    :func:`plain_bits` holds, else the parity rule), and the CPU's wire
     decoded on both (``decode_wire``, and ``decode_sum_wire`` with the
     slots as peers), each within the decode rtol of ``cfg``'s compute dtype
     (DECODE_RTOL, or BF16_RTOL) in relative norm.  Returns the wire counts
@@ -289,7 +357,8 @@ def check_hop_parity(codec, x: torch.Tensor, device) -> dict:
     n = x.shape[-1]
     x = x.cpu()
     w_cpu = codec.encode_wire(x)
-    stats = check_wire_parity(codec.encode_wire(x.to(device)), w_cpu, n, cfg)
+    stats = check_compress_wire(codec.encode_wire(x.to(device)), w_cpu, n,
+                                cfg)
     rtol = BF16_RTOL if cfg.compute_dtype == "bfloat16" else DECODE_RTOL
     for name, fn in (
             ("decode", lambda w: codec.decode_wire(w, n, torch.float32)),

@@ -4,12 +4,13 @@ one).  Run on a machine with an H100:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 The six CUDA kernels are held against their plain PyTorch versions on the
-same inputs with the parity rule of ``repro_torch.kernels.ref``; each
-block form against its wire form bit for bit (they share one per-row
-body); K3 against K4 on one peer bit for bit under folded f32 metadata;
-K5 and K6 on wire views at byte offsets 1-3 against the aligned wire bit
-for bit; the card's taco decode and taco train step against the CPU's
-(plain versions).
+same inputs: K1 and K2 bit for bit at an f32 compute dtype (they round in
+the plain version's order, ``ref.plain_bits``), the rest with the parity
+rule of ``repro_torch.kernels.ref``; each block form against its wire
+form bit for bit (they share one per-row body); K3 against K4 on one peer
+bit for bit under folded f32 metadata; K5 and K6 on wire views at byte
+offsets 1-3 against the aligned wire bit for bit; the card's taco decode
+and taco train step against the CPU's (plain versions).
 """
 import numpy as np
 import pytest
@@ -38,13 +39,14 @@ def card():
 @pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("peers,n", [(3, 3584), (4, 3584), (2, 256 * 97)])
 def test_wire_kernels_match_plain(card, spec, in_dtype, peers, n, rng):
-    """Each case compares at least 1e4 payload bytes, so the parity rule
-    allows the occasional one-code flip (chip_smoke.py holds the serve
-    shape itself, slots=1)."""
+    """K2 gives the plain version's wire byte for byte; K5 and K6 within the
+    decode tolerance (chip_smoke.py holds the serve shape itself,
+    slots=1)."""
     cfg = codec_from_spec(spec).cfg
     x = torch.from_numpy(tp_like(rng, (peers, n))).to(card, in_dtype)
     wire = ash_compress.compress_wire(x, cfg)
-    ref.check_wire_parity(wire, ref.compress_wire_ref(x, cfg), n, cfg)
+    assert ref.check_compress_wire(wire, ref.compress_wire_ref(x, cfg), n,
+                                   cfg)["bitwise"]
     ref.check_decoded_close(ash_decompress.decompress_wire(wire, n, cfg),
                             ref.decompress_wire_ref(wire, n, cfg))
     ref.check_decoded_close(
@@ -57,7 +59,8 @@ def test_degenerate_blocks_match_plain(card):
     x = torch.zeros((2, 768), device=card)
     x[1, 256:512] = 1e-38
     wire = ash_compress.compress_wire(x, cfg)
-    ref.check_wire_parity(wire, ref.compress_wire_ref(x, cfg), 768, cfg)
+    assert ref.check_compress_wire(wire, ref.compress_wire_ref(x, cfg), 768,
+                                   cfg)["bitwise"]
     out = ash_decompress.decompress_wire(wire, 768, cfg)
     assert torch.isfinite(out).all() and float(out[0].abs().max()) == 0.0
 
@@ -115,12 +118,13 @@ BLOCK_SPECS = ["taco", "taco:folded", "taco:e5m2", "taco:int8", "taco:g64",
 @pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("rows", [40, 28 * 97])
 def test_block_kernels_match_plain(card, spec, in_dtype, rows, rng):
-    """K1, K3, K4 against their plain versions (each case at least 1e4
-    payload bytes, so the parity rule allows the odd one-code flip)."""
+    """K1 gives the plain version's q, alpha and s bit for bit; K3 and K4
+    within the decode tolerance."""
     cfg = codec_from_spec(spec).cfg
     x = torch.from_numpy(tp_like(rng, (rows, 256))).to(card, in_dtype)
     q, a, s = ash_compress.compress_blocks(x, cfg)
     qp, ap, sp = ref.compress_blocks_ref(x, cfg)
+    _assert_same_bits((q, a, s), (qp, ap, sp))
     layout = ref._layout(cfg, rows * 256)
 
     def row(q_, a_, s_):
@@ -129,7 +133,8 @@ def test_block_kernels_match_plain(card, spec, in_dtype, rows, rng):
         if cfg.metadata == "folded":
             return pack_wire((pay, (s_ / a_[:, None]).reshape(1, -1)), layout)
         return pack_wire((pay, s_.reshape(1, -1), a_.reshape(1, -1)), layout)
-    ref.check_wire_parity(row(q, a, s), row(qp, ap, sp), rows * 256, cfg)
+    assert ref.check_compress_wire(row(q, a, s), row(qp, ap, sp), rows * 256,
+                                   cfg)["bitwise"]
     alpha = None if cfg.metadata == "folded" else ap
     scale = sp / ap[:, None] if alpha is None else sp
     ref.check_decoded_close(
@@ -407,43 +412,26 @@ def test_nccl_ring_equals_monolithic(card, budget, tmp_path, monkeypatch,
 # K1 and K2: one warp per row, one shared row body
 # --------------------------------------------------------------------------
 
+def _assert_same_bits(got, want):
+    """Block-form arrays (q, alpha, s) equal bit for bit (-0 apart from
+    +0)."""
+    for name, g, w in zip(("q", "alpha", "s"), got, want):
+        assert g.shape == w.shape and torch.equal(_bits(g), _bits(w)), name
+
+
 def _k1_k2(x, codec, slots, n):
     """K1 on the blocks of ``x`` (slots, n) and K2 on ``x``: returns K2's
-    wire, K1's packed wire and the plain version's wire."""
+    wire, K1's packed wire and the plain version's wire.  Where
+    ``ref.plain_bits`` holds, K1's q, alpha and s are the plain version's
+    bit for bit."""
     cfg = codec.cfg
-    q, a, s = ash_compress.compress_blocks(x.reshape(-1, cfg.block_size),
-                                           cfg)
+    blocks = x.reshape(-1, cfg.block_size)
+    q, a, s = ash_compress.compress_blocks(blocks, cfg)
+    if ref.plain_bits(cfg):
+        _assert_same_bits((q, a, s), ref.compress_blocks_ref(blocks, cfg))
     k1 = ref.blocks_to_wire(q, a, s, cfg, slots, n)
     k2 = ash_compress.compress_wire(x, cfg)
     return k2, k1, ref.compress_wire_ref(x, cfg)
-
-
-def _hold_small_groups(got, want, n, cfg):
-    """The parity rule for groups of fewer than 8 elements.  A group's
-    scale is the magnitude of its largest rotated value, and with a few
-    elements per group that value can be the result of a cancellation in
-    the rotation, where the kernel's f32 butterfly and the plain version's
-    f64-accumulated rotation differ by ~1e-7 of the row's magnitude, not
-    of the value's (at g1 a group's own scale can differ by percents).  So
-    each scale is held within META_RTOL of its row's largest scale; the
-    payload under the rule's flip allowance, alpha within META_RTOL, and
-    the decoded rows within DECODE_RTOL / DECODE_ATOL where no code
-    differs, as everywhere else."""
-    from repro_torch.core.codecs import unpack_wire
-    payload_only = got.cpu().clone()
-    payload_only[:, n:] = want.cpu()[:, n:]
-    stats = ref.check_wire_parity(payload_only, want, n, cfg)
-    layout = ref._layout(cfg, n)
-    fg, fw = unpack_wire(got.cpu(), layout), unpack_wire(want.cpu(), layout)
-    groups = ash_compress.groups(cfg)
-    sg, sw = fg[1].reshape(-1, groups), fw[1].reshape(-1, groups)
-    assert float(((sg - sw).abs() / sw.amax(-1, keepdim=True)).max()) \
-        <= ref.META_RTOL
-    for g, w in zip(fg[2:], fw[2:]):
-        torch.testing.assert_close(g, w, rtol=ref.META_RTOL, atol=0)
-    if stats["flipped"] == 0:
-        ref.check_decoded_close(ref.decompress_wire_ref(got.cpu(), n, cfg),
-                                ref.decompress_wire_ref(want.cpu(), n, cfg))
 
 
 @pytest.mark.parametrize("metadata", ["", ":folded"])
@@ -451,19 +439,46 @@ def _hold_small_groups(got, want, n, cfg):
 @pytest.mark.parametrize("gs", [1, 2, 4, 8, 16, 32, 64, 128, 256])
 def test_compress_kernels_every_group_size(card, gs, fmt, metadata, rng):
     """Every group size the registry's ``g<k>`` takes (one group per lane
-    element up to one per row), every format, both metadata layouts: K2 and
-    pack(K1) equal bit for bit, and both within the parity rule of the plain
-    version (64 rows: 16384 payload bytes; groups under 8 elements by
-    :func:`_hold_small_groups`)."""
+    element up to one per row), every format, both metadata layouts (64
+    rows): K2, pack(K1) and the plain version's wire equal bit for bit, and
+    K1's q, alpha and s the plain version's."""
     codec = codec_from_spec(f"taco:{fmt}:g{gs}{metadata}")
     n = 256 * 64
     x = torch.from_numpy(tp_like(rng, (1, n))).to(card, torch.bfloat16)
     k2, k1, plain = _k1_k2(x, codec, 1, n)
     assert torch.equal(k1, k2)
-    if gs < 8:
-        _hold_small_groups(k2, plain, n, codec.cfg)
-    else:
-        ref.check_wire_parity(k2, plain, n, codec.cfg)
+    assert ref.check_compress_wire(k2, plain, n, codec.cfg)["bitwise"]
+
+
+def planted(gen, rows, b):
+    """f32 rows z @ H / sqrt(B) of seeded normal z with one aligned group of
+    8 values of z per row at 0: the rotation cancels there, so only the
+    plain version's order gives its codes (also
+    tests/test_torch_compress_order.py)."""
+    from repro_torch.core.ash import hadamard_matrix
+    z = gen.normal(size=(rows, b))
+    start = 8 * gen.integers(0, b // 8, size=rows)
+    z[np.arange(rows)[:, None], start[:, None] + np.arange(8)] = 0.0
+    h = hadamard_matrix(b, torch.float64).numpy()
+    return torch.from_numpy((z @ h).astype(np.float32))
+
+
+@pytest.mark.parametrize("metadata", ["", ":folded"])
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2", "int8"])
+@pytest.mark.parametrize("gs", [1, 2, 4, 8, 16, 32, 64, 128, 256])
+def test_compress_kernels_planted_rows(card, gs, fmt, metadata):
+    """Rows with a rotated group planted at 0 (64 rows), every format and
+    group size, both layouts: K2, pack(K1) and the plain version's wire
+    equal bit for bit, and the plain version on the card equals the plain
+    version on the CPU (its own generator: the tests above draw as
+    before)."""
+    codec = codec_from_spec(f"taco:{fmt}:g{gs}{metadata}")
+    n = 256 * 64
+    x = planted(np.random.default_rng(29 + gs), 64, 256).reshape(1, n)
+    k2, k1, plain = _k1_k2(x.to(card), codec, 1, n)
+    assert torch.equal(k1, k2)
+    assert ref.check_compress_wire(k2, plain, n, codec.cfg)["bitwise"]
+    assert torch.equal(plain.cpu(), ref.compress_wire_ref(x, codec.cfg))
 
 
 @pytest.mark.parametrize("spec", ["taco", "taco:folded", "taco:folded:g32",
@@ -481,26 +496,21 @@ def test_compress_wire_rows_at_4_byte_offsets(card, spec, in_dtype, rng):
     if spec in ("taco:folded", "taco:int8:g128"):     # mb G (+ mb) odd
         assert k2.shape[1] % 8 == 4
     assert torch.equal(k1, k2)
-    ref.check_wire_parity(k2, plain, n, codec.cfg)
+    assert ref.check_compress_wire(k2, plain, n, codec.cfg)["bitwise"]
 
 
 @pytest.mark.parametrize("rows", [1, 7, 9, 14, 4099])
 def test_compress_blocks_ragged_row_counts(card, rows, rng):
     """Row counts that are not a multiple of a block's 8 warps: the warps
-    past the last row return, the rows before it are all written."""
+    past the last row return, the rows before it are all written (the
+    plain version's bits)."""
     codec = codec_from_spec("taco")
     x = torch.from_numpy(tp_like(rng, (1, rows * 256))).to(card,
                                                           torch.bfloat16)
     k2, k1, plain = _k1_k2(x, codec, 1, rows * 256)
     assert torch.equal(k1, k2)
-    if rows * 256 >= 1e4:
-        ref.check_wire_parity(k2, plain, rows * 256, codec.cfg)
-    else:
-        # too few bytes for the flip allowance: the decoded rows agree
-        ref.check_decoded_close(ref.decompress_wire_ref(k2, rows * 256,
-                                                        codec.cfg),
-                                ref.decompress_wire_ref(plain, rows * 256,
-                                                        codec.cfg))
+    assert ref.check_compress_wire(k2, plain, rows * 256, codec.cfg)[
+        "bitwise"]
 
 
 @pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
@@ -546,17 +556,17 @@ def test_kernels_every_block_size_and_compute_dtype(card, b, cd, metadata,
                                                     rng):
     """K1 to K6 at each block size of ``ash_compress.BLOCK_SIZES`` under
     an f32 and a bf16 compute dtype (3 slots, 18432 payload bytes): pack(K1)
-    == K2, K3(unpack) == K5 and K4(unpack) == K6 bit for bit, K2 within the
-    parity rule of the plain version (its bf16 allowances under
-    ``cdbfloat16``), K5 and K6 within the decode tolerance of the compute
-    dtype."""
+    == K2, K3(unpack) == K5 and K4(unpack) == K6 bit for bit, K2 the plain
+    version's wire bit for bit at f32 (within the parity rule's bf16
+    allowances under ``cdbfloat16``), K5 and K6 within the decode tolerance
+    of the compute dtype."""
     codec = codec_from_spec(f"taco:b{b}{cd}{metadata}")
     cfg = codec.cfg
     slots, n = 3, 256 * 24
     x = torch.from_numpy(tp_like(rng, (slots, n))).to(card, torch.bfloat16)
     k2, k1, plain = _k1_k2(x, codec, slots, n)
     assert torch.equal(k1, k2)
-    ref.check_wire_parity(k2, plain, n, cfg)
+    ref.check_compress_wire(k2, plain, n, cfg)
     k5 = ash_decompress.decompress_wire(plain, n, cfg)
     k6 = ash_decompress.decompress_reduce_wire(plain, n, cfg)
     assert k5.dtype == k6.dtype == cfg.torch_compute_dtype
@@ -584,7 +594,8 @@ def test_ablation_hop_on_card_matches_cpu(card, spec, rng):
     ``ops.plain_routes``; ``b128`` and ``cdbfloat16`` launch the kernels
     and count nothing there.  Held by ``ref.check_hop_parity``: the parity
     rule (with a bf16 compute dtype, one bf16 ulp of metadata and a flip
-    in 1e-3 of the payload bytes)."""
+    in 1e-3 of the payload bytes), and the wire bit for bit where
+    ``ref.plain_bits`` holds (``b128``)."""
     codec = codec_from_spec(spec)
     x = torch.from_numpy(tp_like(rng, (2, 256 * 64)))
     counters = (ash_compress.compress_blocks, ash_compress.compress_wire,
@@ -746,8 +757,9 @@ def test_decompress_reduce_ragged_row_counts(card, rows, rng):
                                   "taco:b64"])
 def test_taco_compress_decompress_launch_k1_k3(card, spec):
     """``core.taco.compress`` / ``decompress`` on a CUDA tensor launch K1
-    and K3 once each, and agree with the plain versions on the CPU (the
-    parity rule of ``repro_torch.kernels.ref``)."""
+    and K3 once each; the compressed bytes equal the plain version's on the
+    CPU bit for bit, the decompressed values agree within the decode
+    tolerance of ``repro_torch.kernels.ref``."""
     from repro_torch.core import taco
     cfg = codec_from_spec(spec).cfg
     gen = np.random.default_rng(19)
@@ -766,7 +778,7 @@ def test_taco_compress_decompress_launch_k1_k3(card, spec):
         fields = (cc.payload, cc.scale) + (() if cc.alpha is None
                                            else (cc.alpha,))
         return pack_wire(tuple(f.reshape(1, -1) for f in fields), layout)
-    ref.check_wire_parity(row(c), row(cp), n, cfg)
+    assert ref.check_compress_wire(row(c), row(cp), n, cfg)["bitwise"]
     same = taco.Compressed(cp.payload.to(card), cp.scale.to(card),
                            None if cp.alpha is None else cp.alpha.to(card))
     ref.check_decoded_close(
@@ -969,7 +981,7 @@ SP_SHAPES = [("ulysses in", (4, 1024, 14, 192), 2),
                          ids=[s[0].replace(" ", "-") for s in SP_SHAPES])
 def test_sp_hop_kernels_match_plain(card, hop, shape, slots, rng):
     """The hop's wire rows (``slots`` rows of the rank's tensor) through K1
-    against the plain version by the parity rule, K3's decode of them (in
+    equal the plain version's on the CPU bit for bit, K3's decode of them (in
     the codec's f32 compute dtype) against the plain decode, one launch
     each."""
     codec = codec_from_spec("taco:folded")
@@ -982,7 +994,8 @@ def test_sp_hop_kernels_match_plain(card, hop, shape, slots, rng):
     dec = codec.decode_wire(wire, n, torch.float32)
     assert (ash_compress.compress_blocks.launches - before[0],
             ash_decompress.decompress_blocks.launches - before[1]) == (1, 1)
-    ref.check_wire_parity(wire, codec.encode_wire(x.cpu()), n, cfg)
+    assert ref.check_compress_wire(wire, codec.encode_wire(x.cpu()), n,
+                                   cfg)["bitwise"]
     ref.check_decoded_close(dec, codec.decode_wire(wire.cpu(), n,
                                                    torch.float32), cfg)
 

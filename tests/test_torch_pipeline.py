@@ -47,7 +47,8 @@ whole code step, so the bounds are set from what is measured
     weight gradient of every tick to int4, and a TACO code flipped by a
     last-bit difference moves the gradients of its block across int4
     steps.  The port against itself with its rotations as one f32 matmul
-    spreads 7.0e-5 / 9.6e-2 / 1.02e-2 (the JAX package's taco3d against its
+    (TACO's plain compress through ``ash.ash_forward`` for it) spreads
+    5.8e-5 / 9.8e-2 / 1.03e-2 (the JAX package's taco3d against its
     identity plan: 1.3e-1 of the grads, 1.08e-2 of the weights), so the
     bounds are about twice that spread: 1e-4 / 2e-1 / 2e-2
     (:func:`test_taco3d_rotations_last_bit_spreads_as_far`).  What holds
@@ -359,6 +360,7 @@ def _pipe_task(rank, p, group, pl):
     from repro_torch.core import ash
     from repro_torch.core import collectives as cc
     from repro_torch.core.registry import codec_from_spec, from_spec
+    from repro_torch.kernels import ref
     from repro_torch.launch.mesh import PIPE_AXES, init_mesh
     from repro_torch.train.train_step import build_train_step
     _f32()
@@ -383,16 +385,19 @@ def _pipe_task(rank, p, group, pl):
         hops = []
         # the taco3d step's SDP4bit and TACO hops, held in this process
         sdp, tp = ([], []) if spec == "taco3d" else (None, None)
-        rotate = ash._rotate
+        rotate, plain_bits = ash._rotate, ref.plain_bits
         if spec == F32_ROTATION:
+            # TACO's plain compress through ash.ash_forward, so that its
+            # rotation is the f32 matmul too
             ash._rotate = lambda z, h: z @ h
+            ref.plain_bits = lambda cfg: False
         try:
             with _recording(hops, [], ctx, sdp, tp):
                 out = _caught_step(_pipe_build(shape[0]), model, ctx,
                                    pl["trees"][shape[2]],
                                    model.batch_slice(glob))
         finally:
-            ash._rotate = rotate
+            ash._rotate, ref.plain_bits = rotate, plain_bits
         res[(shape, spec)] = out + (hops, mesh.coords, sdp, tp)
     mesh = init_mesh(POD_MESH, "cpu")
     ctx = mesh.parallel_ctx(from_spec(INT8))

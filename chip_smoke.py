@@ -512,7 +512,34 @@ def planted(gen, rows: int, b: int) -> torch.Tensor:
     return torch.from_numpy((z @ h).astype(np.float32))
 
 
-def phase_kernels() -> dict:
+def compress_launch(name: str, cfg, dtype, rows: int, regs: dict) -> dict:
+    """K1's or K2's launch for ``rows`` block rows of ``dtype`` under
+    ``cfg`` (``ash_compress.geometry``: elements a lane, lanes a row, rows
+    a warp, the persistent grid) and the registers and spilled bytes that
+    ``-Xptxas -v`` printed for its instantiation (``regs``:
+    ``ptxas_registers`` of the ash_compress build; None where the library
+    was not built in this run)."""
+    from repro_torch.kernels import ash_compress as ac
+    b = cfg.block_size
+    bf = int(cfg.torch_compute_dtype == torch.bfloat16)
+    geo = ac.geometry(b, dtype, rows, ac.sms(torch.cuda.current_device()),
+                      bf16_compute=bool(bf))
+    tin = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
+    pat = re.compile(rf"{KERNEL_FN[name]}I{tin}Li{b}ELi{geo.e}ELb{bf}E")
+    reg = next((v for k, v in regs.items() if pat.search(k)), (None, None))
+    return {"e": geo.e, "lanes": geo.lanes,
+            "rows_per_warp": geo.rows_per_warp, "grid": geo.grid,
+            "registers": reg[0], "spilled": reg[1]}
+
+
+def compress_note(r: dict) -> str:
+    return (f"      E = {r['e']}, {r['lanes']} lanes a row, "
+            f"{r['rows_per_warp']} rows a warp, grid {r['grid']}; registers "
+            f"{r['registers']}, spilled bytes {r['spilled']}; "
+            f"{r['bound_ms'] / r['ms']:.1%} of the bound")
+
+
+def phase_kernels(logs: dict | None = None) -> dict:
     from repro_torch.core.registry import codec_from_spec
     from repro_torch.kernels import ref
     from repro_torch.kernels.ash_compress import compress_wire, wire_geometry
@@ -521,6 +548,7 @@ def phase_kernels() -> dict:
     gen = np.random.default_rng(0)
     dev = torch.device("cuda")
     rows = {}
+    regs = ptxas_registers((logs or {}).get("ash_compress", ""))
 
     def case(spec, n, in_dtype, peers, timed=False, label="", x=None):
         cfg = codec_from_spec(spec).cfg
@@ -580,10 +608,14 @@ def phase_kernels() -> dict:
                   f"plain {plain_ms:.6f} ms  bound {b_ms:.6f} ms ({b_by}); "
                   f"per call: kernel {per_call:.6f} ms  plain "
                   f"{plain_call:.6f} ms")
-            rows.setdefault(name, {})[label] = {
+            r = rows.setdefault(name, {})[label] = {
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "max_abs_err": err, "call_ms": per_call,
                 "plain_call_ms": plain_call}
+            if name == "compress_wire":
+                r.update(compress_launch(name, cfg, x1.dtype,
+                                         n // cfg.block_size, regs))
+                print(compress_note(r))
 
     print("phase 1: kernels vs plain versions; K2 bit for bit at f32 "
           "compute (ref.plain_bits), else at most "
@@ -704,15 +736,18 @@ def hold_blocks(x, cfg, peers: int, n: int, where: str) -> dict:
             "scale": scale, "q3": q3, "s3": s3, "a3": a3}
 
 
-def phase_blocks() -> dict:
+def phase_blocks(logs: dict | None = None) -> dict:
     """K1, K3, K4 against their plain versions, each block form against
-    its wire form bit for bit, and both routes of a whole hop timed."""
+    its wire form bit for bit, and both routes of a whole hop timed; K1's
+    launch geometry and registers beside its times (``logs``: the build's
+    output)."""
     from repro_torch.core.codecs import pack_wire, unpack_wire
     from repro_torch.core.registry import codec_from_spec
     from repro_torch.kernels import ops, ref
     gen = np.random.default_rng(1)
     dev = torch.device(DEVICE)
     rows, hops = {}, {}
+    regs = ptxas_registers((logs or {}).get("ash_compress", ""))
 
     def case(spec, n, in_dtype, peers, timed=False, label="", x=None,
              offset=0):
@@ -791,10 +826,13 @@ def phase_blocks() -> dict:
                   f"plain {plain_ms:.7f} ms  bound {b_ms:.7f} ms ({b_by}, "
                   f"{b_ms / ms:.1%} of it); per call: kernel "
                   f"{per_call:.7f} ms  plain {plain_call:.7f} ms")
-            rows.setdefault(name, {})[label] = {
+            r = rows.setdefault(name, {})[label] = {
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "max_abs_err": err, "call_ms": per_call,
                 "plain_call_ms": plain_call}
+            if name == "compress_blocks" and DEVICE == "cuda":
+                r.update(compress_launch(name, cfg, blocks.dtype, m, regs))
+                print(compress_note(r))
         if label != "train":
             return
         # both routes of one whole hop (the codec's wire methods)
@@ -3388,8 +3426,8 @@ def main() -> None:
                "decompress_reduce_wire": ash_decompress.decompress_reduce_wire,
                "compress_blocks_butterfly":
                    fwht_butterfly.compress_blocks_butterfly}
-    rows = phase_kernels()
-    blocks = phase_blocks()
+    rows = phase_kernels(logs)
+    blocks = phase_blocks(logs)
     rows.update(blocks["rows"])
     print("phase 1c: K7 (compress_blocks_butterfly) vs its plain version "
           "(same rule), timed beside K1")

@@ -32,13 +32,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.ash_compress import FMT_CODE
+from repro_torch.kernels.ash_compress import (FMT_CODE, Geometry,
+                                              launch_geometry)
+from repro_torch.kernels.ash_compress import sms as _sms
 
 #: the row widths the kernel takes, every power of two the JAX kernel's
 #: sweep takes
@@ -55,42 +56,17 @@ THREADS = 256
 BLOCKS_PER_SM = 4
 
 
-class Geometry(NamedTuple):
-    """One launch of the kernel: ``e`` elements a lane, ``lanes`` a row,
-    ``rows_per_warp`` (a row group), ``rows_per_block`` in one pass of the
-    block's warps, ``groups`` row groups to cover, ``grid`` blocks of
-    ``threads``.  Warp w of block k takes groups w + k W, w + k W + grid
-    W, ... (W = threads / 32), group g rows [g R, g R + R)."""
-    e: int
-    lanes: int
-    rows_per_warp: int
-    rows_per_block: int
-    groups: int
-    grid: int
-    threads: int
-
-
 def geometry(b: int, dtype: torch.dtype, rows: int, sms: int,
              e: int | None = None,
              blocks_per_sm: int | None = None) -> Geometry:
-    """The launch geometry for ``rows`` rows of width ``b`` in ``dtype``
-    on a card of ``sms`` multiprocessors: ``KEPT_E[b]`` elements a lane
-    and at most ``BLOCKS_PER_SM`` blocks a multiprocessor unless ``e`` or
+    """The launch geometry (``ash_compress.launch_geometry``) for ``rows``
+    rows of width ``b`` in ``dtype`` on a card of ``sms``
+    multiprocessors: ``KEPT_E[b]`` elements a lane and at most
+    ``BLOCKS_PER_SM`` blocks a multiprocessor unless ``e`` or
     ``blocks_per_sm`` say otherwise (the sweep's variants)."""
-    e = KEPT_E[b] if e is None else e
-    lanes = b // e
-    if b % e or not 1 <= lanes <= 32:
-        raise ValueError(f"no launch of B = {b} with {e} elements a lane")
-    if e * torch.empty((), dtype=dtype).element_size() % 16:
-        raise ValueError(f"{e} elements of {dtype} are not whole 16-byte "
-                         f"words")
-    rows_per_warp = 32 // lanes
-    warps = THREADS // 32
-    groups = -(-rows // rows_per_warp)
-    per_sm = BLOCKS_PER_SM if blocks_per_sm is None else blocks_per_sm
-    grid = max(1, min(-(-groups // warps), sms * per_sm))
-    return Geometry(e, lanes, rows_per_warp, rows_per_warp * warps, groups,
-                    grid, THREADS)
+    return launch_geometry(
+        b, dtype, rows, sms, KEPT_E[b] if e is None else e,
+        BLOCKS_PER_SM if blocks_per_sm is None else blocks_per_sm, THREADS)
 
 
 @functools.cache
@@ -105,11 +81,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, p, p, p, i, i, i, ctypes.c_longlong, i, f, f, f, f, i, i, p]
     lib.taco_compress_blocks_butterfly.restype = i
     return lib
-
-
-@functools.cache
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def launch(lib, blocks: torch.Tensor, cfg, geo: Geometry):

@@ -409,7 +409,7 @@ def test_nccl_ring_equals_monolithic(card, budget, tmp_path, monkeypatch,
 
 
 # --------------------------------------------------------------------------
-# K1 and K2: one warp per row, one shared row body
+# K1 and K2: one shared row body
 # --------------------------------------------------------------------------
 
 def _assert_same_bits(got, want):
@@ -543,6 +543,102 @@ def test_compress_launches_one_warp_per_row_and_count_once(card):
     torch.cuda.synchronize()
     assert [ash_compress.compress_blocks.launches - before[0],
             ash_compress.compress_wire.launches - before[1]] == [1, 1]
+
+
+# --------------------------------------------------------------------------
+# K1 and K2's persistent grid (ash_compress.geometry): its edges
+# --------------------------------------------------------------------------
+
+def _grid_edge_rows(b, dtype):
+    """Row counts at the edges of K1's launch at width ``b``: 1 row, the
+    serve hop's 14, a warp's rows and a block's at both lane widths
+    (``KEPT_E``, ``LATENCY_E``), the first row count at ``KEPT_E`` and a
+    whole grid pass, each +-1, and two passes plus a block and a tail."""
+    sms = ash_compress.sms(torch.cuda.current_device())
+    edges = set()
+    for e in (ash_compress.KEPT_E[b], ash_compress.LATENCY_E[b]):
+        geo = ash_compress.geometry(b, dtype, 1 << 30, sms, e=e)
+        edges |= {geo.rows_per_warp, geo.rows_per_block}
+    kept = ash_compress.geometry(b, dtype, 1 << 30, sms)
+    full = kept.grid * kept.rows_per_block
+    edges |= {full, sms * kept.rows_per_block - kept.rows_per_warp + 1}
+    return sorted({c for k in edges for c in (k - 1, k, k + 1) if c >= 1}
+                  | {1, 14, 2 * full + kept.rows_per_block + 3})
+
+
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [32, 256, 512])
+def test_compress_grid_edges(card, b, in_dtype, rng):
+    """At every row count of ``_grid_edge_rows``: K1 on the first rows
+    equals K1's one launch over all the rows on those rows, and K2 on them
+    as one slot equals the packed rows, bit for bit; the one launch is the
+    plain version's bits."""
+    cfg = codec_from_spec(f"taco:b{b}").cfg
+    counts = _grid_edge_rows(b, in_dtype)
+    x = torch.from_numpy(tp_like(rng, (counts[-1], b))).to(card, in_dtype)
+    whole = ash_compress.compress_blocks(x, cfg)
+    _assert_same_bits(whole, ref.compress_blocks_ref(x, cfg))
+    for rows in counts:
+        part = tuple(t[:rows] for t in whole)
+        _assert_same_bits(ash_compress.compress_blocks(x[:rows], cfg), part)
+        assert torch.equal(
+            ash_compress.compress_wire(x[:rows].reshape(1, -1), cfg),
+            ref.blocks_to_wire(*part, cfg, 1, rows * b)), rows
+
+
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_compress_grid_on_unaligned_views(card, in_dtype, offset, rng):
+    """A view at element offset 1-3 over two grid passes and a tail (7
+    slots of K2): K1 and K2 take the narrower loads and give the plain
+    version's bits, and the bytes of the aligned copy."""
+    cfg = codec_from_spec("taco:folded:g64").cfg
+    sms = ash_compress.sms(torch.cuda.current_device())
+    geo = ash_compress.geometry(256, in_dtype, 1 << 30, sms)
+    rows = 7 * ((2 * geo.grid * geo.rows_per_block + 7) // 7 + 1)
+    base = torch.from_numpy(tp_like(rng, (rows * 256 + offset,))).to(
+        card, in_dtype)
+    view = base[offset:].view(rows, 256)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    got = ash_compress.compress_blocks(view, cfg)
+    _assert_same_bits(got, ref.compress_blocks_ref(view.clone(), cfg))
+    _assert_same_bits(got, ash_compress.compress_blocks(view.clone(), cfg))
+    wire = ash_compress.compress_wire(view.reshape(7, -1), cfg)
+    assert torch.equal(wire, ash_compress.compress_wire(
+        view.reshape(7, -1).clone(), cfg))
+    assert torch.equal(wire, ref.compress_wire_ref(view.reshape(7, -1), cfg))
+
+
+@pytest.mark.parametrize("spec", ["taco:folded", "taco:int8:g128"])
+def test_compress_wire_grid_rows_at_4_byte_offsets(card, spec, rng):
+    """3001 slots of n = 1792 (7 rows each, total = 4 mod 8): every odd
+    slot's rows start 4-byte aligned only, and the rows span more than one
+    grid pass; K2 equals pack(K1) and the plain version's wire bit for
+    bit."""
+    codec = codec_from_spec(spec)
+    slots, n = 3001, 1792
+    x = torch.from_numpy(tp_like(rng, (slots, n))).to(card, torch.bfloat16)
+    k2, k1, plain = _k1_k2(x, codec, slots, n)
+    assert k2.shape[1] % 8 == 4
+    assert torch.equal(k1, k2)
+    assert ref.check_compress_wire(k2, plain, n, codec.cfg)["bitwise"]
+
+
+def test_compress_refuses_what_the_kernels_do_not_take(card):
+    """A wire slot that is not whole blocks, a launch geometry the library
+    is not built for (an E of neither table; KEPT_E for f32 input): refused,
+    and nothing is counted."""
+    cfg = codec_from_spec("taco").cfg
+    before = ash_compress.compress_wire.launches
+    with pytest.raises(ValueError, match="multiple of the block"):
+        ash_compress.compress_wire(torch.zeros((1, 300), device=card), cfg)
+    x = torch.zeros((8, 256), device=card)
+    assert 16 not in (ash_compress.KEPT_E[256], ash_compress.LATENCY_E[256])
+    for e in (16, ash_compress.KEPT_E[256]):
+        bad = ash_compress.geometry(256, x.dtype, 8, 1, e=e)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ash_compress.launch_blocks(ash_compress._lib(), x, cfg, bad)
+    assert ash_compress.compress_wire.launches == before
 
 
 # --------------------------------------------------------------------------

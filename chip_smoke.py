@@ -1057,6 +1057,46 @@ def phase_butterfly(logs: dict | None = None) -> dict:
     return rows
 
 
+def phase_nonfinite() -> dict:
+    """K1-K7 on rows holding NaN or inf against their plain versions on
+    the card (``ref.check_kernels_nonfinite``): 64 TP-like bf16 rows a
+    shape with ``ref.NONFINITE_KINDS`` planted (a NaN, +inf, -inf, an
+    element whose square overflows, zeros) at B = 256 and 64, at every
+    format, both compute dtypes and both metadata forms (one group a row
+    dual, groups of 8 folded); and the fewest rows (+2) at which K1 / K2
+    take ``KEPT_E`` at an f32 compute dtype.  K1, K2 and K7 under
+    ``ref.NONFINITE_RULE`` (every row's bits where they give the plain
+    version's), K3-K6 NaN where the plain version is
+    (``tests/test_torch_gpu.py`` adds f32 input and every group size of
+    both forms).  Prints the cases held (a kernel on a configuration) and
+    the values apart; any value apart fails the run."""
+    from repro_torch.core.taco import TacoConfig
+    from repro_torch.kernels import ash_compress as ac
+    from repro_torch.kernels import ref
+    gen = np.random.default_rng(3)
+    sms = ac.sms(torch.cuda.current_device())
+    held = {"cases": 0, "apart": 0, "shapes": 0}
+    for b in (256, 64):
+        kept = sms * (ac.THREADS // 32) * (32 * ac.KEPT_E[b] // b) + 2
+        for m in (64, kept):
+            x, rows = ref.plant_nonfinite(tp_like(gen, (m, b)), gen)
+            x = x.to(DEVICE, torch.bfloat16)
+            for fmt in ("e4m3", "e5m2", "int8"):
+                for cd in ("float32", "bfloat16")[:1 if m == kept else 2]:
+                    for meta, gs in (("dual", None), ("folded", 8)):
+                        r = ref.check_kernels_nonfinite(x, TacoConfig(
+                            block_size=b, fmt=fmt, compute_dtype=cd,
+                            quant_group_size=gs, metadata=meta), rows)
+                        held["cases"] += r["kernels"]
+                        held["apart"] += r["apart"]
+            held["shapes"] += 1
+    torch.cuda.synchronize()
+    print(f"  {held['cases']} cases held on {held['shapes']} shapes (B = 256 "
+          f"and 64; {len(ref.NONFINITE_KINDS)} planted rows each), "
+          f"{held['apart']} values apart ({ref.NONFINITE_RULE})")
+    return held
+
+
 def phase_f1(kernels) -> dict:
     """One hop of each ablation configuration (``F1_SPECS``: encode to the
     wire, decode, peer-sum decode) on the card against the same hop on the
@@ -3439,6 +3479,9 @@ def main() -> None:
           "(kernels, or the plain versions by the route of kernels.ops) vs "
           "the CPU")
     phase_f1(kernels)
+    print(f"phase 1e ({time.monotonic() - t_start:.0f} s): K1-K7 on rows "
+          "holding NaN or inf vs their plain versions")
+    phase_nonfinite()
     print(f"phase 2 ({time.monotonic() - t_start:.0f} s): serving "
           "full-width qwen2-0.5b")
     served = phase_serve(kernels, [("baseline", "baseline", None),

@@ -9,11 +9,10 @@ and of CHECKOUT (each with its own ``ash_common.cuh``) and, with
 and 32 elements a lane that gives 1 .. 32 lanes a row, at an f32 compute
 dtype): one ``nvcc`` each with the flags of ``kernels/build.py``, started
 together.  Prints ptxas's registers and spills of the B = 256 kernels of
-each.  This checkout's libraries run through ``ash_compress.launch_blocks``
-/ ``launch_wire`` with a launch geometry (``ash_compress.geometry``); the
-parent's through its own C interface (one warp per row: no geometry), so
-the parent must be a checkout whose K1 / K2 have that interface (the one
-warp per row design with the f64 rotation).
+each.  Both libraries run through this checkout's
+``ash_compress.launch_blocks`` / ``launch_wire`` with its launch geometry
+(``ash_compress.geometry``), so the parent must be a checkout whose K1 /
+K2 have this C interface (several rows a warp, the geometry from Python).
 With ``chip_smoke.tp_like`` data in bf16 under ``taco`` (e4m3, one group a
 row, dual metadata; ``taco:folded`` for the sp hop):
 
@@ -35,7 +34,13 @@ row, dual metadata; ``taco:folded`` for the sp hop):
   instantiation of K1's row loop (``k7_sweep.sass_counts``: the
   instructions between the loop's backward branch and its target, every
   branch of the loop counted once, by opcode) per element, with the issue
-  bound they imply at the card's SM count and ``clocks.max.sm``.
+  bound they imply at the card's SM count and ``clocks.max.sm``;
+* rows holding NaN or inf (``ref.plant_nonfinite``, f32, 64 rows) under
+  ``taco``, ``taco:int8:g8:folded`` and ``taco:e5m2:g8``: each version's
+  K1 and K2 values apart from the plain version's on the planted rows;
+* the SASS of K1's and K2's row loops as each library launches them (bf16
+  in, f32 compute, at ``KEPT_E`` and ``LATENCY_E`` of every B), parent
+  beside this, per element.
 
 Prints the card's name and power limit first and last; writes every number
 to ``--out`` (JSON).
@@ -102,54 +107,6 @@ def build_libs(parent: pathlib.Path, sweep: bool) -> dict:
     return libs
 
 
-def bind_parent(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """The parent's C interface: one warp per row, no launch geometry."""
-    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
-        ctypes.c_longlong
-    lib.taco_compress_wire.argtypes = [p, p, i, i, i, ll, i, i, i, i, i, f,
-                                       f, f, f, f, p]
-    lib.taco_compress_wire.restype = i
-    lib.taco_compress_blocks.argtypes = [p, p, p, p, i, ll, i, i, i, i, f,
-                                         f, f, f, f, p]
-    lib.taco_compress_blocks.restype = i
-    return lib
-
-
-def parent_blocks(lib, blocks, cfg):
-    from repro_torch.kernels import ash_compress as ac
-    rows = blocks.shape[0]
-    g = ac.groups(cfg)
-    q = torch.empty((rows, cfg.block_size), dtype=cfg.format_spec.dtype,
-                    device=blocks.device)
-    a = torch.empty((rows,), dtype=torch.float32, device=blocks.device)
-    s = torch.empty((rows, g), dtype=torch.float32, device=blocks.device)
-    b, bf, inv = ac.kernel_args(cfg)
-    err = lib.taco_compress_blocks(
-        blocks.data_ptr(), q.data_ptr(), a.data_ptr(), s.data_ptr(),
-        int(blocks.dtype == torch.bfloat16), rows, b, bf,
-        ac.FMT_CODE[cfg.fmt], g, cfg.tau, cfg.eps, cfg.scale_eps,
-        cfg.format_spec.qmax, inv, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"parent K1 launch failed: CUDA error {err}")
-    return q, a, s
-
-
-def parent_wire(lib, x, cfg):
-    from repro_torch.kernels import ash_compress as ac
-    slots, n = x.shape
-    _, g, _, _, total = ac.wire_geometry(cfg, n)
-    wire = torch.empty((slots, total), dtype=torch.uint8, device=x.device)
-    b, bf, inv = ac.kernel_args(cfg)
-    err = lib.taco_compress_wire(
-        x.data_ptr(), wire.data_ptr(), int(x.dtype == torch.bfloat16), slots,
-        n, total, b, bf, ac.FMT_CODE[cfg.fmt], g,
-        int(cfg.metadata == "folded"), cfg.tau, cfg.eps, cfg.scale_eps,
-        cfg.format_spec.qmax, inv, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"parent K2 launch failed: CUDA error {err}")
-    return wire
-
-
 def apart(got: torch.Tensor, want: torch.Tensor, n: int, cfg) -> dict:
     """Wire rows against the plain version's: codes apart, their largest
     distance, metadata bytes apart."""
@@ -195,25 +152,16 @@ def main() -> None:
     print(sys.version.split()[0], torch.__version__, torch.version.cuda,
           f"{sms} SMs, clocks.max.sm {clock_mhz} MHz")
     libs = build_libs(args.parent, args.sweep)
-    loaded = {"this": ac.bind(ctypes.CDLL(str(libs["this"][0]))),
-              "parent": bind_parent(ctypes.CDLL(str(libs["parent"][0])))}
+    loaded = {name: ac.bind(ctypes.CDLL(str(libs[name][0])))
+              for name in ("this", "parent")}
     res = {"card": card, "sms": sms, "clock_mhz": clock_mhz,
            "registers": {}, "shapes": {}, "planted": {}}
     for name, (_, log) in libs.items():
-        if name == "parent":
-            regs = {fn: v for fn, v in cs.ptxas_registers(log).items()
-                    if "compress" in fn}
-            res["registers"][name] = {k: list(v) for k, v in regs.items()}
-            for fn, (r, sp) in sorted(regs.items()):
-                if "Li8ELb0E" in fn:                  # B = 256, f32 compute
-                    print(f"  parent {fn[:58]:58s} registers {r} spilled "
-                          f"{sp}")
-            continue
         regs = registers(log, cs)
         res["registers"][name] = {"/".join(map(str, k)): list(v)
                                   for k, v in regs.items()}
         for k, (r, sp) in sorted(regs.items()):
-            if k[2] == 256 and (name == "this" or k[4] == 0):
+            if k[2] == 256 and (name != "sweep" or k[4] == 0):
                 print(f"  {name:6s} {k[0]:6s} in={k[1]} B=256 E={k[3]} "
                       f"bf16_compute={k[4]}: registers {r} spilled {sp}")
 
@@ -229,11 +177,7 @@ def main() -> None:
 
     def kept_geo(b, dtype, rows):
         return ac.geometry(b, dtype, rows, sms)
-    fns = {"this": ours("this", kept_geo),
-           "parent": {"blocks": lambda x, cfg: parent_blocks(
-                          loaded["parent"], x, cfg),
-                      "wire": lambda x, cfg: parent_wire(
-                          loaded["parent"], x, cfg)}}
+    fns = {name: ours(name, kept_geo) for name in ("this", "parent")}
 
     gen = np.random.default_rng(1)
     sp_n = math.prod(cs.SP_HOPS[0][1])
@@ -322,6 +266,8 @@ def main() -> None:
             f"apart (max {r[k]['max_distance']})"
             for name, r in row.items() for k in r))
         res["planted"][spec] = row
+    res["nonfinite"] = nonfinite(fns, cs, ref, codec_from_spec)
+    res["sass_launched"] = launched_sass(libs, cs, ac)
     if args.sweep:
         res["sweep"] = sweep(libs["sweep"], cs, ac, ref, codec_from_spec,
                              sms, clock_mhz)
@@ -329,6 +275,69 @@ def main() -> None:
     args.out.write_text(json.dumps(res, indent=1, default=str))
     print(f"wrote {args.out}")
     print(card)
+
+
+def nonfinite(fns, cs, ref, codec_from_spec) -> dict:
+    """Each version's K1 and K2 on 64 f32 rows of 256 with
+    ``ref.NONFINITE_KINDS`` planted (``ref.plant_nonfinite``): the values
+    of the planted rows apart from the plain version's under
+    ``ref.NONFINITE_RULE``, and the NaN row's first scale and codes."""
+    gen = np.random.default_rng(32)
+    out = {}
+    for spec in ("taco", "taco:int8:g8:folded", "taco:e5m2:g8"):
+        cfg = codec_from_spec(spec).cfg
+        x, rows = ref.plant_nonfinite(cs.tp_like(gen, (64, 256)), gen)
+        x = x.to("cuda")
+        n = 32 * 256
+        want = ref.compress_blocks_ref(x, cfg)
+        wire = ref.wire_fields(ref.compress_wire_ref(x.reshape(2, n), cfg),
+                               n, cfg)
+        row = {}
+        for name, f in fns.items():
+            got = f["blocks"](x, cfg)
+            k2 = ref.wire_fields(f["wire"](x.reshape(2, n), cfg), n, cfg)
+            row[name] = {
+                "K1": int(ref.nonfinite_apart(got, want, cfg.format_spec)[
+                    rows].sum()),
+                "K2": int(ref.nonfinite_apart(k2, wire, cfg.format_spec)[
+                    rows].sum()),
+                "nan_row_s": float(got[2][rows[0], 0]),
+                "nan_row_codes": got[0][rows[0], :4].view(
+                    torch.uint8).tolist()}
+        print(f"non-finite {spec} (planted rows {rows}): " + "; ".join(
+            f"{name} K1 {r['K1']} K2 {r['K2']} values apart, the NaN row's "
+            f"s {r['nan_row_s']:g} and first bytes {r['nan_row_codes']}"
+            for name, r in row.items())
+            + f"; plain s {float(want[2][rows[0], 0]):g}, bytes "
+            f"{want[0][rows[0], :4].view(torch.uint8).tolist()}")
+        out[spec] = row
+    return out
+
+
+def launched_sass(libs, cs, ac) -> dict:
+    """SASS instructions an element of the row loop of every K1 / K2
+    instantiation the wrappers launch for bf16 input at an f32 compute
+    dtype (``KEPT_E`` and ``LATENCY_E`` of each B), parent beside this
+    (``k7_sweep.sass_counts``: every branch of the loop once)."""
+    import scripts.k7_sweep as k7
+    launched = {(b, e) for b in ac.BLOCK_SIZES
+                for e in (ac.KEPT_E[b], ac.LATENCY_E[b])}
+    out = {}
+    for name in ("parent", "this"):
+        for fn, c in k7.sass_counts(libs[name][0]).items():
+            m = MANGLED.search(fn)
+            if m and m.group(2) != "f" and m.group(5) == "0" and \
+                    (int(m.group(3)), int(m.group(4))) in launched:
+                key = f"K{1 if m.group(1) == 'blocks' else 2} " \
+                      f"B={m.group(3)} E={m.group(4)}"
+                out.setdefault(key, {})[name] = c["loop"] / int(m.group(4))
+    print("SASS of the launched row loops (bf16 in, f32 compute), "
+          "instructions an element: parent, this, this - parent")
+    for key, v in sorted(out.items()):
+        v["delta"] = v["this"] - v["parent"]
+        print(f"  {key:14s} {v['parent']:.3f} {v['this']:.3f} "
+              f"{v['delta']:+.3f}")
+    return out
 
 
 def sweep(built, cs, ac, ref, codec_from_spec, sms, clock_mhz) -> dict:

@@ -6,7 +6,8 @@ checkout's K7 and a device copy, on one card.
 Builds ``src/repro_torch/kernels/csrc/fwht_butterfly.cu`` with
 ``-DTACO_K7_SWEEP`` (every E of 8, 16 and 32 elements a lane that gives 1 ..
 32 lanes a row) and, with ``--parent``, the K7 source of another checkout
-(its own C interface: one warp per row, B/32 elements a lane), each by one
+(with this C interface: the launch geometry from Python; the parent runs
+at its kept E and grid, ``fwht_butterfly.geometry``), each by one
 ``nvcc`` with the flags of ``kernels/build.py``, and prints ptxas's
 registers and spills for every instantiation.  Then at the training hop's
 n = 7,340,032 (bf16 in, e4m3, ``chip_smoke.tp_like`` data from seed 2) and
@@ -18,10 +19,12 @@ variants, variants reversed, parent.  A bf16 ``copy_`` of n elements is
 timed first and last: the rate this card reaches at this size.  Counts the
 SASS instructions of each bf16 / e4m3 instantiation's row-group loop
 (``cuobjdump -sass``: the instructions between the loop's backward branch
-and its target) and of the parent's kernel, and prints each per element
+and its target) and of the parent's, and prints each per element
 with the issue bound they imply at the card's SM count and the clock
 ``nvidia-smi`` reports as ``clocks.max.sm``.  Prints the card's name and
-power limit first; writes every number to ``--out`` (JSON).
+power limit first; writes every number to ``--out`` (JSON).  With
+``--parent``, also holds both versions on 64 rows holding NaN or inf
+(``ref.plant_nonfinite``) and prints their values apart.
 """
 from __future__ import annotations
 
@@ -48,8 +51,6 @@ E_SWEEP = (8, 16, 32)
 #: the mangled instantiation <Tin, B, E, FMT> of the kernel
 MANGLED = re.compile(r"compress_blocks_butterfly_kernelI(13__nv_bfloat16|f)"
                      r"Li(\d+)ELi(\d+)ELi(\d+)E")
-PARENT_MANGLED = re.compile(r"compress_blocks_butterfly_kernelI"
-                            r"(13__nv_bfloat16|f)Li(\d+)E")
 
 
 def smi(query: str) -> str:
@@ -139,27 +140,32 @@ def sass_counts(lib: pathlib.Path) -> dict:
     return out
 
 
-def parent_call(lib, blocks, cfg):
-    from repro_torch.kernels.ash_compress import FMT_CODE
-    rows, b = blocks.shape
-    fmt = cfg.format_spec
-    q = torch.empty((rows, b), dtype=fmt.dtype, device=blocks.device)
-    a = torch.empty((rows,), dtype=torch.float32, device=blocks.device)
-    s = torch.empty((rows, 1), dtype=torch.float32, device=blocks.device)
-    err = lib.taco_compress_blocks_butterfly(
-        blocks.data_ptr(), q.data_ptr(), a.data_ptr(), s.data_ptr(),
-        int(blocks.dtype == torch.bfloat16), b, rows, FMT_CODE[cfg.fmt],
-        cfg.tau, cfg.eps, fmt.qmax, float(np.float32(1.0 / b ** 0.5)),
-        torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"parent K7 launch failed: CUDA error {err}")
-    return q, a, s
-
-
 def held(out, want, cfg, n) -> dict:
     from repro_torch.kernels import ref
     return ref.check_wire_parity(ref.blocks_to_wire(*out, cfg, 1, n),
                                  ref.blocks_to_wire(*want, cfg, 1, n), n, cfg)
+
+
+def nonfinite(parent, sweep, sms, cs, fb, ref, config) -> dict:
+    """The parent's K7 and this K7 (kept E and grid) on 64 f32 rows with
+    ``ref.NONFINITE_KINDS`` planted, at B = 256 and every format: values
+    of the planted rows apart from the plain version's under
+    ``ref.NONFINITE_RULE``."""
+    gen = np.random.default_rng(33)
+    x, rows = ref.plant_nonfinite(cs.tp_like(gen, (64, 256)), gen)
+    x = x.to("cuda")
+    geo = fb.geometry(256, x.dtype, 64, sms)
+    out = {}
+    for fmt in ("e4m3", "e5m2", "int8"):
+        cfg = config(fmt=fmt)
+        want = ref.compress_blocks_butterfly_ref(x, cfg)
+        out[fmt] = {name: int(ref.nonfinite_apart(
+            fb.launch(lib, x, cfg, geo), want, cfg.format_spec)[rows].sum())
+            for name, lib in (("parent", parent), ("this", sweep))}
+        print(f"non-finite rows {rows}, {fmt}: values apart from the plain "
+              f"version: parent {out[fmt]['parent']}, this "
+              f"{out[fmt]['this']}")
+    return out
 
 
 def main() -> None:
@@ -188,11 +194,7 @@ def main() -> None:
     sweep = fb.bind(ctypes.CDLL(str(libs["sweep"][0])))
     parent = None
     if "parent" in libs:
-        parent = ctypes.CDLL(str(libs["parent"][0]))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        parent.taco_compress_blocks_butterfly.argtypes = [
-            p, p, p, p, i, i, ctypes.c_longlong, i, f, f, f, f, p]
-        parent.taco_compress_blocks_butterfly.restype = i
+        parent = fb.bind(ctypes.CDLL(str(libs["parent"][0])))
 
     n = cs.TRAIN_N
     res = {"card": card, "sms": sms, "clock_mhz": clock_mhz, "n": n,
@@ -230,20 +232,22 @@ def main() -> None:
                                     "meta_rel_err": stats["meta_rel_err"],
                                     "ms": []}
         if parent is not None:
-            stats = held(parent_call(parent, x, cfg), want, cfg, n)
+            kept = fb.geometry(b, x.dtype, m, sms)
+
+            def parent_call():
+                return fb.launch(parent, x, cfg, kept)
+            stats = held(parent_call(), want, cfg, n)
             row["parent"] = {"flipped": stats["flipped"],
                              "meta_rel_err": stats["meta_rel_err"], "ms": []}
             row["parent"]["ms"].append(cs.kernel_ms(
-                lambda: parent_call(parent, x, cfg),
-                "compress_blocks_butterfly_kernel")[0])
+                parent_call, "compress_blocks_butterfly_kernel")[0])
         order = list(variants)
         for key in order + order[::-1]:
             row["variants"][key]["ms"].append(cs.kernel_ms(
                 variants[key][1], "compress_blocks_butterfly_kernel")[0])
         if parent is not None:
             row["parent"]["ms"].append(cs.kernel_ms(
-                lambda: parent_call(parent, x, cfg),
-                "compress_blocks_butterfly_kernel")[0])
+                parent_call, "compress_blocks_butterfly_kernel")[0])
         nbytes = 3 * n + 8 * m
         print(f"B={b} rows={m} bound {bound_ms:.7f} ms")
         if parent is not None:
@@ -273,6 +277,9 @@ def main() -> None:
         res["by_b"][b] = row
         del x, want
         torch.cuda.empty_cache()
+    if parent is not None:
+        res["nonfinite"] = nonfinite(parent, sweep, sms, cs, fb, ref,
+                                     TacoConfig)
     res["copy_ms_last"] = cs.device_ms(lambda: dst.copy_(src))
     copy_ms = (res["copy_ms_first"] + res["copy_ms_last"]) / 2
     print(f"copy_ bf16 n={n}: {res['copy_ms_last']:.7f} ms; "
@@ -283,27 +290,18 @@ def main() -> None:
     for name, counts in sass.items():
         for fn_name, c in sorted(counts.items()):
             m = MANGLED.search(fn_name)
-            if name == "sweep" and m and m.group(1) != "f" and \
-                    m.group(4) == "0":
-                b, e = int(m.group(2)), int(m.group(3))
-                per = c["loop"] / e
-            elif name == "parent" and PARENT_MANGLED.search(fn_name):
-                pm_ = PARENT_MANGLED.search(fn_name)
-                if pm_.group(1) == "f":
-                    continue
-                e = int(pm_.group(2))
-                b = 32 * e
-                per = c["main"] / e
-            else:
+            if not m or m.group(1) == "f" or m.group(4) != "0":
                 continue
+            b, e = int(m.group(2)), int(m.group(3))
+            per = c["loop"] / e
             issue_ms = n * per / 32 / (4 * sms * clock_mhz * 1e6) * 1e3
             c.update(b=b, e=e, per_element=per, issue_bound_ms=issue_ms)
             print(f"  {name:6s} B={b:3d} E={e:2d} loop {c['loop']:4d} main "
                   f"{c['main']:4d}  {per:.2f} an element  issue bound "
                   f"{issue_ms:.7f} ms")
-            if name == "parent" or e == fb.KEPT_E[b]:
-                print(f"    {'kept' if name == 'sweep' else name}, the "
-                      "loop's (or body's) instructions by opcode: "
+            if e == fb.KEPT_E[b]:
+                print(f"    {name} at the kept E, the loop's "
+                      "instructions by opcode: "
                       + ", ".join(f"{k} {v}" for k, v in
                                   list(c["loop_ops"].items())[:12]))
     args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -13,7 +13,7 @@ from typing import Literal
 import torch
 
 __all__ = ["FORMATS", "FormatName", "FormatSpec", "get_format",
-           "quantize_ds", "dequantize_ds"]
+           "int8_codes", "quantize_ds", "dequantize_ds"]
 
 FormatName = Literal["e4m3", "e5m2", "int8"]
 
@@ -53,6 +53,15 @@ def _group(z: torch.Tensor, group_size: int) -> torch.Tensor:
     return z.reshape(m, b // group_size, group_size)
 
 
+def int8_codes(scaled: torch.Tensor) -> torch.Tensor:
+    """Clipped quotients -> int8 codes, rounded half to even like
+    ``jnp.round``; NaN gives 0, as the JAX package's cast and the kernels'
+    ``__float2int_rn`` give it (a float NaN's conversion to int8 is not
+    defined in C++: x86 gives 0 only through its INT_MIN's low byte)."""
+    return torch.round(torch.where(scaled.isnan(), 0.0, scaled)).to(
+        torch.int8)
+
+
 def quantize_ds(z: torch.Tensor, fmt: FormatSpec, *,
                 group_size: int | None = None,
                 eps: float = 1e-30) -> tuple[torch.Tensor, torch.Tensor]:
@@ -67,10 +76,7 @@ def quantize_ds(z: torch.Tensor, fmt: FormatSpec, *,
     s = zg.abs().amax(dim=-1) / fmt.qmax
     s = torch.clamp_min(s, eps)
     scaled = torch.clamp(zg / s[..., None], -fmt.qmax, fmt.qmax)
-    if fmt.is_float:
-        q = scaled.to(fmt.dtype)
-    else:
-        q = torch.round(scaled).to(torch.int8)
+    q = scaled.to(fmt.dtype) if fmt.is_float else int8_codes(scaled)
     return q.reshape(m, b), s
 
 

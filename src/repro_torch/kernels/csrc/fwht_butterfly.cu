@@ -130,6 +130,21 @@ __device__ __forceinline__ void unpack(const Words<__nv_bfloat16, E>& r,
   }
 }
 
+// The larger and the smaller of a and b, NaN where either is NaN (PTX
+// max.NaN / min.NaN: one FMNMX.NAN), as the plain version's torch.amax,
+// clamp_min and clamp; ash_common.cuh has the same two.
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float fmin_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // Two codes, the first in the low byte.
 template <int FMT>
 __device__ __forceinline__ uint32_t cast2(float a, float b) {
@@ -199,29 +214,33 @@ __device__ __forceinline__ void compress_segment(float (&v)[E], int lane,
       v[j] = fmaf(sg, v[j], __shfl_xor_sync(kFull, v[j], m));
   }
 
-  // reduction 2: the block's max magnitude -> one scale
+  // reduction 2: the block's max magnitude -> one scale; the maxima and
+  // the floor keep NaN, as the plain version's (a row holding a NaN or an
+  // inf rotates to NaN everywhere: s NaN, fp8 codes NaN, int8 codes 0)
   float mx = 0.f;
 #pragma unroll
   for (int j = 0; j < E; ++j) {
     v[j] = __fmul_rn(v[j], inv_sqrt_b);
-    mx = fmaxf(mx, fabsf(v[j]));
+    mx = fmax_nan(mx, fabsf(v[j]));
   }
 #pragma unroll
   for (int o = L / 2; o > 0; o >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
-  s = fmaxf(mx / qmax, 1e-30f);
+    mx = fmax_nan(mx, __shfl_xor_sync(kFull, mx, o));
+  s = fmax_nan(mx / qmax, 1e-30f);
   alpha = a;
 
   // z / s is an IEEE division, as the reference's.  The fp8 casts saturate
   // to the format's largest finite value, which is its qmax, so clipping
-  // first gives the same codes for finite z; int8 is clipped
+  // first gives the same codes for finite z; int8 is clipped, NaN kept
+  // (__float2int_rn then gives 0)
 #pragma unroll
   for (int k = 0; k < E / 4; ++k) {
     float t[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       t[i] = v[4 * k + i] / s;
-      if constexpr (FMT == kInt8) t[i] = fminf(fmaxf(t[i], -qmax), qmax);
+      if constexpr (FMT == kInt8)
+        t[i] = fmin_nan(fmax_nan(t[i], -qmax), qmax);
     }
     c[k] = cast2<FMT>(t[0], t[1]) | (cast2<FMT>(t[2], t[3]) << 16);
   }

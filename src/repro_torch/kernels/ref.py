@@ -44,13 +44,15 @@ def plain_bits(cfg) -> bool:
 
 def _compress_blocks_f32(blocks: torch.Tensor, cfg):
     """K1's function at an f32 compute dtype, in one order on every device
-    (each step rounded once, as ``compress_row`` in csrc/ash_common.cuh):
+    (each step rounded once, as ``compress_segment`` in csrc/ash_common.cuh):
     sigma = sqrt(pairwise_sum(g^2) / B + eps), alpha = tau / sigma, z =
     fwht(alpha g) * (1/sqrt(B)) in f64 on the f32 products alpha g, rounded
     once to f32 (the values of an f64 matmul rounded once), per group s =
     max(max|z| / qmax, scale_eps), then the cast (fp8) or round half to
-    even (int8) of clip(z / s, +-qmax).  The row's bits do not depend on
-    the row count or the device."""
+    even (int8) of clip(z / s, +-qmax), NaN's int8 code 0.  The maxima,
+    the floor and the clip keep NaN, so a row holding a NaN or an inf has
+    NaN scales (and fp8 codes).  The row's bits do not depend on the row
+    count or the device."""
     fmt = cfg.format_spec
     m, b = blocks.shape
     g = blocks.float()
@@ -70,7 +72,7 @@ def _compress_blocks_f32(blocks: torch.Tensor, cfg):
     s = torch.clamp_min(zg.abs().amax(dim=-1) / qmax, cfg.scale_eps)
     scaled = torch.clamp(zg / s[..., None], -fmt.qmax, fmt.qmax)
     q = scaled.to(fmt.dtype) if fmt.is_float else \
-        torch.round(scaled).to(torch.int8)
+        quant_mod.int8_codes(scaled)
     return q.reshape(m, b), alpha, s
 
 
@@ -89,10 +91,8 @@ def compress_blocks_ref(blocks: torch.Tensor, cfg):
         s_val = torch.clamp_min(z.abs().amax() / fmt.qmax, cfg.scale_eps)
         s = s_val.repeat(blocks.shape[0], 1)     # owns its storage
         scaled = torch.clamp(z / s_val, -fmt.qmax, fmt.qmax)
-        if fmt.is_float:
-            q = scaled.to(fmt.dtype)
-        else:
-            q = torch.round(scaled).to(torch.int8)
+        q = scaled.to(fmt.dtype) if fmt.is_float else \
+            quant_mod.int8_codes(scaled)
         return q, alpha.float(), s.float()
     q, s = quant_mod.quantize_ds(z, fmt, group_size=cfg.quant_group_size,
                                  eps=cfg.scale_eps)
@@ -149,7 +149,9 @@ def compress_blocks_butterfly_ref(blocks: torch.Tensor, cfg):
     fmt = cfg.format_spec
     b = blocks.shape[-1]
     g = blocks.float()
-    sigma = torch.sqrt(pairwise_sum(g * g) / b + cfg.eps)
+    # the root in f64, rounded once (the kernel's sqrtf), as
+    # _compress_blocks_f32 takes it
+    sigma = torch.sqrt((pairwise_sum(g * g) / b + cfg.eps).double()).float()
     alpha = torch.div(torch.tensor(cfg.tau, dtype=torch.float32,
                                    device=g.device), sigma)
     z = ash_mod.fwht(alpha[:, None] * g) * float(np.float32(1.0 / b ** 0.5))
@@ -159,7 +161,7 @@ def compress_blocks_butterfly_ref(blocks: torch.Tensor, cfg):
     s = torch.clamp_min(z.abs().amax(dim=-1) / qmax, BUTTERFLY_SCALE_FLOOR)
     scaled = torch.clamp(z / s[:, None], -fmt.qmax, fmt.qmax)
     q = scaled.to(fmt.dtype) if fmt.is_float else \
-        torch.round(scaled).to(torch.int8)
+        quant_mod.int8_codes(scaled)
     return q, alpha, s[:, None]
 
 
@@ -371,3 +373,169 @@ def check_hop_parity(codec, x: torch.Tensor, device) -> dict:
                                  f"{err} > {rtol}")
         stats[f"{name}_rel_err"] = err
     return stats
+
+
+# --------------------------------------------------------------------------
+# rows holding NaN or inf
+# --------------------------------------------------------------------------
+# A row holding a NaN, or an inf (whose sum of squares gives alpha 0, and
+# 0 inf is NaN), rotates to NaN at every element: its scales are NaN, its
+# fp8 codes NaN bytes and its int8 codes 0 (quant.int8_codes), in every
+# compress kernel and plain version of both packages.  A compress kernel
+# is held to its plain version there by NONFINITE_RULE, and its decoded
+# rows by check_decoded_nonfinite.
+
+#: what plant_nonfinite writes into its rows, in order
+NONFINITE_KINDS = ("nan", "+inf", "-inf", "3e19", "zero")
+NONFINITE_RULE = ("alpha and s bit for bit, or NaN on both sides; int8 "
+                  "codes equal; fp8 bytes equal, or a NaN byte of the "
+                  "format on both sides")
+
+
+def plant_nonfinite(x: torch.Tensor, gen):
+    """A copy of the rows ``x`` (M, B), M >= 5, with distinct rows drawn
+    from the numpy generator ``gen`` made, in the order of
+    :data:`NONFINITE_KINDS`: one element NaN, one +inf, one -inf (at drawn
+    columns); zeros but one element of 3e19 (its square overflows f32:
+    sigma inf, alpha 0, every code 0); all zeros.  Returns (the copy, the
+    rows as a list)."""
+    m, b = x.shape
+    rows = [int(r) for r in gen.choice(m, len(NONFINITE_KINDS),
+                                       replace=False)]
+    x = x.clone()
+    cols = gen.integers(0, b, size=len(NONFINITE_KINDS))
+    for r, c, val in zip(rows[:3], cols, (float("nan"), float("inf"),
+                                          float("-inf"))):
+        x[r, int(c)] = val
+    x[rows[3]] = 0
+    x[rows[3], int(cols[3])] = 3e19
+    x[rows[4]] = 0
+    return x, rows
+
+
+def nonfinite_apart(got, want, fmt) -> torch.Tensor:
+    """Per row, how many codes, scales and alphas of ``got`` = (q (M, B),
+    alpha (M,) or None, s (M, G)) lie apart from ``want``'s under
+    :data:`NONFINITE_RULE` (a NaN's byte is the card's own canonical NaN
+    or the sign of the NaN PyTorch's cast is given; both are NaN)."""
+    def same_f32(g, w):
+        g, w = g.cpu().float(), w.cpu().float()
+        return (g.view(torch.int32) == w.view(torch.int32)) | \
+            (g.isnan() & w.isnan())
+
+    def fp8_nan(q):                 # e4m3 S.1111.111, e5m2 S.11111.xx, xx > 0
+        mag = q.view(torch.uint8).to(torch.int32) & 0x7F
+        return mag == 0x7F if fmt.name == "e4m3" else mag > 0x7C
+
+    qg, qw = got[0].cpu(), want[0].cpu()
+    m = qg.shape[0]
+    if fmt.is_float:
+        ok = (qg.view(torch.uint8) == qw.view(torch.uint8)) | \
+            (fp8_nan(qg) & fp8_nan(qw))
+    else:
+        ok = qg == qw
+    apart = (~ok).reshape(m, -1).sum(-1)
+    apart += (~same_f32(got[2].reshape(m, -1),
+                        want[2].reshape(m, -1))).sum(-1)
+    if got[1] is not None or want[1] is not None:
+        apart += (~same_f32(got[1], want[1])).reshape(m).long()
+    return apart
+
+
+def check_decoded_nonfinite(got: torch.Tensor, want: torch.Tensor,
+                            cfg=None) -> float:
+    """Decoded values of rows that may hold NaN or inf: NaN at the same
+    elements, each inf equal, the finite rest by
+    :func:`check_decoded_close`; returns its max abs error."""
+    got, want = got.cpu().float(), want.cpu().float()
+    nan_apart = int((got.isnan() != want.isnan()).sum())
+    inf = got.isinf() | want.isinf()
+    if nan_apart or not torch.equal(got[inf], want[inf]):
+        raise AssertionError(f"NaN at {nan_apart} elements apart, infs at "
+                             f"{int((got[inf] != want[inf]).sum())}")
+    fin = got.isfinite() & want.isfinite()
+    return check_decoded_close(got[fin], want[fin], cfg)
+
+
+def _rows_wire(q, alpha, s, cfg) -> torch.Tensor:
+    """Rows (q, alpha, s) as one wire row of ``cfg``'s layout; alpha None:
+    folded fields, s already s / alpha."""
+    if alpha is not None:
+        return blocks_to_wire(q, alpha, s, cfg, 1, q.numel())
+    from repro_torch.core import codecs, taco
+    pay = taco._storage_to_wire(q, cfg.format_spec).reshape(1, -1)
+    return codecs.pack_wire((pay, s.reshape(1, -1)), _layout(cfg, q.numel()))
+
+
+def wire_fields(wire: torch.Tensor, n: int, cfg) -> tuple:
+    """Wire rows -> (q (M, B), alpha (M,) or None, scale field (M, G)) a
+    block row (the scale field: s, or s / alpha when folded)."""
+    q, s, a = _block_fields(wire, n, cfg)
+    return (q.reshape(-1, cfg.block_size), None if a is None
+            else a.reshape(-1), s.reshape(q.shape[0] * q.shape[1], -1))
+
+
+def check_compress_nonfinite(got, want, cfg, planted_rows,
+                             bits: bool) -> int:
+    """A compress kernel's ``got`` = (q (M, B), alpha (M,) or None, s (M,
+    G)) against its plain version's ``want``, on rows of which
+    ``planted_rows`` hold :data:`NONFINITE_KINDS`: those rows under
+    :data:`NONFINITE_RULE`, and so every row where the kernel gives the
+    plain version's ``bits`` (K1 and K2 where :func:`plain_bits`, K7); the
+    other rows under the parity rule.  Raises AssertionError; returns the
+    values apart (0)."""
+    apart = nonfinite_apart(got, want, cfg.format_spec)
+    m = len(apart)
+    exact = list(range(m)) if bits else list(planted_rows)
+    bad = int(apart[exact].sum())
+    if bad:
+        raise AssertionError(
+            f"{bad} values apart in rows {[r for r in exact if apart[r]]} "
+            f"({NONFINITE_RULE})")
+    if not bits:
+        keep = [r for r in range(m) if r not in planted_rows]
+        g, w = (_rows_wire(o[0][keep], None if o[1] is None else o[1][keep],
+                           o[2].reshape(m, -1)[keep], cfg)
+                for o in (got, want))
+        check_wire_parity(g, w, len(keep) * got[0].shape[1], cfg)
+    return bad
+
+
+def check_kernels_nonfinite(x: torch.Tensor, cfg, planted_rows) -> dict:
+    """K1-K7 on the rows ``x`` (M, B), M even, of which ``planted_rows``
+    hold :data:`NONFINITE_KINDS` (``plant_nonfinite``), against their plain
+    versions on ``x``'s device: K1 (``compress_blocks``), K2
+    (``compress_wire`` of the rows as two slots) and K7
+    (``compress_blocks_butterfly``, which reads only ``cfg``'s tau, eps
+    and format) by :func:`check_compress_nonfinite`; K3 and K4 (the rows
+    as two peers) on the plain version's blocks and K5 and K6 on its wire
+    by :func:`check_decoded_nonfinite`.  Returns the kernels held and the
+    values apart (raises where any is)."""
+    from repro_torch.kernels import ash_compress, ash_decompress
+    from repro_torch.kernels import fwht_butterfly
+    b, m = cfg.block_size, x.shape[0]
+    n = m // 2 * b
+    bits = plain_bits(cfg)
+    qp, ap, sp = want = compress_blocks_ref(x, cfg)
+    apart = check_compress_nonfinite(ash_compress.compress_blocks(x, cfg),
+                                     want, cfg, planted_rows, bits)
+    wire = compress_wire_ref(x.reshape(2, n), cfg)
+    apart += check_compress_nonfinite(
+        wire_fields(ash_compress.compress_wire(x.reshape(2, n), cfg), n, cfg),
+        wire_fields(wire, n, cfg), cfg, planted_rows, bits)
+    apart += check_compress_nonfinite(
+        fwht_butterfly.compress_blocks_butterfly(x, cfg),
+        compress_blocks_butterfly_ref(x, cfg), cfg, planted_rows, True)
+    alpha = None if cfg.metadata == "folded" else ap
+    scale = sp / ap[:, None] if alpha is None else sp
+    peers = (qp.reshape(2, m // 2, b), scale.reshape(2, m // 2, -1),
+             None if alpha is None else alpha.reshape(2, m // 2))
+    for kern, plain, args in (
+            (ash_decompress.decompress_blocks, decompress_blocks_ref,
+             (qp, scale, alpha)),
+            (ash_decompress.decompress_reduce, decompress_reduce_ref, peers),
+            (ash_decompress.decompress_wire, decompress_wire_ref, (wire, n)),
+            (ash_decompress.decompress_reduce_wire,
+             decompress_reduce_wire_ref, (wire, n))):
+        check_decoded_nonfinite(kern(*args, cfg), plain(*args, cfg), cfg)
+    return {"kernels": 7, "apart": apart}

@@ -297,3 +297,40 @@ def test_kept_lane_split_sums_squares_as_the_plain_version(b, rng):
             np.testing.assert_array_equal(
                 _split_sum_of_squares(x, e).view(np.int32),
                 want.view(np.int32))
+
+
+def _alpha_model(x: np.ndarray, tau: float, eps: float) -> np.ndarray:
+    """K7's alpha in numpy f32: the squares' pairwise tree, / B, + eps,
+    numpy's correctly rounded f32 root, tau / sigma (each step one IEEE
+    rounding, as the kernel's sqrtf)."""
+    sq = x * x
+    while sq.shape[-1] > 1:
+        sq = sq[..., 0::2] + sq[..., 1::2]
+    v = sq[..., 0] / np.float32(x.shape[-1]) + np.float32(eps)
+    return np.float32(tau) / np.sqrt(v)
+
+
+def test_plain_alpha_takes_the_correctly_rounded_root():
+    """K7's plain alpha is the numpy model's bit for bit on rows where
+    PyTorch's f32 ``sqrt`` on the CPU is off (its root is not always
+    correctly rounded there): rows found by a seeded search of TP-like
+    draws, whose torch root of the plain version's own sigma^2 differs
+    from the correctly rounded one."""
+    gen = np.random.default_rng(152)
+    cfg = TacoConfig()
+    found = []
+    for _ in range(64):
+        x = tp_like(gen, (4096, 256))
+        v = (ref.pairwise_sum(torch.from_numpy(x) ** 2) / 256
+             + cfg.eps).numpy()
+        off = torch.sqrt(torch.from_numpy(v)).numpy() != np.sqrt(v)
+        found.append(x[off])
+        if sum(len(f) for f in found) >= 16:
+            break
+    x = np.concatenate(found)
+    assert len(x) >= 16, "no row where torch's f32 root is off"
+    _, a, _ = fwht_butterfly.compress_blocks_butterfly(torch.from_numpy(x),
+                                                       cfg)
+    want = _alpha_model(x, cfg.tau, cfg.eps)
+    np.testing.assert_array_equal(a.numpy().view(np.int32),
+                                  want.view(np.int32))

@@ -1141,3 +1141,64 @@ def test_sp_hops_through_a_one_rank_nccl_group(card, tmp_path, rng,
                                                window=None), core)
     finally:
         dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------
+# rows holding NaN or inf (ref.plant_nonfinite)
+# --------------------------------------------------------------------------
+
+def _nonfinite_rows(card, b, dtype, rng):
+    """Row counts of a non-finite case and the rows: 64 (K1 / K2 at
+    ``LATENCY_E``; enough finite values for the bf16 decode rule, a norm)
+    and, for bf16 input, enough rows that K1 / K2 at an f32 compute dtype
+    take ``KEPT_E`` (a ragged last warp); each with ``ref.NONFINITE_KINDS``
+    planted at drawn rows."""
+    counts = [64]
+    if dtype == torch.bfloat16:
+        sms = ash_compress.sms(card.index or 0)
+        r = 32 * ash_compress.KEPT_E[b] // b
+        counts.append(sms * (ash_compress.THREADS // 32) * r + 2)
+        assert ash_compress.geometry(b, dtype, counts[-1], sms).e == \
+            ash_compress.KEPT_E[b]
+    for m in counts:
+        x, rows = ref.plant_nonfinite(torch.from_numpy(tp_like(rng, (m, b))),
+                                      rng)
+        yield x.to(card, dtype), rows
+
+
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("metadata", ["dual", "folded"])
+@pytest.mark.parametrize("gs", [None, 8])
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2", "int8"])
+@pytest.mark.parametrize("b", [256, 64])
+def test_kernels_on_nonfinite_rows(card, b, fmt, cd, gs, metadata, in_dtype,
+                                   rng):
+    """K1, K2 and K7 give their plain version's alpha, s and codes on rows
+    holding NaN, +-inf, an element whose square overflows, and zeros
+    (ref.NONFINITE_RULE: a NaN byte may be another NaN of the format), and
+    every row's bits where they give the plain version's (K1 and K2 at an
+    f32 compute dtype, K7 always; the parity rule for K1 and K2's ordinary
+    rows at bf16); K3-K6 on the plain version's outputs give NaN where it
+    does and the rest within the decode tolerance
+    (ref.check_kernels_nonfinite)."""
+    from repro_torch.core.taco import TacoConfig
+    cfg = TacoConfig(block_size=b, fmt=fmt, compute_dtype=cd,
+                     quant_group_size=gs, metadata=metadata)
+    for x, rows in _nonfinite_rows(card, b, in_dtype, rng):
+        assert ref.check_kernels_nonfinite(x, cfg, rows)["apart"] == 0
+
+
+def test_butterfly_plain_version_on_card_equals_cpu(card):
+    """K7's plain version gives the same bits on the card and on the CPU
+    (its root in f64, rounded once: PyTorch's CPU f32 sqrt is not always
+    correctly rounded), at the training hop's 28,672 TP-like bf16 rows of
+    B = 256."""
+    from repro_torch.core.taco import TacoConfig
+    cfg = TacoConfig()
+    x = torch.from_numpy(tp_like(np.random.default_rng(152),
+                                 (28672, 256))).to(torch.bfloat16)
+    want = ref.compress_blocks_butterfly_ref(x, cfg)
+    got = ref.compress_blocks_butterfly_ref(x.to(card), cfg)
+    for name, g, w in zip(("q", "alpha", "s"), got, want):
+        assert torch.equal(_bits(g.cpu()), _bits(w)), name
